@@ -1,0 +1,71 @@
+"""Carry the JAX package's host-side state across to the port.
+
+The parity tests feed identical inputs to both packages.  These helpers
+read a ``repro`` object by class and field name — they never import
+``repro`` — and rebuild it from the port's own classes:
+
+* :func:`graph_from_reference` — a ``repro.graph.csr.TemporalGraph``
+  (numpy fields) becomes a :class:`repro_torch.graph.csr.TemporalGraph`;
+* :func:`spec_from_reference` — a ``repro.core.spec.PatternSpec`` with its
+  ``Stage`` / ``Window`` / ``TimeBound`` / ``NodeRef`` / ``Neigh`` /
+  ``SetExpr`` / ``StageT`` objects becomes the port's dataclasses.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core import spec as S
+from repro_torch.graph.csr import TemporalGraph
+
+__all__ = ["graph_from_reference", "spec_from_reference"]
+
+# classes rebuilt field by field, looked up by the reference's class name
+_SPEC_CLASSES = {
+    cls.__name__: cls
+    for cls in (
+        S.PatternSpec,
+        S.Stage,
+        S.Window,
+        S.TimeBound,
+        S.NodeRef,
+        S.Neigh,
+        S.SetExpr,
+        S.StageT,
+    )
+}
+
+
+def graph_from_reference(g) -> TemporalGraph:
+    """The port's TemporalGraph with the same numpy arrays and scalars."""
+    kw = {}
+    for f in dataclasses.fields(TemporalGraph):
+        v = getattr(g, f.name)
+        kw[f.name] = np.asarray(v) if isinstance(v, np.ndarray) else v
+    return TemporalGraph(**kw)
+
+
+def _convert(obj):
+    if obj is None or isinstance(obj, (bool, int, str)):
+        return obj
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, tuple):
+        return tuple(_convert(x) for x in obj)
+    name = type(obj).__name__
+    if name == "_SeedT":
+        return S.SEED_T
+    cls = _SPEC_CLASSES.get(name)
+    if cls is None or not dataclasses.is_dataclass(obj):
+        raise TypeError(f"cannot convert {obj!r} ({name}) to a port spec object")
+    return cls(
+        **{f.name: _convert(getattr(obj, f.name)) for f in dataclasses.fields(cls)}
+    )
+
+
+def spec_from_reference(spec) -> S.PatternSpec:
+    """The port's PatternSpec equal field for field to the reference's."""
+    if type(spec).__name__ != "PatternSpec":
+        raise TypeError(f"expected a PatternSpec, got {type(spec).__name__}")
+    return _convert(spec)

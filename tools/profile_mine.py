@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's portfolio mine spends its time on the card.
+
+    python3 tools/profile_mine.py --scale 282   # needs one CUDA card
+
+Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
+``repro_torch.api.MiningSession`` and reports, on the card it runs on:
+
+1. the cold mine's host spans (``repro_torch.obs.trace``): schedule build,
+   staging, launch dispatch, and the gathers that wait for the device;
+2. a warm mine with a device sync after every kernel call, attributed to
+   (pattern, strategy, bucket dims): the device-inclusive wall of each
+   strategy, and how much of it the ``intersect_count`` kernel took;
+3. a warm mine under ``torch.profiler``: the top CUDA kernels by device
+   time, and the device's busy share of the mine's wall (kernel time
+   over wall; one stream, so kernels do not overlap).
+
+Prints one JSON object per part and writes them all to
+``build/profile_mine.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+STRATS = ("bs1", "bs2", "pw", "plain")
+TOP = 20  # rows kept in each ranking
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=float, default=282.0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_mine.py: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core.compiler as TC
+    from repro_torch.api import MiningSession
+    from repro_torch.core.patterns import feature_pattern_set
+    from repro_torch.data.synth_aml import generate_aml_dataset
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+    from repro_torch.obs import trace as obs_trace
+
+    report = {"scale": args.scale, "card": torch.cuda.get_device_name(0)}
+    g = generate_aml_dataset("HI-Small", seed=0, scale=args.scale).graph
+    session = MiningSession(g, window=4096).register(*feature_pattern_set("full"))
+
+    # ---- 1. cold mine, host spans --------------------------------------
+    tracer = obs_trace.get_tracer()
+    tracer.reset()
+    tracer.enable()
+    t0 = time.perf_counter()
+    session.mine()
+    cold_s = time.perf_counter() - t0
+    tracer.disable()
+    spans = collections.defaultdict(float)
+    for ev in tracer.spans():
+        spans[ev["name"]] += ev["dur_ns"] / 1e9
+    report["cold"] = {"wall_s": cold_s, "span_s": dict(spans)}
+    print(json.dumps({"cold": report["cold"]}), flush=True)
+
+    # ---- 2. warm mine, synced per kernel call --------------------------
+    walls = collections.defaultdict(float)
+    calls = collections.Counter()
+    ic_walls = collections.defaultdict(float)
+    label = [None]
+    orig_kernel = TC.CompiledPattern._kernel
+    orig_ic = ic_ops.intersect_count
+
+    def timed_kernel(self, strat, dims, sweeps, branch=False):
+        fn = orig_kernel(self, strat, dims, sweeps, branch)
+        key = f"{self.spec.name}:{STRATS[strat]}{'/branch' if branch else ''}:{dims}"
+
+        def run(*a):
+            label[0] = key
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - s
+            calls[key] += 1
+            return out
+
+        return run
+
+    def timed_ic(*a, **kw):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = orig_ic(*a, **kw)
+        torch.cuda.synchronize()
+        ic_walls[label[0]] += time.perf_counter() - s
+        return out
+
+    TC.CompiledPattern._kernel = timed_kernel
+    ic_ops.intersect_count = timed_ic
+    try:
+        t0 = time.perf_counter()
+        session.mine()
+        synced_s = time.perf_counter() - t0
+    finally:
+        TC.CompiledPattern._kernel = orig_kernel
+        ic_ops.intersect_count = orig_ic
+    by_strat = collections.defaultdict(float)
+    for k, v in walls.items():
+        pat, strat, _ = k.split(":", 2)
+        by_strat[f"{pat}:{strat}"] += v
+    top = sorted(walls.items(), key=lambda kv: -kv[1])[:TOP]
+    report["warm_synced"] = {
+        "wall_s": synced_s,
+        "by_pattern_strategy_s": dict(sorted(by_strat.items(), key=lambda kv: -kv[1])),
+        "intersect_count_s": sum(ic_walls.values()),
+        "top_buckets": [
+            {"bucket": k, "s": v, "calls": calls[k], "intersect_count_s": ic_walls.get(k, 0.0)}
+            for k, v in top
+        ],
+    }
+    print(json.dumps({"warm_synced": report["warm_synced"]}), flush=True)
+
+    # ---- 3. warm mine under torch.profiler -----------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.mine()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kern = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
+            kern[ev.name][1] += 1
+    busy = sum(v[0] for v in kern.values())
+    report["warm_profiled"] = {
+        "wall_s": prof_wall,
+        "device_kernel_s": busy,
+        "device_busy_share": busy / prof_wall if prof_wall else None,
+        "top_kernels": [
+            {"name": k[:120], "s": v[0], "count": v[1]}
+            for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]
+        ],
+    }
+    print(json.dumps({"warm_profiled": report["warm_profiled"]}), flush=True)
+    out = ROOT / "build" / "profile_mine.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
