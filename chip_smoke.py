@@ -8,13 +8,19 @@ Run from the root of a checkout, with one CUDA card:
 
 Phases, in order; any failure exits non-zero:
 
-1. build  — compile every CUDA kernel of the main path from
-   ``src/repro_torch/csrc`` (nvcc, sm_90a) and print the card's name and
-   power limit as ``nvidia-smi`` reports them.
-2. kernel — hold each kernel to its plain PyTorch version on the card,
-   bit for bit, over the bucket-ladder shapes, both ``ordered`` modes,
-   ragged batch sizes and the hand-built edge cases; time each shape
-   with CUDA events beside its bound.
+1. build  — compile every CUDA kernel of the port from
+   ``src/repro_torch/csrc`` (nvcc, sm_90a; one nvcc per source, all
+   started together) and print the card's name and power limit as
+   ``nvidia-smi`` reports them.
+2. kernel — hold each kernel to its plain PyTorch version on the card:
+   ``intersect_count`` bit for bit over the bucket-ladder shapes, both
+   ``ordered`` modes, ragged batch sizes and the hand-built edge cases;
+   ``hist_update`` within its stated error bound of the plain version in
+   float64, and bit-identical across two launches, at the shapes of
+   ``tests/test_kernels.py`` and the edge cases; ``window_degree`` bit for
+   bit at the ``tests/test_kernels.py`` shapes and (16384, 128).  Each
+   shape is timed with CUDA events beside its bound, the plain version
+   and, where one PyTorch call computes the same function, that call.
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
    5.1M transactions, the size of the published IBM HI-Small) mined with
    ``MiningSession(g, window=4096)`` over the 9-pattern ``"full"``
@@ -26,10 +32,20 @@ Phases, in order; any failure exits non-zero:
 4. cross-checks — the same mine with ``kernel_backend="torch"`` gives a
    bit-identical count matrix, and 4,096 seeds mined by the port on the
    CPU equal the card's rows for them.
-5. report — a ``{"kernels": [...]}`` line (launches, max difference from
-   the plain version, kernel / plain / bound times at the main path's
-   largest launch), the card line, and last
-   ``{"ok": true, "device": {...}}``.  The full record goes to
+5. detection path — ``run_aml_pipeline(ds, "full")`` (mine, features,
+   the default 60-tree GBDT, F1 on the last 20% by time) under
+   ``set_sync_debug_mode("error")``, then ``"xgb_only"``, at the same
+   size.  The launch counts are zeroed before each and read after; each
+   fit must launch ``hist_update`` n_trees * (max_depth + 1) = 420 times,
+   and the pipeline's mined columns must equal phase 3's count matrix.
+6. detection cross-checks — two 10-tree fits on the card over the first
+   1,048,576 training rows give bit-identical trees and probabilities,
+   and a 10-tree fit on the card over 262,144 rows splits as the CPU
+   port's does, or differs first at a near tie of the two gains.
+7. report — a ``{"kernels": [...]}`` line (launches on the main paths,
+   max difference from the plain version, kernel / plain / bound /
+   library times at the main path's largest launch), the card line, and
+   last ``{"ok": true, "device": {...}}``.  The full record goes to
    ``build/chip_smoke.json``.
 
 It imports torch, numpy and ``repro_torch`` only.
@@ -37,6 +53,7 @@ It imports torch, numpy and ``repro_torch`` only.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -47,14 +64,21 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor-core
-# rate; one pair test of intersect_count is counted as one operation
+# rate; one pair test of intersect_count, one addition of hist_update and
+# one compare-and-add of window_degree are each counted as one operation
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+KERNELS = ("intersect_count", "hist_update", "window_degree")
 SMOKE_SHAPES = ((1, 4), (1, 1024), (4, 4), (16, 64), (64, 256), (256, 256), (1024, 1024))
 RAGGED_B = (1, 33, 4097)
+HU_SHAPES = ((16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64))  # (N, S)
+WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128))  # (B, D)
 WINDOW = 4096
 SEED = 0  # data seed
 CPU_SEEDS = 4096  # seeds the CPU cross-check mines
+DET_ROWS = 1 << 20  # training rows of the card's determinism fits
+CPU_FIT_ROWS = 1 << 18  # training rows of the card-against-CPU fits
+CHECK_TREES = 10  # trees of each cross-check fit
 
 
 def log(msg: str) -> None:
@@ -72,12 +96,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ic_bound_ms(b: int, da: int, db: int):
-    nbytes = b * (8 * da + 8 * db + 20)
-    ops = b * da * db
+def bound_ms(nbytes: int, ops: int):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger, and which."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ic_bound_ms(b: int, da: int, db: int):
+    return bound_ms(b * (8 * da + 8 * db + 20), b * da * db)
+
+
+def hu_bound_ms(n: int, s: int):
+    # keys and gh rows read once, the (S, 2) float32 sums written once
+    return bound_ms(n * 12 + s * 8, 2 * n)
+
+
+def wd_bound_ms(b: int, d: int):
+    return bound_ms(b * (4 * d + 12), b * d)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -191,6 +228,110 @@ def phase_kernel(device, report):
     return max_err
 
 
+def hu_check(keys, gh, s: int) -> float:
+    """Hold hist_update to its plain version in float64, within the
+    kernel's stated error bound, and two launches to each other bit for
+    bit; returns the largest |difference| from the float64 sums."""
+    import torch
+    from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import hist_update_ref
+
+    a = hu_ops.hist_update(keys, gh, s)
+    b = hu_ops.hist_update(keys, gh, s)
+    if not torch.equal(a, b):
+        raise AssertionError(f"hist_update gave other bits on a second launch at N={keys.shape[0]} S={s}")
+    exact = hist_update_ref(keys, gh.double(), s)
+    diff = (a.double() - exact).abs()
+    over = diff > hu_ops.error_bound(keys, gh, s)
+    if bool(over.any()):
+        raise AssertionError(f"hist_update outside its error bound at N={keys.shape[0]} S={s}: "
+                             f"{int(over.sum())} entries, max |diff| {float(diff.max()):.3g}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def hu_times(keys, gh, s: int, reps: int) -> dict:
+    """Kernel, plain version (float32) and library call (one index_add_,
+    into a spare row for the keys it must drop) on the same inputs."""
+    import torch
+    from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import hist_update_ref
+
+    n = keys.shape[0]
+    safe = torch.where((keys >= 0) & (keys < s), keys, s)
+    lib_out = torch.zeros((s + 1, 2), dtype=torch.float32, device=keys.device)
+    bound, by = hu_bound_ms(n, s)
+    return {
+        "ms": cuda_ms(lambda: hu_ops.hist_update(keys, gh, s), reps),
+        "plain_ms": cuda_ms(lambda: hist_update_ref(keys, gh, s), reps),
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, safe, gh), reps),
+        "bound_ms": bound,
+        "bound_by": by,
+    }
+
+
+def phase_hist_update(device, report) -> float:
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    max_err = 0.0
+    rows = []
+    for n, s in HU_SHAPES:
+        # keys in [-2, S+2), as tests/test_kernels.py draws them
+        keys = torch.randint(-2, s + 2, (n,), generator=gen, device=device, dtype=torch.int32)
+        gh = torch.randn((n, 2), generator=gen, device=device)
+        err = hu_check(keys, gh, s)
+        max_err = max(max_err, err)
+        row = {"N": n, "S": s, "max_abs_err": err, **hu_times(keys, gh, s, 20)}
+        rows.append(row)
+        log("kernel timing: hist_update " + json.dumps(row))
+    report["hist_update_shapes"] = rows
+    log(f"kernel: hist_update within its error bound of the float64 plain version and "
+        f"bit-identical across launches on {len(HU_SHAPES)} shapes (max |diff| {max_err:.3g})")
+    return max_err
+
+
+def phase_window_degree(device, report):
+    import torch
+    from repro_torch.kernels.window_degree import ops as wd_ops
+    from repro_torch.kernels.window_degree.ref import window_degree_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    rows = []
+    for b, d in WD_SHAPES:
+        pad = torch.rand((b, d), generator=gen, device=device) < 0.25
+        t = torch.where(pad, wd_ops.PAD_T, ri(0, 128, (b, d)))
+        lo = ri(0, 64, (b,))
+        hi = lo + ri(0, 64, (b,))
+        if not torch.equal(wd_ops.window_degree(t, lo, hi), window_degree_ref(t, lo, hi)):
+            raise AssertionError(f"window_degree differs from its plain version at B={b} D={d}")
+        bound, by = wd_bound_ms(b, d)
+        row = {"B": b, "D": d, "max_abs_err": 0,
+               "ms": cuda_ms(lambda: wd_ops.window_degree(t, lo, hi), 20),
+               "plain_ms": cuda_ms(lambda: window_degree_ref(t, lo, hi), 20),
+               "library_ms": None, "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        log("kernel timing: window_degree " + json.dumps(row))
+    report["window_degree_shapes"] = rows
+    log(f"kernel: window_degree == plain version on {len(WD_SHAPES)} shapes")
+    return rows[-1]
+
+
+def same_trees(a, b) -> bool:
+    """Bit-equal splits, gains and leaves."""
+    import numpy as np
+
+    return len(a.trees) == len(b.trees) and all(
+        all(np.array_equal(p, q) for p, q in zip(ta[0] + ta[1] + [ta[2], ga], tb[0] + tb[1] + [tb[2], gb]))
+        for ta, tb, ga, gb in zip(a.trees, b.trees, a.gains, b.gains)
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=282.0, help="HI-Small scale (282 = published size)")
@@ -210,23 +351,41 @@ def main() -> int:
     from repro_torch.core.patterns import feature_pattern_set
     from repro_torch.data.synth_aml import generate_aml_dataset
     from repro_torch.device import allowed_sync
+    from repro_torch.core.features import base_features
+    from repro_torch.data.loader import temporal_split
     from repro_torch.kernels import build
+    from repro_torch.kernels.hist_update import ops as hu_ops
     from repro_torch.kernels.intersect_count import ops as ic_ops
+    from repro_torch.kernels.window_degree import ops as wd_ops
+    from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
+    from repro_torch.ml.pipeline import FEATURE_SETS, run_aml_pipeline
 
     device = torch.device("cuda")
     report = {"scale": args.scale, "seed": SEED}
 
+    def zero_launches():
+        ic_ops.launches = hu_ops.launches = wd_ops.launches = 0
+
+    def read_launches():
+        return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
+                "window_degree": wd_ops.launches}
+
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
-    build.load("intersect_count")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.load, KERNELS))
     report["build_s"] = time.perf_counter() - t0
+    report["nvcc_s"] = {k: build.build_seconds[k] for k in KERNELS}
     card = card_line()
     report["card"] = card
-    log(f"build: intersect_count from src/repro_torch/csrc/intersect_count.cu in {report['build_s']:.2f} s (nvcc {build.build_seconds['intersect_count']:.2f} s)")
+    log(f"build: {', '.join(KERNELS)} from src/repro_torch/csrc in {report['build_s']:.2f} s "
+        f"(nvcc in parallel: {json.dumps(report['nvcc_s'])})")
     log(f"card: {card}")
 
-    # ---- 2. kernel against plain version ------------------------------
+    # ---- 2. kernels against their plain versions ----------------------
     max_err = phase_kernel(device, report)
+    hu_err = phase_hist_update(device, report)
+    wd_row = phase_window_degree(device, report)
 
     # ---- 3. main path at a real size ----------------------------------
     t0 = time.perf_counter()
@@ -250,7 +409,7 @@ def main() -> int:
 
     ic_ops.intersect_count = capture
     torch.cuda.reset_peak_memory_stats()
-    ic_ops.launches = 0
+    zero_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
@@ -266,7 +425,8 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
         ic_ops.intersect_count = kernel_fn
-    launches = ic_ops.launches
+    main_launches = read_launches()
+    launches = main_launches["intersect_count"]
     n_compiled = len(session._compiled)
     main = {
         "patterns": list(pats),
@@ -274,7 +434,7 @@ def main() -> int:
         "cold_s": cold_s,
         "warm_s": warm_s,
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
-        "intersect_count_launches": launches,
+        "launches": main_launches,
         "n_compiled": n_compiled,
         "fused": list(cold.fused),
         "totals": cold.totals(),
@@ -316,7 +476,85 @@ def main() -> int:
                               "cpu_nonzero_cells": int((res_c.counts != 0).sum())}
     log("cross-checks: " + json.dumps(report["cross_checks"]))
 
-    # ---- 5. report -----------------------------------------------------
+    # ---- 5. detection path at the same size ---------------------------
+    params = GBDTParams()
+    fit_launches = params.n_trees * (params.max_depth + 1)
+    hu_fn = hu_ops.hist_update
+    hu_path = {}  # (N, S) -> the first launch of each shape the fit makes
+
+    def capture_hu(keys, gh, s):
+        hu_path.setdefault((keys.shape[0], s), (keys, gh, s))
+        return hu_fn(keys, gh, s)
+
+    detection = {}
+    results = {}
+    for fs in ("full", "xgb_only"):
+        hu_ops.hist_update = capture_hu if fs == "full" else hu_fn
+        zero_launches()
+        if fs == "full":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            res = run_aml_pipeline(ds, fs)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            hu_ops.hist_update = hu_fn
+        results[fs] = res
+        row = {"f1": res.f1, "precision": res.precision, "recall": res.recall, "confusion": res.confusion,
+               "mine_seconds": res.mine_seconds, "train_seconds": res.train_seconds,
+               "fit_seconds": res.fit_seconds, "wall_s": wall, "n_train": res.n_train, "n_test": res.n_test,
+               "launches": read_launches(),
+               "mine_host_syncs": res.mining.stats["host_syncs"] if res.mining else 0}
+        detection[fs] = row
+        log(f"detection path ({fs}): " + json.dumps(row))
+        if row["launches"]["hist_update"] != fit_launches:
+            raise AssertionError(f"the {fs} fit launched hist_update {row['launches']['hist_update']} "
+                                 f"times, not {fit_launches}")
+        if not 0.0 <= res.f1 <= 1.0 or res.n_train + res.n_test != g.n_edges:
+            raise AssertionError(f"{fs}: F1 {res.f1} or split {res.n_train}+{res.n_test} out of range")
+    mined = results["full"].mining
+    if mined.columns != FEATURE_SETS["full"] or not np.array_equal(mined.counts, counts):
+        raise AssertionError("the pipeline's mined columns differ from phase 3's count matrix")
+    if results["full"].f1 <= 0.0:
+        raise AssertionError("the full feature set detected nothing")
+    report["detection"] = detection
+
+    # ---- 6. detection cross-checks ------------------------------------
+    x = np.concatenate([base_features(g), counts.astype(np.float32)], axis=1)
+    y = ds.labels.astype(np.float32)
+    train_ids, _ = temporal_split(ds)
+    small = GBDTParams(n_trees=CHECK_TREES)
+    rows = train_ids[:DET_ROWS]
+    t0 = time.perf_counter()
+    fit_a = GBDTClassifier(small).fit(x[rows], y[rows])
+    fit_b = GBDTClassifier(small).fit(x[rows], y[rows])
+    det_s = time.perf_counter() - t0
+    proba_a, proba_b = fit_a.predict_proba(x[rows]), fit_b.predict_proba(x[rows])
+    if not same_trees(fit_a, fit_b) or not np.array_equal(proba_a, proba_b):
+        raise AssertionError(f"two fits on the card differ: {first_split_difference(fit_a, fit_b, len(rows))}")
+    rows = train_ids[:CPU_FIT_ROWS]
+    t0 = time.perf_counter()
+    on_card = GBDTClassifier(small).fit(x[rows], y[rows])
+    card_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = GBDTClassifier(small, device="cpu").fit(x[rows], y[rows])
+    cpu_fit_s = time.perf_counter() - t0
+    diff = first_split_difference(on_card, on_cpu, len(rows))
+    check = {"determinism_rows": int(min(DET_ROWS, len(train_ids))), "determinism_s": det_s,
+             "determinism_equal": True, "cpu_rows": int(len(rows)), "card_fit_s": card_fit_s,
+             "cpu_fit_s": cpu_fit_s, "first_difference": diff}
+    if diff is None:
+        check["leaf_max_abs_diff"] = max(float(np.abs(ta[2] - tb[2]).max())
+                                         for ta, tb in zip(on_card.trees, on_cpu.trees))
+        check["proba_max_abs_diff"] = float(np.abs(on_card.predict_proba(x[rows])
+                                                   - on_cpu.predict_proba(x[rows])).max())
+    report["detection_cross_checks"] = check
+    log("detection cross-checks: " + json.dumps(check))
+    if diff is not None and not diff["near_tie"]:
+        raise AssertionError(f"the card and the CPU split differently where the gains are no near tie: {diff}")
+
+    # ---- 7. report -----------------------------------------------------
     a = biggest["args"]
     ordered = biggest["ordered"]
     b, da = a[0].shape
@@ -344,6 +582,34 @@ def main() -> int:
         "library_ms": None,
         "shape": {"B": b, "Da": da, "Db": db, "ordered": bool(ordered)},
     }]
+    path_rows = {}
+    for (n, s), (keys, gh, _) in sorted(hu_path.items()):
+        err = hu_check(keys, gh, s)
+        hu_err = max(hu_err, err)
+        path_rows[n, s] = {"N": int(n), "S": s, "max_abs_err": err, **hu_times(keys, gh, s, 20)}
+        log("kernel timing: hist_update on the detection path " + json.dumps(path_rows[n, s]))
+    report["hist_update_path_shapes"] = list(path_rows.values())
+    n, s = max(path_rows)  # the main path's largest launch
+    kernels.append({
+        "name": "hist_update",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hist_update.cu",
+        "replaces": "src/repro/kernels/hist_update/kernel.py:42",
+        "launches": detection["full"]["launches"]["hist_update"],
+        "max_abs_err": hu_err,
+        **{k: path_rows[n, s][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shape": {"N": int(n), "S": s},
+    })
+    kernels.append({
+        "name": "window_degree",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/window_degree.cu",
+        "replaces": "src/repro/kernels/window_degree/kernel.py:34",
+        # no path of the system calls it (as in the JAX package)
+        "launches": main_launches["window_degree"] + detection["full"]["launches"]["window_degree"],
+        **{k: wd_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": {"B": wd_row["B"], "D": wd_row["D"]},
+    })
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,9 @@
 * the portfolio :class:`MiningSession` (:mod:`repro_torch.api.session`):
   register many patterns, compile ONCE against a shared device graph with
   cross-pattern plan dedup + seed-local kernel fusion, and mine
-  everything through one `mine()` call into a :class:`MiningResult`.
+  everything through one `mine()` call into a :class:`MiningResult`;
+* :func:`mine_features` / :func:`featurize`: the per-edge feature matrix
+  (base transaction columns + mined counts) the detection model trains on.
 
 Quick tour::
 
@@ -29,6 +31,8 @@ from repro_torch.api.session import (
     MiningSession,
     canonical_key,
     canonicalize,
+    featurize,
+    mine_features,
 )
 
 __all__ = [
@@ -41,4 +45,6 @@ __all__ = [
     "MiningResult",
     "canonical_key",
     "canonicalize",
+    "mine_features",
+    "featurize",
 ]

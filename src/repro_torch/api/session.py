@@ -65,6 +65,8 @@ __all__ = [
     "MiningResult",
     "canonical_key",
     "canonicalize",
+    "mine_features",
+    "featurize",
 ]
 
 BACKENDS = ("compiled", "oracle", "streaming", "partitioned", "sharded")
@@ -663,3 +665,53 @@ class MiningSession:
             "MiningSession.service() is not ported yet (ROADMAP.md, item A6)"
         )
 
+
+# ----------------------------------------------------------------------
+# feature-extraction entry points (successors of repro_torch.core.features)
+# ----------------------------------------------------------------------
+def mine_features(
+    g: TemporalGraph,
+    window: int,
+    patterns: Sequence[PatternLike],
+    backend: str = "compiled",
+    seed_eids: Optional[np.ndarray] = None,
+    session: Optional[MiningSession] = None,
+    device=None,
+) -> np.ndarray:
+    """Pattern-count feature block via a (possibly caller-shared) session;
+    a new session is placed on ``device`` (the CUDA card by default)."""
+    if session is None:
+        session = MiningSession(g, window=window, device=device)
+    session.register(*patterns)
+    res = session.mine(list(patterns), seeds=seed_eids, backend=backend)
+    return res.as_features()
+
+
+def featurize(
+    g: TemporalGraph,
+    window: int,
+    patterns: Union[None, str, Sequence[PatternLike]] = None,
+    backend: str = "compiled",
+    session: Optional[MiningSession] = None,
+    device=None,
+) -> Tuple[np.ndarray, Tuple[str, ...]]:
+    """Full feature matrix: base transaction columns + mined counts.
+
+    `patterns` may be an explicit sequence (names / specs / builders) or a
+    feature-group name (``"full"``, ``"deep"``, ``"full_deep"``, ...); a
+    new session is placed on ``device`` (the CUDA card by default)."""
+    from repro_torch.core.features import BASE_COLUMNS, base_features
+    from repro_torch.core.patterns import feature_pattern_set
+
+    if patterns is None:
+        patterns = feature_pattern_set("full")
+    elif isinstance(patterns, str):
+        patterns = feature_pattern_set(patterns)
+    base = base_features(g)
+    if len(patterns) == 0:
+        return base, BASE_COLUMNS
+    if session is None:
+        session = MiningSession(g, window=window, device=device)
+    session.register(*patterns)
+    res = session.mine(list(patterns), backend=backend)
+    return np.concatenate([base, res.as_features()], axis=1), BASE_COLUMNS + res.columns

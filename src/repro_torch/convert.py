@@ -8,7 +8,9 @@ read a ``repro`` object by class and field name — they never import
   (numpy fields) becomes a :class:`repro_torch.graph.csr.TemporalGraph`;
 * :func:`spec_from_reference` — a ``repro.core.spec.PatternSpec`` with its
   ``Stage`` / ``Window`` / ``TimeBound`` / ``NodeRef`` / ``Neigh`` /
-  ``SetExpr`` / ``StageT`` objects becomes the port's dataclasses.
+  ``SetExpr`` / ``StageT`` objects becomes the port's dataclasses;
+* :func:`gbdt_from_reference` — a fitted ``repro.ml.gbdt.GBDTClassifier``
+  becomes the port's classifier with the same bins, trees and margin.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import numpy as np
 
 from repro_torch.core import spec as S
 from repro_torch.graph.csr import TemporalGraph
+from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams
 
-__all__ = ["graph_from_reference", "spec_from_reference"]
+__all__ = ["graph_from_reference", "spec_from_reference", "gbdt_from_reference"]
 
 # classes rebuilt field by field, looked up by the reference's class name
 _SPEC_CLASSES = {
@@ -69,3 +72,24 @@ def spec_from_reference(spec) -> S.PatternSpec:
     if type(spec).__name__ != "PatternSpec":
         raise TypeError(f"expected a PatternSpec, got {type(spec).__name__}")
     return _convert(spec)
+
+
+def gbdt_from_reference(clf, device=None) -> GBDTClassifier:
+    """The port's classifier, on ``device``, predicting what the fitted
+    reference classifier predicts: its params, bin edges, trees (feat, bin
+    and leaf per level) and base margin, carried across as numpy."""
+    params = GBDTParams(
+        **{f.name: getattr(clf.p, f.name) for f in dataclasses.fields(GBDTParams)}
+    )
+    out = GBDTClassifier(params, device=device)
+    out.edges = np.asarray(clf.edges, dtype=np.float32)
+    out.trees = [
+        (
+            [np.asarray(f, dtype=np.int32) for f in feats],
+            [np.asarray(b, dtype=np.int32) for b in bins],
+            np.asarray(leaf, dtype=np.float32),
+        )
+        for feats, bins, leaf in clf.trees
+    ]
+    out.base_margin = float(clf.base_margin)
+    return out

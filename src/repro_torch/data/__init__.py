@@ -1,3 +1,4 @@
+from repro_torch.data.loader import temporal_split
 from repro_torch.data.synth_aml import (
     AMLDataset,
     DATASET_PRESETS,
@@ -12,4 +13,5 @@ __all__ = [
     "generate_aml_dataset",
     "load_dataset",
     "planted_instances",
+    "temporal_split",
 ]

@@ -3,7 +3,6 @@
 wrapper with its launch count) and a CUDA source under
 ``src/repro_torch/csrc/`` built by :mod:`repro_torch.kernels.build`.
 
-Ported so far: ``intersect_count`` (the JAX package's
-``kernels/intersect_count`` Pallas kernel).  ``window_degree``,
-``hist_update`` and ``flash_attention`` are still to be ported
-(ROADMAP.md, items B2-B4)."""
+Ported so far: ``intersect_count``, ``hist_update`` and ``window_degree``
+(the JAX package's ``kernels/*`` Pallas kernels of the same names).
+``flash_attention`` is still to be ported (ROADMAP.md, item B4)."""

@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+# one lock per kernel, so that different kernels build in parallel
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 = reused)
 build_seconds: Dict[str, float] = {}
@@ -97,6 +99,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         with _lock:
+            name_lock = _name_locks.setdefault(name, threading.Lock())
+        with name_lock:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(str(build(name)))

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written intersect_count kernel
-against its plain PyTorch version, and a portfolio mine on the card
-against the same mine on the CPU.  Every test skips itself where there
+"""The port on a CUDA card: the hand-written kernels (intersect_count,
+hist_update, window_degree) against their plain PyTorch versions, a
+portfolio mine on the card against the same mine on the CPU, and a GBDT
+fit on the card against the same fit on the CPU.  Every test skips itself where there
 is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -15,6 +16,11 @@ from repro_torch.core.patterns import feature_pattern_set
 from repro_torch.graph.csr import build_temporal_graph
 from repro_torch.kernels.intersect_count import intersect_count, intersect_count_ref
 from repro_torch.kernels.intersect_count import ops as ic_ops
+from repro_torch.kernels.hist_update import error_bound, hist_update, hist_update_ref
+from repro_torch.kernels.hist_update import ops as hu_ops
+from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degree_ref
+from repro_torch.kernels.window_degree import ops as wd_ops
+from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +72,59 @@ def test_mine_on_card_equals_cpu(cuda):
     on_cpu = MiningSession(g, window=96, device="cpu").register(*pats).mine()
     np.testing.assert_array_equal(on_card.counts, on_cpu.counts)
     assert on_card.stats == on_cpu.stats
+
+
+# the smoke shapes of tests/test_kernels.py, the edge cases, both sides of
+# the kernel's shared-memory limit (14,336 keys) and a GBDT level-5 shape
+@pytest.mark.parametrize(
+    "n,s",
+    [(16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64),
+     (100_000, 14_336), (100_000, 14_337), (1 << 20, 98_304)],
+)
+def test_hist_update_within_bound_and_deterministic(cuda, n, s):
+    rng = np.random.default_rng(n + s)
+    keys = torch.from_numpy(rng.integers(-2, s + 2, n).astype(np.int32))
+    gh = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32))
+    before = hu_ops.launches
+    a = hist_update(keys.to(cuda), gh.to(cuda), s)
+    b = hist_update(keys.to(cuda), gh.to(cuda), s)
+    assert hu_ops.launches == before + (2 if n else 0)
+    assert a.dtype == torch.float32 and a.shape == (s, 2)
+    assert torch.equal(a, b)  # the same bits on every launch
+    exact = hist_update_ref(keys, gh.double(), s)
+    assert torch.all((a.cpu().double() - exact).abs() <= error_bound(keys, gh, s))
+
+
+@pytest.mark.parametrize("b,d", [(1, 1), (7, 16), (64, 128), (100, 33), (16384, 128)])
+def test_window_degree_matches_plain(cuda, b, d):
+    rng = np.random.default_rng(b + d)
+    t = rng.integers(0, 128, (b, d)).astype(np.int32)
+    t[rng.random((b, d)) < 0.25] = PAD_T
+    lo = rng.integers(0, 64, b).astype(np.int32)
+    hi = lo + rng.integers(0, 64, b).astype(np.int32)
+    args = tuple(torch.from_numpy(a) for a in (t, lo, hi))
+    before = wd_ops.launches
+    got = window_degree(*(a.to(cuda) for a in args))
+    assert wd_ops.launches == before + 1
+    assert torch.equal(got.cpu(), window_degree_ref(*args))
+
+
+def test_fit_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(12)
+    n = 65_536
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    x[:, 5] = np.round(x[:, 5] * 2)  # a coarse feature, as mined counts are
+    y = (((x[:, 0] * x[:, 1] > 0) & (x[:, 2] > -0.3)) | (rng.random(n) < 0.01)).astype(np.float32)
+    params = GBDTParams(n_trees=10)
+    before = hu_ops.launches
+    on_card = GBDTClassifier(params).fit(x, y)
+    assert hu_ops.launches == before + 10 * (6 + 1)
+    on_cpu = GBDTClassifier(params, device="cpu").fit(x, y)
+    diff = first_split_difference(on_card, on_cpu, n)
+    # the card sums exactly to float32 rounding, the CPU in sequential
+    # float32: a split may differ only where the two gains are a near tie
+    assert diff is None or diff["near_tie"], diff
+    if diff is None:
+        np.testing.assert_allclose(
+            on_card.predict_proba(x), on_cpu.predict_proba(x), rtol=1e-4, atol=1e-4
+        )
