@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero:
    ``hist_update`` within its stated error bound of the plain version in
    float64, and bit-identical across two launches, at the shapes of
    ``tests/test_kernels.py`` and the edge cases; ``window_degree`` bit for
-   bit at the ``tests/test_kernels.py`` shapes and (16384, 128).  Each
+   bit at the ``tests/test_kernels.py`` shapes and (16384, 128);
+   ``flash_attention`` within 2e-5 (float32) or 2e-2 (bfloat16) at the
+   cases of ``tests/test_flash_attention.py``, causal attention over fewer
+   keys than queries, FraudGT's shape and one long bfloat16 shape.  Each
    shape is timed with CUDA events beside its bound, the plain version
    and, where one PyTorch call computes the same function, that call.
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
@@ -42,7 +45,18 @@ Phases, in order; any failure exits non-zero:
    1,048,576 training rows give bit-identical trees and probabilities,
    and a 10-tree fit on the card over 262,144 rows splits as the CPU
    port's does, or differs first at a near tie of the two gains.
-7. report — a ``{"kernels": [...]}`` line (launches on the main paths,
+7. FraudGT inference — ``FraudGT(FraudGTParams(), seed=0).predict_proba``
+   over the test split (the last 20 % by time) under
+   ``set_sync_debug_mode("error")``: tokenize on the host, then the graph
+   transformer on the card, every block's attention through
+   ``flash_attention``, which must launch n_layers * ceil(n_test / 1024)
+   times.  Cross-checks on the first 16,384 test edges: the ``"kernel"``
+   and ``"torch"`` attention backends agree within 1e-5 in the logits, the
+   card within 1e-4 of the CPU port with the same weights, and the tokens
+   are bit-identical to a CPU ``tokenize``.  Then the forward over the
+   first 131,072 test edges under ``torch.profiler``: the device's busy
+   share and the kernels that take its time.
+8. report — a ``{"kernels": [...]}`` line (launches on the main paths,
    max difference from the plain version, kernel / plain / bound /
    library times at the main path's largest launch), the card line, and
    last ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -55,6 +69,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,10 +80,13 @@ SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor-core
 # rate; one pair test of intersect_count, one addition of hist_update and
-# one compare-and-add of window_degree are each counted as one operation
+# one compare-and-add of window_degree are each counted as one operation;
+# flash_attention's flops count against float32 (67 T/s, no TF32: float32
+# results stay float32) or the dense bf16 tensor-core peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-KERNELS = ("intersect_count", "hist_update", "window_degree")
+PEAK_BF16_FLOPS = 989e12
+KERNELS = ("intersect_count", "hist_update", "window_degree", "flash_attention")
 SMOKE_SHAPES = ((1, 4), (1, 1024), (4, 4), (16, 64), (64, 256), (256, 256), (1024, 1024))
 RAGGED_B = (1, 33, 4097)
 HU_SHAPES = ((16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64))  # (N, S)
@@ -79,6 +97,23 @@ CPU_SEEDS = 4096  # seeds the CPU cross-check mines
 DET_ROWS = 1 << 20  # training rows of the card's determinism fits
 CPU_FIT_ROWS = 1 << 18  # training rows of the card-against-CPU fits
 CHECK_TREES = 10  # trees of each cross-check fit
+FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
+FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
+# flash_attention cases (B, T, S, H, K, hd, causal, dtype): those of
+# tests/test_flash_attention.py (its hypothesis test is drawn for seeds
+# 0-7 in phase_flash_attention), causal T > S with S unaligned, FraudGT's
+# shape and a long bf16 shape
+FA_CASES = (
+    *((2, t, t, 4, 4, 32, c, "float32") for t in (64, 128, 256) for c in (True, False)),
+    (1, 128, 128, 8, 2, 64, True, "float32"),
+    (1, 128, 128, 4, 4, 64, True, "bfloat16"),
+    (1, 96, 96, 2, 2, 32, True, "float32"),
+    (1, 256, 256, 1, 1, 32, True, "float32"),
+    (2, 80, 50, 4, 2, 16, True, "float32"),
+    (1024, 17, 17, 8, 8, 16, True, "float32"),  # FraudGT: 1,024 edges x 8 heads
+    (1, 4096, 4096, 32, 8, 128, True, "bfloat16"),
+)
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -96,11 +131,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: int, ops: int):
+def bound_ms(nbytes: int, ops: int, peak_ops: float = PEAK_OPS_PER_S):
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate, whichever is larger, and which."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -115,6 +150,16 @@ def hu_bound_ms(n: int, s: int):
 
 def wd_bound_ms(b: int, d: int):
     return bound_ms(b * (4 * d + 12), b * d)
+
+
+def fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+    """q, k, v read once and o written once; 4 * hd flops per (row, key)
+    pair that the mask lets through."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * t * h * hd + 2 * b * s * kvh * hd) * size
+    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_OPS_PER_S
+    return bound_ms(nbytes, 4 * hd * pairs * b * h, peak)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -322,6 +367,191 @@ def phase_window_degree(device, report):
     return rows[-1]
 
 
+def fa_plain(q, k, v, causal):
+    """flash_attention's plain version on (B, T, H, hd) / (B, S, K, hd):
+    the K/V heads repeated, then the explicit-op reference."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    flat = lambda x, n: x.repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
+    out = flash_attention_ref(flat(q, t), flat(k, s), flat(v, s), causal=causal)
+    return out.reshape(b, h, t, hd).transpose(1, 2)
+
+
+def fa_row(q, k, v, causal, reps) -> dict:
+    """flash_attention against its plain version (max |diff|, within the
+    dtype's tolerance), and kernel / plain / library times with the bound.
+    The library call is one ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    got = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
+    err = float((got.float() - fa_plain(q, k, v, causal).float()).abs().max())
+    if not err <= FA_TOL[dtype]:
+        raise AssertionError(f"flash_attention differs from its plain version at {tuple(q.shape)}, "
+                             f"{tuple(k.shape)}, causal={causal}: {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound, by = fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s), reps),
+            "plain_ms": cuda_ms(lambda: fa_plain(q, k, v, causal), max(3, reps // 10)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=h != kvh), reps),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_flash_attention(device, report):
+    import numpy as np
+    import torch
+
+    cases = list(FA_CASES)
+    for seed in range(8):  # tests/test_flash_attention.py::test_hypothesis_random
+        rng = np.random.default_rng(seed)
+        t, h, hd = int(rng.choice([64, 128, 192])), int(rng.choice([1, 2, 4])), int(rng.choice([16, 32, 64]))
+        cases.insert(-3, (1, t, t, h, h, hd, bool(rng.integers(0, 2)), "float32"))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    rows = []
+    for b, t, s, h, kvh, hd, causal, dtype in cases:
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, t, h, hd), generator=gen, device=device).to(dt)
+        k = torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt)
+        v = torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt)
+        row = fa_row(q, k, v, causal, 20)
+        rows.append(row)
+        log("kernel timing: flash_attention " + json.dumps(row))
+    report["flash_attention_shapes"] = rows
+    worst = {d: max(r["max_abs_err"] for r in rows if r["dtype"] == d) for d in FA_TOL}
+    log(f"kernel: flash_attention within {FA_TOL} of its plain version on {len(rows)} cases "
+        f"(max |diff| {worst})")
+    return worst
+
+
+def profile_forward(ft, toks) -> dict:
+    """FraudGT's forward over ``toks`` timed alone and then under
+    ``torch.profiler``: device kernel time, the device's busy share of
+    the wall (one stream, so kernels do not overlap), the
+    ``flash_attention`` kernel's share and the top kernels by device time."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ft.logits(*toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ft.logits(*toks)
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    kern = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
+            kern[ev.name][1] += 1
+    busy = sum(v[0] for v in kern.values())
+    flash = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
+    return {
+        "edges": int(len(toks[0])),
+        "wall_s": wall,
+        "wall_profiled_s": wall_profiled,
+        "device_kernel_s": busy,
+        "device_busy_share": busy / wall_profiled if wall_profiled else None,
+        "kernel_launches": sum(v[1] for v in kern.values()),
+        "flash_attention_kernel_s": flash,
+        "flash_attention_share_of_device": flash / busy if busy else None,
+        "top_kernels": [{"name": k[:100], "s": v[0], "count": v[1]}
+                        for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]],
+    }
+
+
+def phase_fraudgt(ds, device, report, zero_launches, read_launches):
+    """FraudGT inference over the test split on the card, its launch count
+    and its cross-checks; returns the launch counts and the arguments of
+    the path's first (largest) flash_attention launch."""
+    import numpy as np
+    import torch
+    from repro_torch.data.loader import temporal_split
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
+
+    g = ds.graph
+    _, test_ids = temporal_split(ds)
+    n_test = len(test_ids)
+    fgt_params = FraudGTParams()
+    ft = FraudGT(fgt_params, seed=0, device=device)
+    fa_fn = fa_ops.flash_attention
+    fa_path = {}  # the first launch: 1,024 edges, the path's largest
+
+    def capture_fa(q, k, v, **kw):
+        fa_path.setdefault("args", (q, k, v, kw.get("causal", True)))
+        return fa_fn(q, k, v, **kw)
+
+    fa_ops.flash_attention = capture_fa
+    zero_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        proba = ft.predict_proba(g, test_ids)
+        total_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        fa_ops.flash_attention = fa_fn
+    fgt_launches = read_launches()
+    want_launches = fgt_params.n_layers * math.ceil(n_test / 1024)
+    fgt = {"n_test": n_test, "tokenize_s": ft.seconds["tokenize"], "forward_s": ft.seconds["forward"],
+           "total_s": total_s, "edges_per_s": n_test / total_s, "launches": fgt_launches,
+           "expected_flash_launches": want_launches,
+           "proba_mean": float(proba.mean()), "proba_min": float(proba.min()), "proba_max": float(proba.max())}
+    log("FraudGT inference: " + json.dumps(fgt))
+    if fgt_launches["flash_attention"] != want_launches:
+        raise AssertionError(f"FraudGT launched flash_attention {fgt_launches['flash_attention']} times, "
+                             f"not {want_launches}")
+    if proba.shape != (n_test,) or not np.all(np.isfinite(proba)) or not np.all((proba >= 0) & (proba <= 1)):
+        raise AssertionError(f"FraudGT probabilities of shape {proba.shape} are not finite values in [0, 1]")
+    sub = test_ids[:FGT_CHECK_EDGES]
+    toks = ft.tokenize(g, sub)
+    on_cpu = FraudGT(fgt_params, seed=0, device="cpu")
+    t0 = time.perf_counter()
+    toks_cpu = on_cpu.tokenize(g, sub)
+    cpu_tok_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(toks, toks_cpu)):
+        raise AssertionError("the card run's tokens differ from a CPU tokenize")
+    logit_k = ft.logits(*toks)
+    logit_t = FraudGT(fgt_params, seed=0, device=device, attn_backend="torch").logits(*toks)
+    t0 = time.perf_counter()
+    logit_c = on_cpu.logits(*toks_cpu)
+    cpu_fwd_s = time.perf_counter() - t0
+    check = {"edges": int(len(sub)),
+             "kernel_vs_torch_max_abs": float((logit_k - logit_t).abs().max()),
+             "card_vs_cpu_max_abs": float((logit_k.cpu() - logit_c).abs().max()),
+             "run_vs_rescore_max_abs": float(np.abs(proba[: len(sub)] - torch.sigmoid(logit_k).cpu().numpy()).max()),
+             "logit_abs_max": float(logit_k.abs().max()), "tokens_equal": True,
+             "cpu_tokenize_s": cpu_tok_s, "cpu_forward_s": cpu_fwd_s}
+    fgt["cross_checks"] = check
+    report["fraudgt"] = fgt
+    log("FraudGT cross-checks: " + json.dumps(check))
+    if not check["kernel_vs_torch_max_abs"] <= 1e-5:
+        raise AssertionError(f'the "kernel" and "torch" attention backends disagree: {check}')
+    if not check["card_vs_cpu_max_abs"] <= 1e-4:
+        raise AssertionError(f"the card's FraudGT logits differ from the CPU port's: {check}")
+    if not check["run_vs_rescore_max_abs"] <= 1e-6:
+        raise AssertionError(f"the predict_proba run disagrees with rescoring its first edges: {check}")
+    fgt["profile"] = profile_forward(ft, ft.tokenize(g, test_ids[:FGT_PROFILE_EDGES]))
+    log("FraudGT forward profile: " + json.dumps(fgt["profile"]))
+    return fgt_launches, fa_path["args"]
+
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -354,6 +584,7 @@ def main() -> int:
     from repro_torch.core.features import base_features
     from repro_torch.data.loader import temporal_split
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hist_update import ops as hu_ops
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.kernels.window_degree import ops as wd_ops
@@ -364,11 +595,11 @@ def main() -> int:
     report = {"scale": args.scale, "seed": SEED}
 
     def zero_launches():
-        ic_ops.launches = hu_ops.launches = wd_ops.launches = 0
+        ic_ops.launches = hu_ops.launches = wd_ops.launches = fa_ops.launches = 0
 
     def read_launches():
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
-                "window_degree": wd_ops.launches}
+                "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches}
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -386,6 +617,7 @@ def main() -> int:
     max_err = phase_kernel(device, report)
     hu_err = phase_hist_update(device, report)
     wd_row = phase_window_degree(device, report)
+    fa_err = phase_flash_attention(device, report)
 
     # ---- 3. main path at a real size ----------------------------------
     t0 = time.perf_counter()
@@ -554,7 +786,10 @@ def main() -> int:
     if diff is not None and not diff["near_tie"]:
         raise AssertionError(f"the card and the CPU split differently where the gains are no near tie: {diff}")
 
-    # ---- 7. report -----------------------------------------------------
+    # ---- 7. FraudGT inference ----------------------------------------
+    fgt_launches, fa_args = phase_fraudgt(ds, device, report, zero_launches, read_launches)
+
+    # ---- 8. report -----------------------------------------------------
     a = biggest["args"]
     ordered = biggest["ordered"]
     b, da = a[0].shape
@@ -609,6 +844,19 @@ def main() -> int:
         "launches": main_launches["window_degree"] + detection["full"]["launches"]["window_degree"],
         **{k: wd_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": {"B": wd_row["B"], "D": wd_row["D"]},
+    })
+    fa_main = fa_row(*fa_args, 50)
+    log("kernel timing: flash_attention on the FraudGT path " + json.dumps(fa_main))
+    report["flash_attention_path_shape"] = fa_main
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+        "launches": fgt_launches["flash_attention"],
+        **{k: fa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err_cases": fa_err,
+        "shape": {k: fa_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

@@ -10,7 +10,10 @@ read a ``repro`` object by class and field name — they never import
   ``Stage`` / ``Window`` / ``TimeBound`` / ``NodeRef`` / ``Neigh`` /
   ``SetExpr`` / ``StageT`` objects becomes the port's dataclasses;
 * :func:`gbdt_from_reference` — a fitted ``repro.ml.gbdt.GBDTClassifier``
-  becomes the port's classifier with the same bins, trees and margin.
+  becomes the port's classifier with the same bins, trees and margin;
+* :func:`fraudgt_from_reference` — a ``repro.ml.fraudgt.FraudGT`` with
+  weights becomes the port's model with the same weights and amount
+  buckets.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import numpy as np
 
 from repro_torch.core import spec as S
 from repro_torch.graph.csr import TemporalGraph
+from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams
 
-__all__ = ["graph_from_reference", "spec_from_reference", "gbdt_from_reference"]
+__all__ = ["graph_from_reference", "spec_from_reference", "gbdt_from_reference", "fraudgt_from_reference"]
 
 # classes rebuilt field by field, looked up by the reference's class name
 _SPEC_CLASSES = {
@@ -92,4 +96,25 @@ def gbdt_from_reference(clf, device=None) -> GBDTClassifier:
         for feats, bins, leaf in clf.trees
     ]
     out.base_margin = float(clf.base_margin)
+    return out
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return np.array(tree, dtype=np.float32)
+
+
+def fraudgt_from_reference(ft, device=None) -> FraudGT:
+    """The port's FraudGT, on ``device``, scoring as the reference model
+    does: its params (``ft.p``), its weights (``ft.params``, by key, as
+    numpy) and its amount buckets (``ft.amount_edges``)."""
+    if ft.params is None:
+        raise ValueError("the reference FraudGT has no weights yet (fit it or call its _init)")
+    p = FraudGTParams(**{f.name: getattr(ft.p, f.name) for f in dataclasses.fields(FraudGTParams)})
+    out = FraudGT(p, device=device).load_params(_numpy_tree(ft.params))
+    if ft.amount_edges is not None:
+        out.amount_edges = np.array(ft.amount_edges)
     return out

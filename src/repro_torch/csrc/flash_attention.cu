@@ -1,0 +1,258 @@
+// flash_attention for Hopper (sm_90a): fused attention forward with an
+// online softmax, causal (key j visible to query i iff j <= i) or full.
+//
+// Replaces the TPU kernel `flash_attention_pallas` / `_kernel` in
+// src/repro/kernels/flash_attention/kernel.py (pallas_call at line 72,
+// body at lines 31-59) together with its wrapper `flash_attention` in
+// src/repro/kernels/flash_attention/ops.py.  It computes, per batch b,
+// query head h and query row i,
+//   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / G] / sqrt(hd)) v[b, j, h / G]
+// over the visible keys j < S, with G = H / K query heads per kv head
+// (GQA).  The arithmetic is the Pallas body's: q is scaled first, masked
+// scores are set to NEG = -1e30, probabilities of scores <= NEG / 2 are
+// zeroed (a fully masked tile then leaves the running max, sum and
+// accumulator as they were), alpha = exp(min(m - m_new, 0)), sums in
+// float32, and the output is acc / max(l, 1e-30) in q's type (float32 or
+// bfloat16).
+//
+// What is not carried over from the TPU: the Pallas wrapper repeats the
+// K/V heads and transposes to (B*H, T, hd), and zero-pads T and S to its
+// blocks.  Here the kernel reads q, k, v and writes o in place in their
+// (B, T, H, hd) / (B, S, K, hd) layouts, reads kv head h / G directly, and
+// masks keys j >= S itself; nothing is padded or repeated, so causal rows
+// i >= S see exactly the S keys (where the Pallas wrapper's zero keys
+// would leak in).  Its tiles are its own: the result does not depend on
+// the wrapper's block arguments.
+//
+// Design.  A lane group of G = hd / 8 lanes holds one query row: each lane
+// keeps 8 of its dims of q and of the accumulator in registers, and a
+// score is a dot product of 8 products per lane summed across the group
+// with xor shuffles.  A block of 128 threads holds R = 1024 / hd rows
+// (64 at hd 16, 8 at hd 128).  Key and value rows are staged, 32 keys at
+// a time, into shared memory as float32 and read by every row of the
+// block.  Short sequences (T <= R / 2, FraudGT's T = 17) pack several
+// (b, h) problems into one block, each with all T rows and its own
+// K/V tiles, so that a block's lanes are not left idle by a 17-row
+// problem; long ones give each block one problem's tile of R rows.
+// Causal blocks stop at the last key their last row can see.
+//
+// Bound on an H100: at FraudGT's shape (B*H = 8192, T = S = 17, hd 16,
+// float32) the bytes (q, k, v read once and o written once, 35.7 MB);
+// at long sequences the operations, 4 * hd flops per visible (i, j)
+// pair, against the tensor cores' peak in bf16.  This kernel runs the
+// products on the CUDA cores (no wgmma or TMA), so at long sequences it
+// sits far above that bound.
+//
+// Launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so that a refused launch is reported.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNeg = -1e30f;
+constexpr int kThreads = 128;
+constexpr int kBK = 32;   // keys per shared-memory tile
+constexpr int kDPL = 8;   // head dims per lane
+constexpr int kSmemBudget = 48 * 1024;
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  __device__ static void load8(const float* p, float* out) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  }
+  __device__ static void store8(float* p, const float* in) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(in[0], in[1], in[2], in[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(in[4], in[5], in[6], in[7]);
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  __device__ static void load8(const __nv_bfloat16* p, float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store8(__nv_bfloat16* p, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+// grid: n_groups * q_tiles blocks; block x covers problems
+// [bh0, bh0 + pb) and, in each, the query rows [tile * rpp, tile * rpp + rpp)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int n_bh,
+                 int t_len, int s_len, int n_heads, int group, int kv_heads,
+                 int causal, float scale, int pb, int rpp, int q_tiles) {
+  constexpr int G = HD / kDPL;  // lanes per query row (2..16)
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // (pb, kBK, HD)
+  float* vs = ks + pb * kBK * HD;               // (pb, kBK, HD)
+
+  const int tile = blockIdx.x % q_tiles;
+  const int bh0 = (blockIdx.x / q_tiles) * pb;
+  const int r = threadIdx.x / G;
+  const int sub = threadIdx.x % G;
+  int p = r / rpp;
+  const int t = tile * rpp + r % rpp;
+  const bool row_ok = p < pb && bh0 + p < n_bh && t < t_len;
+  if (p >= pb) p = pb - 1;  // idle lanes compute on a staged problem and store nothing
+
+  float qf[kDPL];
+  float acc[kDPL];
+#pragma unroll
+  for (int e = 0; e < kDPL; ++e) {
+    qf[e] = 0.f;
+    acc[e] = 0.f;
+  }
+  int64_t q_off = 0;
+  if (row_ok) {
+    const int bh = bh0 + p;
+    q_off = (((int64_t)(bh / n_heads) * t_len + t) * n_heads + bh % n_heads) * HD + sub * kDPL;
+    Io<T>::load8(q + q_off, qf);
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) qf[e] *= scale;
+  }
+  const int t_last = min(t_len - 1, tile * rpp + rpp - 1);
+  const int kv_end = causal ? min(s_len, t_last + 1) : s_len;
+
+  float m = kNeg, l = 0.f;
+  for (int j0 = 0; j0 < kv_end; j0 += kBK) {
+    __syncthreads();  // every row is done with the previous tile
+    const int n_chunks = pb * kBK * G;
+    for (int c = threadIdx.x; c < n_chunks; c += kThreads) {
+      const int pp = c / (kBK * G);
+      const int jj = (c / G) % kBK;
+      const int ch = c % G;
+      const int j = j0 + jj;
+      const int bhp = bh0 + pp;
+      float kv8[kDPL], vv8[kDPL];
+      if (bhp < n_bh && j < s_len) {
+        const int kh = (bhp % n_heads) / group;
+        const int64_t off = (((int64_t)(bhp / n_heads) * s_len + j) * kv_heads + kh) * HD + ch * kDPL;
+        Io<T>::load8(k + off, kv8);
+        Io<T>::load8(v + off, vv8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kDPL; ++e) kv8[e] = vv8[e] = 0.f;
+      }
+      const int dst = (pp * kBK + jj) * HD + ch * kDPL;
+      Io<float>::store8(ks + dst, kv8);
+      Io<float>::store8(vs + dst, vv8);
+    }
+    __syncthreads();
+
+    const float* kr = ks + p * kBK * HD + sub * kDPL;
+    const float* vr = vs + p * kBK * HD + sub * kDPL;
+    float sc[kBK];
+    float mt = kNeg;
+#pragma unroll
+    for (int jj = 0; jj < kBK; ++jj) {
+      float kk[kDPL];
+      Io<float>::load8(kr + jj * HD, kk);
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e) d = fmaf(qf[e], kk[e], d);
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+      const int j = j0 + jj;
+      const bool visible = j < s_len && (!causal || j <= t);
+      sc[jj] = visible ? d : kNeg;
+      mt = fmaxf(mt, sc[jj]);
+    }
+    const float m_new = fmaxf(m, mt);
+    const float alpha = expf(fminf(m - m_new, 0.f));
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) acc[e] *= alpha;
+    float ps = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kBK; ++jj) {
+      const float pj = sc[jj] > 0.5f * kNeg ? expf(sc[jj] - m_new) : 0.f;
+      ps += pj;
+      float vv[kDPL];
+      Io<float>::load8(vr + jj * HD, vv);
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e) acc[e] = fmaf(pj, vv[e], acc[e]);
+    }
+    l = l * alpha + ps;
+    m = m_new;
+  }
+  if (row_ok) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    float out[kDPL];
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) out[e] = acc[e] * inv;
+    Io<T>::store8(o + q_off, out);
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int t,
+           int s, int h, int kvh, int causal, float scale, cudaStream_t st) {
+  constexpr int G = HD / kDPL;
+  constexpr int R = kThreads / G;  // query rows per block
+  const int pb_max = kSmemBudget / (2 * kBK * HD * (int)sizeof(float));
+  const int n_bh = b * h;
+  int pb = 1, rpp = R, q_tiles = (t + R - 1) / R;
+  if (2 * t <= R) {  // pack whole short problems into a block
+    pb = R / t < pb_max ? R / t : pb_max;
+    rpp = t;
+    q_tiles = 1;
+  }
+  const long long blocks = (long long)((n_bh + pb - 1) / pb) * q_tiles;
+  const size_t smem = 2 * (size_t)pb * kBK * HD * sizeof(float);
+  flash_fwd_kernel<T, HD><<<(unsigned)blocks, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, n_bh, t, s, h, h / kvh,
+      kvh, causal, scale, pb, rpp, q_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, void* o, int b,
+              int t, int s, int h, int kvh, int hd, int causal, float scale,
+              cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch<T, 16>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 32: return launch<T, 32>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 64: return launch<T, 64>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it)
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o, int dtype,
+                                      int b, int t, int s, int h, int kvh,
+                                      int hd, int causal, float scale,
+                                      void* stream) {
+  if (b <= 0 || t <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_hd<float>(q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
+  if (dtype == 1) return launch_hd<__nv_bfloat16>(q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -3,6 +3,6 @@
 wrapper with its launch count) and a CUDA source under
 ``src/repro_torch/csrc/`` built by :mod:`repro_torch.kernels.build`.
 
-Ported so far: ``intersect_count``, ``hist_update`` and ``window_degree``
-(the JAX package's ``kernels/*`` Pallas kernels of the same names).
-``flash_attention`` is still to be ported (ROADMAP.md, item B4)."""
+Ported: ``intersect_count``, ``hist_update``, ``window_degree`` and
+``flash_attention``, every Pallas kernel of the JAX package's
+``kernels/*`` (the same names)."""

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written kernels (intersect_count,
-hist_update, window_degree) against their plain PyTorch versions, a
-portfolio mine on the card against the same mine on the CPU, and a GBDT
-fit on the card against the same fit on the CPU.  Every test skips itself where there
+hist_update, window_degree, flash_attention) against their plain PyTorch
+versions, a portfolio mine on the card against the same mine on the CPU,
+a GBDT fit on the card against the same fit on the CPU, and FraudGT's
+logits on the card against the CPU port's.  Every test skips itself where there
 is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -20,6 +21,9 @@ from repro_torch.kernels.hist_update import error_bound, hist_update, hist_updat
 from repro_torch.kernels.hist_update import ops as hu_ops
 from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degree_ref
 from repro_torch.kernels.window_degree import ops as wd_ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +132,57 @@ def test_fit_on_card_equals_cpu(cuda):
         np.testing.assert_allclose(
             on_card.predict_proba(x), on_cpu.predict_proba(x), rtol=1e-4, atol=1e-4
         )
+
+
+# (B, T, S, H, K, hd, causal, dtype): the cases of
+# tests/test_flash_attention.py, causal T > S with S unaligned, every head
+# size the kernel takes, and FraudGT's shape
+@pytest.mark.parametrize(
+    "b,t,s,h,kvh,hd,causal,dtype",
+    [(2, t, t, 4, 4, 32, c, "float32") for t in (64, 128, 256) for c in (True, False)]
+    + [
+        (1, 128, 128, 8, 2, 64, True, "float32"),
+        (1, 128, 128, 4, 4, 64, True, "bfloat16"),
+        (1, 96, 96, 2, 2, 32, True, "float32"),
+        (1, 256, 256, 1, 1, 32, True, "float32"),
+        (2, 80, 50, 4, 2, 16, True, "float32"),
+        (3, 5, 5, 4, 1, 128, True, "float32"),
+        (1, 192, 192, 2, 2, 128, False, "bfloat16"),
+        (1024, 17, 17, 8, 8, 16, True, "float32"),
+    ],
+)
+def test_flash_attention_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype):
+    rng = np.random.default_rng(b + t + s + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dt)
+        for shape in ((b, t, h, hd), (b, s, kvh, hd), (b, s, kvh, hd))
+    )
+    before = fa_ops.launches
+    got = flash_attention(*(x.to(cuda) for x in (q, k, v)), causal=causal, block_k=s)
+    assert fa_ops.launches == before + 1
+    assert got.dtype == dt and got.shape == (b, t, h, hd)
+    want = flash_attention(q, k, v, causal=causal, block_k=s)  # the plain version, on the CPU
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_fraudgt_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(13)
+    src = rng.integers(0, 40, 3000).astype(np.int32)
+    dst = rng.integers(0, 40, 3000).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % 40
+    g = build_temporal_graph(src, dst, rng.integers(0, 4096, 3000), rng.lognormal(5, 1, 3000), n_nodes=40)
+    eids = rng.permutation(3000)[:2500]
+    on_card = FraudGT(FraudGTParams(), seed=1)
+    before = fa_ops.launches
+    proba = on_card.predict_proba(g, eids)
+    assert fa_ops.launches == before + 3 * 3  # 3 layers x 3 chunks of up to 1,024 edges
+    on_cpu = FraudGT(FraudGTParams(), seed=1, device="cpu")
+    toks = on_cpu.tokenize(g, eids)
+    for a, b in zip(on_card.tokenize(g, eids), toks):
+        np.testing.assert_array_equal(a, b)
+    torch.testing.assert_close(on_card.logits(*toks).cpu(), on_cpu.logits(*toks), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(proba, torch.sigmoid(on_cpu.logits(*toks)).numpy(), rtol=1e-4, atol=1e-4)
+    torch_attn = FraudGT(FraudGTParams(), seed=1, attn_backend="torch")
+    torch.testing.assert_close(on_card.logits(*toks), torch_attn.logits(*toks), rtol=1e-5, atol=1e-5)

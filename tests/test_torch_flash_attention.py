@@ -1,0 +1,119 @@
+"""The port's flash_attention (its plain version, which the wrapper takes
+on the CPU) against the JAX package's reference, at every case of
+``tests/test_flash_attention.py`` and its tolerances.  The JAX Pallas
+kernel itself cannot run here (it calls ``pl.load``, which jax 0.9 no
+longer has), so its oracle ``flash_attention_ref``, with the JAX
+wrapper's repeat of the K/V heads, stands for it.  Also: causal
+attention over fewer keys than queries, the launch count, and what the
+wrapper refuses."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from tests.hypothesis_compat import given, settings, st
+
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+
+def _inputs(b, t, s, h, kvh, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=(b, t, h, hd)).astype(np.float32),
+        rng.normal(size=(b, s, kvh, hd)).astype(np.float32),
+        rng.normal(size=(b, s, kvh, hd)).astype(np.float32),
+    )
+
+
+def _jax(q, k, v, causal, dtype):
+    """The JAX wrapper's contract: repeat K/V heads, flatten, oracle."""
+    b, t, h, hd = q.shape
+    s, g = k.shape[1], h // k.shape[2]
+    kk, vv = (np.repeat(x, g, axis=2) for x in (k, v))
+    flat = lambda x, n: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, n, hd), dtype)
+    out = jax_ref(flat(q, t), flat(kk, s), flat(vv, s), causal=causal)
+    return np.asarray(out, np.float32).reshape(b, h, t, hd).transpose(0, 2, 1, 3)
+
+
+def _case(b, t, h, kvh, hd, causal, dtype, bq=64, bk=64, seed=0):
+    q, k, v = _inputs(b, t, t, h, kvh, hd, seed)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    before = fa_ops.launches
+    got = flash_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=causal, block_q=bq, block_k=bk
+    )
+    assert fa_ops.launches == before  # the CPU takes the plain version
+    assert got.shape == (b, t, h, hd) and got.dtype == tdt
+    tol = 2e-2 if dtype == jnp.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().numpy(), _jax(q, k, v, causal, dtype), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("t", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_shapes(t, causal):
+    _case(2, t, 4, 4, 32, causal, jnp.float32)
+
+
+def test_gqa_heads():
+    _case(1, 128, 8, 2, 64, True, jnp.float32)
+
+
+def test_bf16():
+    _case(1, 128, 4, 4, 64, True, jnp.bfloat16)
+
+
+def test_unaligned_t_padding():
+    _case(1, 96, 2, 2, 32, True, jnp.float32, bq=64, bk=32)
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 1000))
+def test_hypothesis_random(seed):
+    rng = np.random.default_rng(seed)
+    t = int(rng.choice([64, 128, 192]))
+    h = int(rng.choice([1, 2, 4]))
+    hd = int(rng.choice([16, 32, 64]))
+    _case(1, t, h, h, hd, bool(rng.integers(0, 2)), jnp.float32, seed=seed)
+
+
+def test_fully_masked_blocks_safe():
+    _case(1, 256, 1, 1, 32, True, jnp.float32, bq=32, bk=128)
+
+
+def test_fewer_keys_than_queries():
+    """Causal, T > S, S not a block multiple: rows i >= S see exactly the
+    S keys, as the plain version says (the JAX wrapper's zero padding would
+    let them see padded keys too)."""
+    q, k, v = _inputs(2, 80, 50, 4, 2, 16, 5)
+    got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True, block_q=32, block_k=32)
+    want = _jax(q, k, v, True, jnp.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    # row 79 of batch 0, head 0 (kv head 0): a softmax over all 50 keys
+    sc = q[0, 79, 0] @ k[0, :, 0].T / 4.0
+    w = np.exp(sc - sc.max())
+    np.testing.assert_allclose(got[0, 79, 0].numpy(), w @ v[0, :, 0] / w.sum(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bq,bk", [(16, 16), (64, 128), (128, 96)])
+def test_blocks_do_not_change_the_result(bq, bk):
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 96, 96, 4, 2, 32, 9))
+    base = flash_attention(q, k, v)
+    assert torch.equal(flash_attention(q, k, v, block_q=bq, block_k=bk), base)
+
+
+def test_refuses():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 40, 40, 4, 2, 16, 1))
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention(q, k, v, causal=False, block_k=32)  # 40 % 32 != 0
+    flash_attention(q, k, v, causal=False, block_k=128)  # one block of 40 keys
+    with pytest.raises(ValueError, match="head sizes"):
+        flash_attention(q[..., :8], k[..., :8], v[..., :8])
+    with pytest.raises(ValueError, match="H % K"):
+        flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="block sizes"):
+        flash_attention(q, k, v, block_q=0)
+    with pytest.raises(ValueError, match="takes q"):
+        flash_attention(q[0], k, v)
