@@ -15,9 +15,14 @@ Phases, in order; any failure exits non-zero:
 2. kernel — hold each kernel to its plain PyTorch version on the card:
    ``intersect_count`` bit for bit over the bucket-ladder shapes, both
    ``ordered`` modes, ragged batch sizes and the hand-built edge cases;
-   ``hist_update`` within its stated error bound of the plain version in
-   float64, and bit-identical across two launches, at the shapes of
-   ``tests/test_kernels.py`` and the edge cases; ``window_degree`` bit for
+   both entries of ``hist_update`` (``keys`` and ``rows``) bit for bit
+   equal to the plain fixed-point replay (``ref.fixed_point_ref``), within
+   their stated error bound of the plain version in float64, and
+   bit-identical across two launches, at the shapes of
+   ``tests/test_kernels.py``, the edge cases, one shape for each cluster
+   size (1, 2, 4, 8, 16 blocks) and one past the cluster limit, hot keys
+   (every row on one key; 90 % of rows on 1 % of the keys) and the fit's
+   level shapes S = 3,072 * 2^L, L = 0..5; ``window_degree`` bit for
    bit at the ``tests/test_kernels.py`` shapes and (16384, 128);
    ``flash_attention`` within 2e-5 (float32) or 2e-2 (bfloat16) at the
    cases of ``tests/test_flash_attention.py``, causal attention over fewer
@@ -40,7 +45,10 @@ Phases, in order; any failure exits non-zero:
    ``set_sync_debug_mode("error")``, then ``"xgb_only"``, at the same
    size.  The launch counts are zeroed before each and read after; each
    fit must launch ``hist_update`` n_trees * (max_depth + 1) = 420 times,
-   and the pipeline's mined columns must equal phase 3's count matrix.
+   n_trees * max_depth = 360 of them through the ``rows`` entry (one per
+   level) and the rest the leaf sums, and the pipeline's mined columns
+   must equal phase 3's count matrix.  The first launch of each shape of
+   the ``"full"`` fit is kept for phase 8.
 6. detection cross-checks — two 10-tree fits on the card over the first
    1,048,576 training rows give bit-identical trees and probabilities,
    and a 10-tree fit on the card over 262,144 rows splits as the CPU
@@ -56,11 +64,14 @@ Phases, in order; any failure exits non-zero:
    are bit-identical to a CPU ``tokenize``.  Then the forward over the
    first 131,072 test edges under ``torch.profiler``: the device's busy
    share and the kernels that take its time.
-8. report — a ``{"kernels": [...]}`` line (launches on the main paths,
-   max difference from the plain version, kernel / plain / bound /
-   library times at the main path's largest launch), the card line, and
-   last ``{"ok": true, "device": {...}}``.  The full record goes to
-   ``build/chip_smoke.json``.
+8. report — each kernel checked and timed at the shapes its main path
+   gave it (``hist_update``'s ``rows`` entry at every level of the fit,
+   its ``keys`` entry at the leaf sums and on the keys the fit would build
+   at every level), then a ``{"kernels": [...]}`` line (launches on the
+   main paths, max difference from the plain version, kernel / plain /
+   bound / library times at the main path's largest launch), the card
+   line, and last ``{"ok": true, "device": {...}}``.  The full record
+   goes to ``build/chip_smoke.json``.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -90,6 +101,20 @@ KERNELS = ("intersect_count", "hist_update", "window_degree", "flash_attention")
 SMOKE_SHAPES = ((1, 4), (1, 1024), (4, 4), (16, 64), (64, 256), (256, 256), (1024, 1024))
 RAGGED_B = (1, 33, 4097)
 HU_SHAPES = ((16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64))  # (N, S)
+# hist_update's keys entry: each cluster size (the kernel holds 14,528
+# keys a block, in clusters of 1, 2, 4, 8 or 16 blocks) and past the limit
+HU_CLUSTER_SHAPES = tuple((1 << 20, s) for s in (14_528, 14_529, 29_057, 58_113, 116_225, 232_448, 232_449))
+HU_LEVEL_S = tuple(3072 << lv for lv in range(6))  # the fit's levels at F = 12, B = 256
+# hist_update's rows entry (N rows, F, B, n_nodes): the fit's levels, a
+# 16-block cluster, past the limit, narrow shapes and zero rows
+HU_ROWS_SHAPES = (
+    *((1 << 19, 12, 256, 1 << lv) for lv in range(6)),
+    (1 << 18, 12, 256, 64),
+    (1 << 17, 12, 256, 128),
+    (1000, 1, 16, 2),
+    (4097, 3, 7, 5),
+    (0, 12, 256, 4),
+)
 WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128))  # (B, D)
 WINDOW = 4096
 SEED = 0  # data seed
@@ -146,6 +171,11 @@ def ic_bound_ms(b: int, da: int, db: int):
 def hu_bound_ms(n: int, s: int):
     # keys and gh rows read once, the (S, 2) float32 sums written once
     return bound_ms(n * 12 + s * 8, 2 * n)
+
+
+def hu_rows_bound_ms(n: int, f: int, s: int):
+    # each row's F bins, node id and gh pair read once, the sums written once
+    return bound_ms(n * (f + 12) + s * 8, 2 * n * f)
 
 
 def wd_bound_ms(b: int, d: int):
@@ -273,25 +303,52 @@ def phase_kernel(device, report):
     return max_err
 
 
-def hu_check(keys, gh, s: int) -> float:
-    """Hold hist_update to its plain version in float64, within the
-    kernel's stated error bound, and two launches to each other bit for
-    bit; returns the largest |difference| from the float64 sums."""
+def hu_hold(a, b, replay, exact, bound, what: str) -> float:
+    """Hold two launches of a hist_update entry to each other and to the
+    plain fixed-point replay bit for bit, and to the float64 plain version
+    within the stated error bound; returns the largest |difference| from
+    the float64 sums."""
     import torch
-    from repro_torch.kernels.hist_update import ops as hu_ops
-    from repro_torch.kernels.hist_update.ref import hist_update_ref
 
-    a = hu_ops.hist_update(keys, gh, s)
-    b = hu_ops.hist_update(keys, gh, s)
     if not torch.equal(a, b):
-        raise AssertionError(f"hist_update gave other bits on a second launch at N={keys.shape[0]} S={s}")
-    exact = hist_update_ref(keys, gh.double(), s)
+        raise AssertionError(f"hist_update gave other bits on a second launch at {what}")
+    if not torch.equal(a, replay):
+        bad = int((a != replay).sum())
+        raise AssertionError(f"hist_update differs from its fixed-point replay at {what} in {bad} entries")
     diff = (a.double() - exact).abs()
-    over = diff > hu_ops.error_bound(keys, gh, s)
+    over = diff > bound
     if bool(over.any()):
-        raise AssertionError(f"hist_update outside its error bound at N={keys.shape[0]} S={s}: "
+        raise AssertionError(f"hist_update outside its error bound at {what}: "
                              f"{int(over.sum())} entries, max |diff| {float(diff.max()):.3g}")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def hu_check(keys, gh, s: int) -> float:
+    """The keys entry, held as ``hu_hold`` says."""
+    from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import fixed_point_ref, hist_update_ref
+
+    n = keys.shape[0]
+    return hu_hold(hu_ops.hist_update(keys, gh, s), hu_ops.hist_update(keys, gh, s),
+                   fixed_point_ref(keys, gh, s, n), hist_update_ref(keys, gh.double(), s),
+                   hu_ops.error_bound(keys, gh, s), f"N={n} S={s}")
+
+
+def hu_rows_check(xb, node, gh, n_nodes: int, n_bins: int) -> float:
+    """The rows entry, held as ``hu_hold`` says; the replay sums the keys
+    and repeated gh that the plain version builds, at the scale of the N
+    rows."""
+    from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import fixed_point_ref, hist_update_rows_ref, row_keys
+
+    n, f = xb.shape
+    s = n_nodes * f * n_bins
+    replay = fixed_point_ref(row_keys(xb, node, n_bins), gh[:, None, :].expand(n, f, 2).reshape(-1, 2), s, n)
+    return hu_hold(hu_ops.hist_update_rows(xb, node, gh, n_nodes, n_bins),
+                   hu_ops.hist_update_rows(xb, node, gh, n_nodes, n_bins),
+                   replay.reshape(n_nodes, f, n_bins, 2),
+                   hist_update_rows_ref(xb, node, gh.double(), n_nodes, n_bins),
+                   hu_ops.error_bound_rows(xb, node, gh, n_nodes, n_bins), f"rows N={n} F={f} S={s}")
 
 
 def hu_times(keys, gh, s: int, reps: int) -> dict:
@@ -314,6 +371,68 @@ def hu_times(keys, gh, s: int, reps: int) -> dict:
     }
 
 
+def hu_rows_times(xb, node, gh, n_nodes: int, n_bins: int, reps: int) -> dict:
+    """The rows entry, its plain version (key build, repeat and segment
+    sum in float32) and the library call: one index_add_ of the repeated
+    gh on prebuilt keys (the key build and the repeat not counted)."""
+    import torch
+    from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import hist_update_rows_ref, row_keys
+
+    n, f = xb.shape
+    s = n_nodes * f * n_bins
+    keys = row_keys(xb, node, n_bins)
+    safe = torch.where((keys >= 0) & (keys < s), keys, s)
+    gh_rep = gh[:, None, :].expand(n, f, 2).reshape(-1, 2)
+    lib_out = torch.zeros((s + 1, 2), dtype=torch.float32, device=xb.device)
+    bound, by = hu_rows_bound_ms(n, f, s)
+    return {
+        "ms": cuda_ms(lambda: hu_ops.hist_update_rows(xb, node, gh, n_nodes, n_bins), reps),
+        "plain_ms": cuda_ms(lambda: hist_update_rows_ref(xb, node, gh, n_nodes, n_bins), reps),
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, safe, gh_rep), reps),
+        "bound_ms": bound,
+        "bound_by": by,
+    }
+
+
+def hu_keys_cases(gen, device):
+    """(name, N, S, keys) of phase 2's keys-entry cases: keys in [-2, S+2)
+    as tests/test_kernels.py draws them, each cluster size, the fit's
+    level shapes, and hot keys."""
+    import torch
+
+    def ri(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=device, dtype=torch.int32)
+
+    for n, s in HU_SHAPES + HU_CLUSTER_SHAPES + tuple((1 << 22, s) for s in HU_LEVEL_S):
+        yield "uniform", n, s, ri(-2, s + 2, n)
+    s = HU_LEVEL_S[-1]
+    yield "one key", 1 << 20, s, torch.full((1 << 20,), 4321, dtype=torch.int32, device=device)
+    hot = ri(0, s // 100, 1 << 22)  # 90 % of rows on 1 % of the keys
+    yield "hot 90/1", 1 << 22, s, torch.where(torch.rand(1 << 22, generator=gen, device=device) < 0.9,
+                                              hot, ri(0, s, 1 << 22))
+
+
+def hu_rows_cases(gen, device):
+    """(name, xb, node, n_nodes, n_bins) of phase 2's rows-entry cases:
+    uniform bins and nodes at each shape of HU_ROWS_SHAPES, then hot keys
+    at level 5: every row on node 0 and bin 0, and bins drawn from a
+    skewed law (90 % bin 0) as the mined counts are."""
+    import torch
+
+    for n, f, b, n_nodes in HU_ROWS_SHAPES:
+        xb = torch.randint(0, b, (n, f), generator=gen, device=device, dtype=torch.int32).to(torch.uint8)
+        node = torch.randint(0, n_nodes, (n,), generator=gen, device=device, dtype=torch.int32)
+        yield "uniform", xb, node, n_nodes, b
+    n, f, b, n_nodes = 1 << 19, 12, 256, 32
+    yield ("one key", torch.zeros((n, f), dtype=torch.uint8, device=device),
+           torch.zeros(n, dtype=torch.int32, device=device), n_nodes, b)
+    xb = torch.randint(0, b, (n, f), generator=gen, device=device, dtype=torch.int32).to(torch.uint8)
+    xb = torch.where(torch.rand((n, f), generator=gen, device=device) < 0.9, 0, xb).to(torch.uint8)
+    yield "hot 90 % bin 0", xb, torch.randint(0, n_nodes, (n,), generator=gen, device=device,
+                                              dtype=torch.int32), n_nodes, b
+
+
 def phase_hist_update(device, report) -> float:
     import torch
 
@@ -321,18 +440,26 @@ def phase_hist_update(device, report) -> float:
     gen.manual_seed(1)
     max_err = 0.0
     rows = []
-    for n, s in HU_SHAPES:
-        # keys in [-2, S+2), as tests/test_kernels.py draws them
-        keys = torch.randint(-2, s + 2, (n,), generator=gen, device=device, dtype=torch.int32)
+    for name, n, s, keys in hu_keys_cases(gen, device):
         gh = torch.randn((n, 2), generator=gen, device=device)
         err = hu_check(keys, gh, s)
         max_err = max(max_err, err)
-        row = {"N": n, "S": s, "max_abs_err": err, **hu_times(keys, gh, s, 20)}
+        row = {"entry": "keys", "case": name, "N": n, "S": s, "max_abs_err": err, **hu_times(keys, gh, s, 10)}
         rows.append(row)
         log("kernel timing: hist_update " + json.dumps(row))
+    for name, xb, node, n_nodes, b in hu_rows_cases(gen, device):
+        n, f = xb.shape
+        gh = torch.randn((n, 2), generator=gen, device=device)
+        err = hu_rows_check(xb, node, gh, n_nodes, b)
+        max_err = max(max_err, err)
+        row = {"entry": "rows", "case": name, "N": n, "F": f, "B": b, "n_nodes": n_nodes, "S": n_nodes * f * b,
+               "max_abs_err": err, **hu_rows_times(xb, node, gh, n_nodes, b, 10)}
+        rows.append(row)
+        log("kernel timing: hist_update_rows " + json.dumps(row))
     report["hist_update_shapes"] = rows
-    log(f"kernel: hist_update within its error bound of the float64 plain version and "
-        f"bit-identical across launches on {len(HU_SHAPES)} shapes (max |diff| {max_err:.3g})")
+    log(f"kernel: hist_update (keys and rows entries) bit-identical to its fixed-point replay and across "
+        f"launches, and within its error bound of the float64 plain version, on {len(rows)} cases "
+        f"(max |diff| {max_err:.3g})")
     return max_err
 
 
@@ -586,6 +713,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hist_update import ops as hu_ops
+    from repro_torch.kernels.hist_update.ref import row_keys
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.kernels.window_degree import ops as wd_ops
     from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
@@ -595,10 +723,12 @@ def main() -> int:
     report = {"scale": args.scale, "seed": SEED}
 
     def zero_launches():
-        ic_ops.launches = hu_ops.launches = wd_ops.launches = fa_ops.launches = 0
+        ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
 
     def read_launches():
+        # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
+                "hist_update_rows": hu_ops.rows_launches,
                 "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches}
 
     # ---- 1. build ------------------------------------------------------
@@ -711,17 +841,24 @@ def main() -> int:
     # ---- 5. detection path at the same size ---------------------------
     params = GBDTParams()
     fit_launches = params.n_trees * (params.max_depth + 1)
-    hu_fn = hu_ops.hist_update
-    hu_path = {}  # (N, S) -> the first launch of each shape the fit makes
+    rows_fit_launches = params.n_trees * params.max_depth
+    hu_fn, hu_rows_fn = hu_ops.hist_update, hu_ops.hist_update_rows
+    hu_path = {}  # (N, S) -> the first keys-entry launch of each shape the fit makes
+    hu_rows_path = {}  # (N, S) -> the first rows-entry launch of each shape
 
     def capture_hu(keys, gh, s):
         hu_path.setdefault((keys.shape[0], s), (keys, gh, s))
         return hu_fn(keys, gh, s)
 
+    def capture_hu_rows(xb, node, gh, n_nodes, n_bins):
+        hu_rows_path.setdefault((xb.shape[0], n_nodes * xb.shape[1] * n_bins), (xb, node, gh, n_nodes, n_bins))
+        return hu_rows_fn(xb, node, gh, n_nodes, n_bins)
+
     detection = {}
     results = {}
     for fs in ("full", "xgb_only"):
-        hu_ops.hist_update = capture_hu if fs == "full" else hu_fn
+        if fs == "full":
+            hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
         zero_launches()
         if fs == "full":
             torch.cuda.set_sync_debug_mode("error")
@@ -731,7 +868,7 @@ def main() -> int:
             wall = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode(0)
-            hu_ops.hist_update = hu_fn
+            hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
         results[fs] = res
         row = {"f1": res.f1, "precision": res.precision, "recall": res.recall, "confusion": res.confusion,
                "mine_seconds": res.mine_seconds, "train_seconds": res.train_seconds,
@@ -743,6 +880,9 @@ def main() -> int:
         if row["launches"]["hist_update"] != fit_launches:
             raise AssertionError(f"the {fs} fit launched hist_update {row['launches']['hist_update']} "
                                  f"times, not {fit_launches}")
+        if row["launches"]["hist_update_rows"] != rows_fit_launches:
+            raise AssertionError(f"the {fs} fit launched the rows entry {row['launches']['hist_update_rows']} "
+                                 f"times, not {rows_fit_launches}")
         if not 0.0 <= res.f1 <= 1.0 or res.n_train + res.n_test != g.n_edges:
             raise AssertionError(f"{fs}: F1 {res.f1} or split {res.n_train}+{res.n_test} out of range")
     mined = results["full"].mining
@@ -817,23 +957,59 @@ def main() -> int:
         "library_ms": None,
         "shape": {"B": b, "Da": da, "Db": db, "ordered": bool(ordered)},
     }]
-    path_rows = {}
+    # hist_update on the detection path: the rows entry at every level of
+    # the fit and the keys entry at the leaf sums, each as the fit launched
+    # it; then the keys entry on the keys and repeated gh that the fit
+    # would build at every level, which is where it ran before the rows
+    # entry existed
+    path_rows = []
     for (n, s), (keys, gh, _) in sorted(hu_path.items()):
         err = hu_check(keys, gh, s)
         hu_err = max(hu_err, err)
-        path_rows[n, s] = {"N": int(n), "S": s, "max_abs_err": err, **hu_times(keys, gh, s, 20)}
-        log("kernel timing: hist_update on the detection path " + json.dumps(path_rows[n, s]))
-    report["hist_update_path_shapes"] = list(path_rows.values())
-    n, s = max(path_rows)  # the main path's largest launch
+        path_rows.append({"entry": "keys", "launched": True, "N": int(n), "S": s, "max_abs_err": err,
+                          **hu_times(keys, gh, s, 20)})
+        log("kernel timing: hist_update on the detection path " + json.dumps(path_rows[-1]))
+    rows_rows = []
+    for (n, s), (xb, node, gh, n_nodes, n_bins) in sorted(hu_rows_path.items()):
+        err = hu_rows_check(xb, node, gh, n_nodes, n_bins)
+        hu_err = max(hu_err, err)
+        rows_rows.append({"entry": "rows", "N": int(n), "F": int(xb.shape[1]), "n_nodes": n_nodes, "S": s,
+                          "max_abs_err": err, **hu_rows_times(xb, node, gh, n_nodes, n_bins, 20)})
+        log("kernel timing: hist_update_rows on the detection path " + json.dumps(rows_rows[-1]))
+        keys = row_keys(xb, node, n_bins)
+        gh_rep = gh[:, None, :].expand(n, xb.shape[1], 2).reshape(-1, 2)
+        err = hu_check(keys, gh_rep, s)
+        hu_err = max(hu_err, err)
+        path_rows.append({"entry": "keys", "launched": False, "N": int(keys.shape[0]), "S": s,
+                          "max_abs_err": err, **hu_times(keys, gh_rep, s, 20)})
+        log("kernel timing: hist_update on the fit's level keys " + json.dumps(path_rows[-1]))
+        del keys, gh_rep
+    report["hist_update_path_shapes"] = path_rows + rows_rows
+    top = max(path_rows, key=lambda r: (r["N"], r["S"]))  # the keys entry's largest path shape
+    fit_launch = detection["full"]["launches"]
     kernels.append({
         "name": "hist_update",
         "route": "cuda",
         "source": "src/repro_torch/csrc/hist_update.cu",
         "replaces": "src/repro/kernels/hist_update/kernel.py:42",
-        "launches": detection["full"]["launches"]["hist_update"],
+        # the keys entry: the leaf sums of the fit; 420 with the rows entry's
+        "launches": fit_launch["hist_update"] - fit_launch["hist_update_rows"],
+        "launches_both_entries": fit_launch["hist_update"],
         "max_abs_err": hu_err,
-        **{k: path_rows[n, s][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "shape": {"N": int(n), "S": s},
+        **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shape": {"N": top["N"], "S": top["S"], "keys": "the fit's level-5 (node, feature, bin) keys"},
+    })
+    top = max(rows_rows, key=lambda r: (r["N"], r["S"]))
+    kernels.append({
+        "name": "hist_update_rows",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/hist_update.cu",
+        "replaces": "src/repro/kernels/hist_update/kernel.py:42",
+        "launches": fit_launch["hist_update_rows"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows_rows),
+        **{k: top[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "library": "index_add_ of the repeated gh on prebuilt keys (the key build and the repeat not counted)",
+        "shape": {k: top[k] for k in ("N", "F", "n_nodes", "S")},
     })
     kernels.append({
         "name": "window_degree",

@@ -9,12 +9,13 @@ binning (256 bins, uint8 storage), level-wise growth, class imbalance via
 
 Binning is host numpy, a copy of the reference's, so the bins are
 bit-identical.  Everything after it runs on the classifier's ``device``
-(the CUDA card by default; the CPU only when asked).  Every histogram —
-one per tree level over fused ``(node, feature, bin)`` keys, and the leaf
-sums — is one call of :func:`repro_torch.kernels.hist_update.hist_update`:
-the hand-written CUDA kernel on the card, whose fixed-point sums make a
-fit deterministic, and its plain version on the CPU.  A fit copies from
-the card to the host once, the finished trees, through
+(the CUDA card by default; the CPU only when asked).  Every histogram is
+one call of the hand-written CUDA kernel ``hist_update`` on the card,
+whose fixed-point sums make a fit deterministic, and of its plain version
+on the CPU: one per tree level over fused ``(node, feature, bin)`` keys
+(:func:`repro_torch.kernels.hist_update.hist_update_rows`), and the leaf
+sums (:func:`repro_torch.kernels.hist_update.hist_update`).  A fit
+copies from the card to the host once, the finished trees, through
 :func:`repro_torch.device.to_host`.
 """
 from __future__ import annotations
@@ -66,20 +67,10 @@ def _f32(v: float) -> float:
 
 def _histograms(xb, gh, node, n_nodes: int, n_bins: int):
     """(N,F) uint8 bins, (N,2) grad/hess, (N,) int32 node ->
-    (nodes,F,bins,2).  The gh rows are repeated once per feature, as in the
-    reference (``gbdt.py:64``)."""
-    n, f = xb.shape
-    keys = (
-        node[:, None] * (f * n_bins)
-        + torch.arange(f, dtype=torch.int32, device=xb.device)[None, :] * n_bins
-        + xb.to(torch.int32)
-    )  # (N, F)
-    flat = hu_ops.hist_update(
-        keys.reshape(-1),
-        gh[:, None, :].expand(n, f, 2).reshape(-1, 2),
-        n_nodes * f * n_bins,
-    )
-    return flat.reshape(n_nodes, f, n_bins, 2)
+    (nodes,F,bins,2): one ``hist_update_rows`` call, which reads each row
+    once (the reference, ``gbdt.py:54-67``, builds (N, F) keys and repeats
+    gh F times; the plain version on the CPU still does)."""
+    return hu_ops.hist_update_rows(xb, node, gh, n_nodes, n_bins)
 
 
 # the block length of the reference's cumsum on the CPU (see _prefix_sum)

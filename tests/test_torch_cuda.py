@@ -1,9 +1,10 @@
 """The port on a CUDA card: the hand-written kernels (intersect_count,
-hist_update, window_degree, flash_attention) against their plain PyTorch
-versions, a portfolio mine on the card against the same mine on the CPU,
-a GBDT fit on the card against the same fit on the CPU, and FraudGT's
-logits on the card against the CPU port's.  Every test skips itself where there
-is no card.  The file imports neither jax nor ``repro``, so it also runs
+hist_update's two entries, window_degree, flash_attention) against their
+plain PyTorch versions (hist_update also bit for bit against its plain
+fixed-point replay, at every cluster size), a portfolio mine on the card
+against the same mine on the CPU, a GBDT fit on the card against the same
+fit on the CPU, and FraudGT's logits on the card against the CPU port's.
+Every test skips itself where there is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,8 +18,17 @@ from repro_torch.core.patterns import feature_pattern_set
 from repro_torch.graph.csr import build_temporal_graph
 from repro_torch.kernels.intersect_count import intersect_count, intersect_count_ref
 from repro_torch.kernels.intersect_count import ops as ic_ops
-from repro_torch.kernels.hist_update import error_bound, hist_update, hist_update_ref
+from repro_torch.kernels.hist_update import (
+    error_bound,
+    error_bound_rows,
+    fixed_point_ref,
+    hist_update,
+    hist_update_ref,
+    hist_update_rows,
+    hist_update_rows_ref,
+)
 from repro_torch.kernels.hist_update import ops as hu_ops
+from repro_torch.kernels.hist_update.ref import row_keys
 from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degree_ref
 from repro_torch.kernels.window_degree import ops as wd_ops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -97,6 +107,56 @@ def test_hist_update_within_bound_and_deterministic(cuda, n, s):
     assert torch.equal(a, b)  # the same bits on every launch
     exact = hist_update_ref(keys, gh.double(), s)
     assert torch.all((a.cpu().double() - exact).abs() <= error_bound(keys, gh, s))
+
+
+# the kernel holds 14,528 keys a block in clusters of 1, 2, 4, 8 or 16
+# blocks; 232,449 keys go to device memory
+CLUSTER_S = [14_528, 14_529, 29_057, 58_113, 116_225, 232_449]
+
+
+@pytest.mark.parametrize("s", CLUSTER_S)
+@pytest.mark.parametrize("kind", ["uniform", "one key"])
+def test_hist_update_equals_fixed_point_replay(cuda, s, kind):
+    rng = np.random.default_rng(s)
+    n = 1 << 18
+    keys = rng.integers(-2, s + 2, n) if kind == "uniform" else np.full(n, s - 1)
+    keys = torch.from_numpy(keys.astype(np.int32))
+    gh = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32))
+    before = hu_ops.launches
+    a = hist_update(keys.to(cuda), gh.to(cuda), s).cpu()
+    b = hist_update(keys.to(cuda), gh.to(cuda), s).cpu()
+    assert hu_ops.launches == before + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, fixed_point_ref(keys, gh, s, n))  # replayed on the CPU
+    exact = hist_update_ref(keys, gh.double(), s)
+    assert torch.all((a.double() - exact).abs() <= error_bound(keys, gh, s))
+
+
+# n_nodes at F = 12, B = 256: clusters of 1, 2, 4, 8 and 16 blocks, then
+# device memory (393,216 keys)
+@pytest.mark.parametrize("n_nodes", [1, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["uniform", "one key"])
+def test_hist_update_rows_equals_fixed_point_replay(cuda, n_nodes, kind):
+    rng = np.random.default_rng(n_nodes)
+    n, f, n_bins = 1 << 16, 12, 256
+    if kind == "uniform":
+        xb = rng.integers(0, n_bins, (n, f)).astype(np.uint8)
+        node = rng.integers(0, n_nodes, n).astype(np.int32)
+    else:
+        xb = np.zeros((n, f), dtype=np.uint8)
+        node = np.full(n, n_nodes - 1, dtype=np.int32)
+    xb, node = torch.from_numpy(xb), torch.from_numpy(node)
+    gh = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32))
+    before, rows_before = hu_ops.launches, hu_ops.rows_launches
+    a = hist_update_rows(xb.to(cuda), node.to(cuda), gh.to(cuda), n_nodes, n_bins).cpu()
+    b = hist_update_rows(xb.to(cuda), node.to(cuda), gh.to(cuda), n_nodes, n_bins).cpu()
+    assert hu_ops.launches == before + 2 and hu_ops.rows_launches == rows_before + 2
+    assert a.shape == (n_nodes, f, n_bins, 2) and torch.equal(a, b)
+    s = n_nodes * f * n_bins
+    replay = fixed_point_ref(row_keys(xb, node, n_bins), gh[:, None, :].expand(n, f, 2).reshape(-1, 2), s, n)
+    assert torch.equal(a, replay.reshape(a.shape))
+    exact = hist_update_rows_ref(xb, node, gh.double(), n_nodes, n_bins)
+    assert torch.all((a.double() - exact).abs() <= error_bound_rows(xb, node, gh, n_nodes, n_bins))
 
 
 @pytest.mark.parametrize("b,d", [(1, 1), (7, 16), (64, 128), (100, 33), (16384, 128)])

@@ -10,10 +10,14 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
    staging, launch dispatch, and the gathers that wait for the device;
 2. a warm mine with a device sync after every kernel call, attributed to
    (pattern, strategy, bucket dims): the device-inclusive wall of each
-   strategy, and how much of it the ``intersect_count`` kernel took;
+   strategy, how much of it the ``intersect_count`` kernel took, and its
+   CUDA-event span summed by launch shape (B, Da, Db, ordered): each span
+   runs from an idle card to the kernel's end, so it also holds the
+   wrapper's host time before the launch and is an upper bound;
 3. a warm mine under ``torch.profiler``: the top CUDA kernels by device
-   time, and the device's busy share of the mine's wall (kernel time
-   over wall; one stream, so kernels do not overlap).
+   time, the ``intersect_count`` kernel's own device time and launches,
+   and the device's busy share of the mine's wall (kernel time over
+   wall; one stream, so kernels do not overlap).
 
 Prints one JSON object per part and writes them all to
 ``build/profile_mine.json``.
@@ -72,6 +76,7 @@ def main() -> int:
     walls = collections.defaultdict(float)
     calls = collections.Counter()
     ic_walls = collections.defaultdict(float)
+    ic_shapes = collections.defaultdict(list)  # (B, Da, Db, ordered) -> [(start, stop)]
     label = [None]
     orig_kernel = TC.CompiledPattern._kernel
     orig_ic = ic_ops.intersect_count
@@ -95,8 +100,13 @@ def main() -> int:
     def timed_ic(*a, **kw):
         torch.cuda.synchronize()
         s = time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
         out = orig_ic(*a, **kw)
+        ev[1].record()
         torch.cuda.synchronize()
+        shape = (*a[0].shape, a[2].shape[1], bool(kw.get("ordered", False)))
+        ic_shapes[shape].append(ev)
         ic_walls[label[0]] += time.perf_counter() - s
         return out
 
@@ -114,8 +124,17 @@ def main() -> int:
         pat, strat, _ = k.split(":", 2)
         by_strat[f"{pat}:{strat}"] += v
     top = sorted(walls.items(), key=lambda kv: -kv[1])[:TOP]
+    by_shape = [
+        {"B": b, "Da": da, "Db": db, "ordered": o, "launches": len(evs),
+         "device_s": sum(x.elapsed_time(y) for x, y in evs) / 1e3}
+        for (b, da, db, o), evs in ic_shapes.items()
+    ]
+    for r in by_shape:
+        r["ms_per_launch"] = r["device_s"] * 1e3 / r["launches"]
     report["warm_synced"] = {
         "wall_s": synced_s,
+        "intersect_count_by_shape": sorted(by_shape, key=lambda r: -r["device_s"])[:TOP],
+        "intersect_count_device_s": sum(r["device_s"] for r in by_shape),
         "by_pattern_strategy_s": dict(sorted(by_strat.items(), key=lambda kv: -kv[1])),
         "intersect_count_s": sum(ic_walls.values()),
         "top_buckets": [
@@ -139,10 +158,13 @@ def main() -> int:
             kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
             kern[ev.name][1] += 1
     busy = sum(v[0] for v in kern.values())
+    ic = [v for k, v in kern.items() if "intersect_count" in k]
     report["warm_profiled"] = {
         "wall_s": prof_wall,
         "device_kernel_s": busy,
         "device_busy_share": busy / prof_wall if prof_wall else None,
+        "intersect_count_kernel_s": sum(v[0] for v in ic),
+        "intersect_count_kernel_launches": sum(v[1] for v in ic),
         "top_kernels": [
             {"name": k[:120], "s": v[0], "count": v[1]}
             for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]
