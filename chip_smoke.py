@@ -26,9 +26,14 @@ Phases, in order; any failure exits non-zero:
    bit at the ``tests/test_kernels.py`` shapes and (16384, 128);
    ``flash_attention`` within 2e-5 (float32) or 2e-2 (bfloat16) at the
    cases of ``tests/test_flash_attention.py``, causal attention over fewer
-   keys than queries, FraudGT's shape and one long bfloat16 shape.  Each
-   shape is timed with CUDA events beside its bound, the plain version
-   and, where one PyTorch call computes the same function, that call.
+   keys than queries, FraudGT's shape and the short path in bf16 with
+   GQA, and long bfloat16 shapes on the wgmma path (causal and not, hd 64
+   and 128, ragged tiles); each row logs the path ``ops.plan`` picked,
+   which must be the ``.cu`` entry's, and both the short and the wgmma
+   path must be reached.  Each shape is timed with CUDA events beside its
+   bound, the plain version and, where one PyTorch call computes the same
+   function, that call; ``flash_attention`` also under ``torch.profiler``
+   (``kernel_ms``, the kernel without the wrapper's host work).
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
    5.1M transactions, the size of the published IBM HI-Small) mined with
    ``MiningSession(g, window=4096)`` over the 9-pattern ``"full"``
@@ -126,8 +131,11 @@ FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
 FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
 # flash_attention cases (B, T, S, H, K, hd, causal, dtype): those of
 # tests/test_flash_attention.py (its hypothesis test is drawn for seeds
-# 0-7 in phase_flash_attention), causal T > S with S unaligned, FraudGT's
-# shape and a long bf16 shape
+# 0-7 in phase_flash_attention and put after them), causal T > S with S
+# unaligned, FraudGT's shape (the short path), the short path with GQA in
+# bf16, and the wgmma path: a long bf16 shape causal and not, at hd 64,
+# and with ragged tiles (1,000 rows and keys)
+FA_TEST_CASES = 11  # the first 11 are tests/test_flash_attention.py's
 FA_CASES = (
     *((2, t, t, 4, 4, 32, c, "float32") for t in (64, 128, 256) for c in (True, False)),
     (1, 128, 128, 8, 2, 64, True, "float32"),
@@ -136,7 +144,11 @@ FA_CASES = (
     (1, 256, 256, 1, 1, 32, True, "float32"),
     (2, 80, 50, 4, 2, 16, True, "float32"),
     (1024, 17, 17, 8, 8, 16, True, "float32"),  # FraudGT: 1,024 edges x 8 heads
+    (1001, 17, 17, 8, 2, 32, False, "bfloat16"),
     (1, 4096, 4096, 32, 8, 128, True, "bfloat16"),
+    (1, 4096, 4096, 32, 8, 128, False, "bfloat16"),
+    (1, 4096, 4096, 32, 8, 64, True, "bfloat16"),
+    (2, 1000, 1000, 8, 2, 128, True, "bfloat16"),
 )
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -506,9 +518,34 @@ def fa_plain(q, k, v, causal):
     return out.reshape(b, h, t, hd).transpose(1, 2)
 
 
+def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel"):
+    """Mean device time of the launches of kernels named ``match`` that
+    ``fn`` makes (one a call), under ``torch.profiler`` (the wrapper's host
+    work left out), and how many of the ``reps`` launches the profiler
+    recorded: the mean is over those it recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.device_time_total for ev in prof.events()
+          if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA and match in ev.name]
+    if not us:
+        raise AssertionError(f"the profiler saw no kernel named {match!r}")
+    return sum(us) / 1e3 / len(us), len(us)
+
+
 def fa_row(q, k, v, causal, reps) -> dict:
     """flash_attention against its plain version (max |diff|, within the
-    dtype's tolerance), and kernel / plain / library times with the bound.
+    dtype's tolerance), the path it took (``ops.plan``, which must equal
+    the ``.cu`` entry's choice), and kernel / plain / library times with
+    the bound: ``ms`` under CUDA events over wrapper calls, ``kernel_ms``
+    the kernel's own mean device time under ``torch.profiler`` (over the
+    ``kernel_launches_profiled`` of the ``reps`` launches it recorded).
     The library call is one ``F.scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
@@ -517,6 +554,9 @@ def fa_row(q, k, v, causal, reps) -> dict:
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    path = fa_ops.plan(b, t, s, h, kvh, hd, q.dtype, causal)
+    if fa_ops.kernel_plan(b, t, s, h, kvh, hd, q.dtype, causal) != path:
+        raise AssertionError(f"ops.plan and the .cu entry choose different paths at {tuple(q.shape)}")
     got = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
     err = float((got.float() - fa_plain(q, k, v, causal).float()).abs().max())
     if not err <= FA_TOL[dtype]:
@@ -524,9 +564,12 @@ def fa_row(q, k, v, causal, reps) -> dict:
                              f"{tuple(k.shape)}, causal={causal}: {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by = fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+    run = lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
+    kernel_ms, seen = kernel_device_ms(run, reps)
     return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s), reps),
+            "plan": path, "max_abs_err": err,
+            "ms": cuda_ms(run, reps),
+            "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
             "plain_ms": cuda_ms(lambda: fa_plain(q, k, v, causal), max(3, reps // 10)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=h != kvh), reps),
@@ -541,7 +584,7 @@ def phase_flash_attention(device, report):
     for seed in range(8):  # tests/test_flash_attention.py::test_hypothesis_random
         rng = np.random.default_rng(seed)
         t, h, hd = int(rng.choice([64, 128, 192])), int(rng.choice([1, 2, 4])), int(rng.choice([16, 32, 64]))
-        cases.insert(-3, (1, t, t, h, h, hd, bool(rng.integers(0, 2)), "float32"))
+        cases.insert(FA_TEST_CASES + seed, (1, t, t, h, h, hd, bool(rng.integers(0, 2)), "float32"))
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     rows = []
@@ -554,6 +597,9 @@ def phase_flash_attention(device, report):
         rows.append(row)
         log("kernel timing: flash_attention " + json.dumps(row))
     report["flash_attention_shapes"] = rows
+    reached = {r["plan"] for r in rows}
+    if not {"short", "wgmma"} <= reached:
+        raise AssertionError(f"the flash_attention cases reached only the paths {sorted(reached)}")
     worst = {d: max(r["max_abs_err"] for r in rows if r["dtype"] == d) for d in FA_TOL}
     log(f"kernel: flash_attention within {FA_TOL} of its plain version on {len(rows)} cases "
         f"(max |diff| {worst})")
@@ -586,7 +632,10 @@ def profile_forward(ft, toks) -> dict:
             kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
             kern[ev.name][1] += 1
     busy = sum(v[0] for v in kern.values())
+    # every path's kernel is named flash_fwd_kernel* (short, wgmma, or the CUDA-core one)
     flash = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
+    if not flash:
+        raise AssertionError("the profiled FraudGT forward shows no flash_fwd_kernel launch")
     return {
         "edges": int(len(toks[0])),
         "wall_s": wall,
@@ -1030,7 +1079,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
         "launches": fgt_launches["flash_attention"],
-        **{k: fa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        **{k: fa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "kernel_ms", "plan")},
         "max_abs_err_cases": fa_err,
         "shape": {k: fa_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })

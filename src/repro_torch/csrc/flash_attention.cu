@@ -17,84 +17,65 @@
 //
 // What is not carried over from the TPU: the Pallas wrapper repeats the
 // K/V heads and transposes to (B*H, T, hd), and zero-pads T and S to its
-// blocks.  Here the kernel reads q, k, v and writes o in place in their
+// blocks.  Here every path reads q, k, v and writes o in place in their
 // (B, T, H, hd) / (B, S, K, hd) layouts, reads kv head h / G directly, and
 // masks keys j >= S itself; nothing is padded or repeated, so causal rows
 // i >= S see exactly the S keys (where the Pallas wrapper's zero keys
-// would leak in).  Its tiles are its own: the result does not depend on
-// the wrapper's block arguments.
+// would leak in).  The tiles are the kernel's own: the result does not
+// depend on the wrapper's block arguments.
 //
-// Design.  A lane group of G = hd / 8 lanes holds one query row: each lane
-// keeps 8 of its dims of q and of the accumulator in registers, and a
-// score is a dot product of 8 products per lane summed across the group
-// with xor shuffles.  A block of 128 threads holds R = 1024 / hd rows
-// (64 at hd 16, 8 at hd 128).  Key and value rows are staged, 32 keys at
-// a time, into shared memory as float32 and read by every row of the
-// block.  Short sequences (T <= R / 2, FraudGT's T = 17) pack several
-// (b, h) problems into one block, each with all T rows and its own
-// K/V tiles, so that a block's lanes are not left idle by a 17-row
-// problem; long ones give each block one problem's tile of R rows.
-// Causal blocks stop at the last key their last row can see.
+// One launch per call, on one of three paths chosen by shape alone
+// (`plan`, mirrored by `plan` in kernels/flash_attention/ops.py):
+//   A "short" (flash_short.cuh): T <= 32 and S <= 32 where two stages of
+//     one batch element's slabs fit in shared memory; float32 or bf16.
+//     FraudGT's shape.  Bound by the bytes; bulk copies into a ring.
+//   B "wgmma" (flash_wgmma.cuh): bf16 at hd 64 or 128 otherwise.  Bound
+//     by the operations; TMA tiles and wgmma on the tensor cores.
+//   C "simt" (below): everything else (float32 beyond path A, bf16 at hd
+//     16 or 32 beyond it), on the CUDA cores.
+// A refused launch (shared memory, occupancy, tensor-map encoding)
+// returns its error and nothing runs; no path falls back to another.
 //
-// Bound on an H100: at FraudGT's shape (B*H = 8192, T = S = 17, hd 16,
-// float32) the bytes (q, k, v read once and o written once, 35.7 MB);
-// at long sequences the operations, 4 * hd flops per visible (i, j)
-// pair, against the tensor cores' peak in bf16.  This kernel runs the
-// products on the CUDA cores (no wgmma or TMA), so at long sequences it
-// sits far above that bound.
+// Path C.  A lane group of G = hd / 8 lanes holds one query row: each
+// lane keeps 8 of its dims of q and of the accumulator in registers, and
+// a score is a dot product of 8 products per lane summed across the group
+// with xor shuffles.  A block of 128 threads holds R = 1024 / hd rows.
+// Key and value rows are staged, 32 keys at a time, into shared memory as
+// float32 and read by every row of the block.  Short problems (T <= R / 2)
+// pack several (b, h) problems into one block; long ones give each block
+// one problem's tile of R rows.  Causal blocks stop at the last key their
+// last row can see.  Its products run on the CUDA cores, so at long
+// sequences it sits far above the operations bound.
 //
 // Launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so that a refused launch is reported.
+// cudaGetLastError() (or the refusal) so that the wrapper can raise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
+#include "flash_short.cuh"
+#include "flash_wgmma.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+using flash::Io;
+using flash::kDPL;
+using flash::kNeg;
+
 constexpr int kThreads = 128;
 constexpr int kBK = 32;   // keys per shared-memory tile
-constexpr int kDPL = 8;   // head dims per lane
 constexpr int kSmemBudget = 48 * 1024;
 
-template <typename T>
-struct Io;
+enum Path { kShort = 0, kWgmma = 1, kSimt = 2 };
 
-template <>
-struct Io<float> {
-  __device__ static void load8(const float* p, float* out) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  }
-  __device__ static void store8(float* p, const float* in) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(in[0], in[1], in[2], in[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(in[4], in[5], in[6], in[7]);
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  __device__ static void load8(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store8(__nv_bfloat16* p, const float* in) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
+// dtype: 0 = float32, 1 = bfloat16
+int plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
+  (void)b;
+  (void)causal;
+  if (flash::short_fits(t, s, h, kvh, hd, dtype == 1 ? 2 : 4)) return kShort;
+  if (dtype == 1 && (hd == 64 || hd == 128)) return kWgmma;
+  return kSimt;
+}
 
 // grid: n_groups * q_tiles blocks; block x covers problems
 // [bh0, bh0 + pb) and, in each, the query rows [tile * rpp, tile * rpp + rpp)
@@ -207,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int t,
+int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int t,
            int s, int h, int kvh, int causal, float scale, cudaStream_t st) {
   constexpr int G = HD / kDPL;
   constexpr int R = kThreads / G;  // query rows per block
@@ -227,20 +208,40 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int t,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int HD>
+int launch_path(int path, const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h,
+                int kvh, int causal, float scale, cudaStream_t st) {
+  if (path == kShort) return flash::launch_short<T, HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128)) {
+    if (path == kWgmma) return flash::launch_wgmma<HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+  }
+  return launch_simt<T, HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+}
+
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int b,
-              int t, int s, int h, int kvh, int hd, int causal, float scale,
-              cudaStream_t st) {
+int launch_hd(int path, const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h,
+              int kvh, int hd, int causal, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 16: return launch_path<T, 16>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 32: return launch_path<T, 32>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 64: return launch_path<T, 64>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 128: return launch_path<T, 128>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+static bool valid(int b, int t, int s, int h, int kvh, int hd, int dtype) {
+  return b > 0 && t > 0 && s > 0 && h > 0 && kvh > 0 && h % kvh == 0 &&
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128) && (dtype == 0 || dtype == 1);
+}
+
+// the path a launch at this shape takes: 0 short, 1 wgmma, 2 simt; -1 if
+// the shape is refused
+extern "C" int flash_attention_plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
+  return valid(b, t, s, h, kvh, hd, dtype) ? plan(b, t, s, h, kvh, hd, dtype, causal) : -1;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it)
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -248,11 +249,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int b, int t, int s, int h, int kvh,
                                       int hd, int causal, float scale,
                                       void* stream) {
-  if (b <= 0 || t <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!valid(b, t, s, h, kvh, hd, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hd<float>(q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const int path = plan(b, t, s, h, kvh, hd, dtype, causal);
+  if (dtype == 0) return launch_hd<float>(path, q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
+  return launch_hd<__nv_bfloat16>(path, q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
 }

@@ -1,0 +1,350 @@
+// Path B of flash_attention.cu: long bfloat16 sequences on the tensor
+// cores, at hd 64 or 128 (an FA3-shaped forward).
+//
+// Bound: the operations, 4 * hd flops per visible (row, key) pair against
+// the tensor cores' bf16 peak (989 TFLOP/s on an H100 SXM); only wgmma
+// reaches that rate, so both products run there.
+//
+// A block owns kBM = 128 query rows of one (b, h): two consumer
+// warpgroups of 64 rows each and one producer warp (288 threads).  The
+// producer's lane 0 loads the block's Q once and then keeps K and V tiles
+// of kBN = 128 keys in flight through a 2-stage mbarrier ring, each a TMA
+// box of a 4-d tensor map over the (B, L, heads, hd) strides, so that kv
+// head h / G is read in place and keys past S (or rows past T) arrive as
+// zeros without crossing into the next batch element.  Boxes are 64 dims
+// (128 bytes) wide with the 128-byte swizzle; hd 128 takes two per tile.
+// Per key tile each consumer warpgroup:
+//   - S = Q K^T by wgmma (bf16 in, float32 accumulate; Q and K K-major
+//     from shared memory), hd / 16 steps of m64n128k16;
+//   - the online softmax in registers in float32 with the Pallas guards
+//     (masked scores NEG; probabilities of scores <= NEG / 2 zeroed;
+//     alpha = exp(min(m - m_new, 0))), in base 2 with log2(e) folded into
+//     the score scale; each row's 32 values a thread holds are reduced
+//     across the 4 lanes of its quad, the row sum l only at the end;
+//   - P to bf16 in registers: the accumulator layout of S is the A
+//     operand layout of the next product, so no shared memory is used;
+//   - O += P V by wgmma with P from registers and V MN-major from shared
+//     memory (m64n64k16, one per 64 dims of hd), then releases the stage.
+// Causal blocks stop at the last key tile their last row sees; only tiles
+// that cross the diagonal or the end of S are masked.  The score scale is
+// applied to the float32 scores rather than to q (scaling the bf16 q in
+// place would round it again); the two agree to float32 rounding.  Blocks
+// start with the heaviest query tiles, so that the causal tail is short.
+#pragma once
+
+#include <cuda.h>
+
+#include "flash_common.cuh"
+
+namespace flash {
+
+constexpr int kBM = 128;  // query rows a block
+constexpr int kBN = 128;  // keys a tile
+constexpr int kWgStages = 2;
+constexpr int kWgThreads = 288;  // two consumer warpgroups and a producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// D (64 x 128, float32) += A (64 x 16, bf16, K-major in shared memory) * B (128 x 16,
+// bf16, K-major in shared memory); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, float32) += A (64 x 16, bf16, in registers: the accumulator
+// layout) * B (16 x 64, bf16, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, the
+// leading and stride byte offsets (in 16-byte units) and the layout type
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int HD>
+struct WgSmem {
+  static constexpr int kColBlocks = HD / 64;           // 128-byte-wide boxes across hd
+  static constexpr int kQBytes = kBM * HD * 2;
+  static constexpr int kTileBytes = kBN * HD * 2;      // one K or V tile
+  static constexpr int kBarOff = kQBytes + 2 * kWgStages * kTileBytes;
+  static constexpr int kBytes = kBarOff + 64 + 1024;   // barriers, and room to align the base to 1024
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int t_len,
+                       int s_len, int n_heads, int group, int causal, float scale_log2, int n_mtiles, int n_bh) {
+  using L = WgSmem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sk = base + L::kQBytes;                          // stage st: sk + st * tile
+  const uint32_t sv = sk + kWgStages * L::kTileBytes;
+  const uint32_t bar_q = base + L::kBarOff;
+  const uint32_t bar_full = bar_q + 8;                             // kWgStages of them
+  const uint32_t bar_empty = bar_full + 8 * kWgStages;
+
+  const int m_tile = n_mtiles - 1 - (int)(blockIdx.x / n_bh);
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
+  const int m0 = m_tile * kBM;
+  const int n_keys = causal ? min(s_len, m0 + kBM) : s_len;
+  const int n_tiles = (n_keys + kBN - 1) / kBN;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < L::kColBlocks; ++c) tma_load_4d(sq + c * kBM * 128, &tm_q, bar_q, c * 64, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kWgStages;
+        if (j >= kWgStages) mbar_wait(bar_empty + 8 * st, ((j / kWgStages) - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * st, 2 * L::kTileBytes);
+        for (int c = 0; c < L::kColBlocks; ++c) {
+          tma_load_4d(sk + st * L::kTileBytes + c * kBN * 128, &tm_k, bar_full + 8 * st, c * 64, kh, j * kBN, b);
+          tma_load_4d(sv + st * L::kTileBytes + c * kBN * 128, &tm_v, bar_full + 8 * st, c * 64, kh, j * kBN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg holds rows m0 + 64 wg .. + 63 ----
+  const int wg = warp / 4;
+  const int quad = lane % 4;
+  const int row0 = m0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and row0 + 8
+  const int wg_first_row = m0 + 64 * wg;
+  float o_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kWgStages;
+    mbar_wait(bar_full + 8 * st, (j / kWgStages) & 1);
+    const uint32_t kst = sk + st * L::kTileBytes, vst = sv + st * L::kTileBytes;
+
+    float s_acc[kBN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 dims into the 128-byte swizzled row
+      const uint64_t da = smem_desc(sq + (kk / 4) * kBM * 128 + wg * 64 * 128 + off, 16, 1024);
+      const uint64_t db = smem_desc(kst + (kk / 4) * kBN * 128 + off, 16, 1024);
+      wgmma_ss_n128(s_acc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<kBN / 2>(s_acc);
+
+    // scores in base 2; mask where the tile crosses the diagonal or S
+    const int kb = j * kBN;
+    const bool need_mask = kb + kBN > s_len || (causal && kb + kBN - 1 > wg_first_row);
+    float m_new[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        float sv2 = s_acc[idx] * scale_log2;
+        if (need_mask) {
+          const int key = kb + 8 * i + 2 * quad + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (key >= s_len || (causal && key > row)) sv2 = kNeg;
+        }
+        s_acc[idx] = sv2;
+        m_new[e >> 1] = fmaxf(m_new[e >> 1], sv2);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+      alpha[r] = exp2f(fminf(m_r[r] - m_new[r], 0.f));
+      m_r[r] = m_new[r];
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * i + e;
+        const float p = s_acc[idx] > 0.5f * kNeg ? exp2f(s_acc[idx] - m_new[e >> 1]) : 0.f;
+        l_r[e >> 1] += p;
+        s_acc[idx] = p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[4 * i + e] *= alpha[e >> 1];
+    }
+    // P as the A operand: k-step kk covers keys 16 kk .. 16 kk + 15
+    uint32_t pa[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s_acc[8 * kk + 0], s_acc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
+    }
+    wgmma_fence();
+    fence_regs<HD / 2>(o_acc);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int c = 0; c < L::kColBlocks; ++c) {
+        // V MN-major: 8-key groups of 1024 bytes; a k-step is two of them
+        const uint64_t db = smem_desc(vst + c * kBN * 128 + kk * 2048, 1024, 1024);
+        wgmma_rs_n64_tb(o_acc + 32 * c, pa[kk], db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<HD / 2>(o_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  }
+
+  // ---- epilogue: o = acc / max(l, 1e-30) in bf16, rows < T ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    l_r[r] = 1.f / fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < t_len) {
+      __nv_bfloat16* orow = o + (((size_t)b * t_len + row) * n_heads + h) * HD;
+#pragma unroll
+      for (int c = 0; c < L::kColBlocks; ++c) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int idx = 32 * c + 4 * i + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * i + 2 * quad) =
+              __floats2bfloat162_rn(o_acc[idx] * l_r[r], o_acc[idx + 1] * l_r[r]);
+        }
+      }
+    }
+  }
+}
+
+// ---- host side: tensor maps, cuTensorMapEncodeTiled looked up at run time (no -lcuda) ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// a (B, L, heads, hd) bf16 tensor as a 4-d map, box (64 dims, 1 head, rows, 1)
+inline bool make_map(CUtensorMap* map, const void* ptr, int b, int len, int heads, int hd, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2, (cuuint64_t)len * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kErrTensorMap = 10001;  // returned when a tensor map cannot be encoded
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h, int kvh,
+                 int causal, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, b, t, h, HD, kBM) || !make_map(&tk, k, b, s, kvh, HD, kBN) ||
+      !make_map(&tv, v, b, s, kvh, HD, kBN)) {
+    return kErrTensorMap;
+  }
+  auto kern = flash_fwd_kernel_wgmma<HD>;
+  const int smem = WgSmem<HD>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_mtiles = (t + kBM - 1) / kBM;
+  const long long blocks = (long long)n_mtiles * b * h;
+  kern<<<(unsigned)blocks, kWgThreads, smem, st>>>(tq, tk, tv, (__nv_bfloat16*)o, t, s, h, h / kvh, causal,
+                                                   scale * kLog2e, n_mtiles, b * h);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash

@@ -4,8 +4,10 @@ Each kernel source under ``src/repro_torch/csrc/`` exposes a plain C
 interface and is compiled by ``nvcc`` into its own shared library, which
 is loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
 seconds).  Libraries are built at first use into ``build/kernels/`` at the
-root of the checkout, under a name keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+root of the checkout, under a name keyed by a hash of the source, the
+``csrc/`` headers it includes (``#include "x.cuh"``, followed through the
+headers) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.
 
 ``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
 under ``/usr/local/cuda``; a machine without it raises with a message
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,7 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["REPO_ROOT", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load"]
+__all__ = ["REPO_ROOT", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "sources", "library_path", "build", "load"]
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -65,12 +68,33 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first met."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file() and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, its headers and the flags."""
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources(name)) + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source
-    and flag set already exists; returns the library path."""
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source,
+    its headers and the flag set already exists; returns the library path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+    lib = library_path(name)
     if lib.exists():
         build_seconds.setdefault(name, 0.0)
         return lib

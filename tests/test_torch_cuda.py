@@ -196,7 +196,8 @@ def test_fit_on_card_equals_cpu(cuda):
 
 # (B, T, S, H, K, hd, causal, dtype): the cases of
 # tests/test_flash_attention.py, causal T > S with S unaligned, every head
-# size the kernel takes, and FraudGT's shape
+# size the kernel takes, FraudGT's shape, and cases that reach each path
+# of the kernel (ops.plan) at its edges
 @pytest.mark.parametrize(
     "b,t,s,h,kvh,hd,causal,dtype",
     [(2, t, t, 4, 4, 32, c, "float32") for t in (64, 128, 256) for c in (True, False)]
@@ -209,6 +210,23 @@ def test_fit_on_card_equals_cpu(cuda):
         (3, 5, 5, 4, 1, 128, True, "float32"),
         (1, 192, 192, 2, 2, 128, False, "bfloat16"),
         (1024, 17, 17, 8, 8, 16, True, "float32"),
+        # short path: GQA, T > S, non-causal, bf16, B past and not a multiple
+        # of the persistent grid, the 32/32 edge, one key visible to row 0
+        (1000, 20, 12, 8, 2, 16, True, "float32"),
+        (1001, 17, 17, 8, 2, 32, False, "bfloat16"),
+        (5003, 17, 17, 8, 8, 16, True, "float32"),
+        (37, 32, 32, 2, 2, 128, True, "float32"),
+        (9, 32, 32, 2, 1, 64, False, "bfloat16"),
+        (3, 1, 1, 8, 8, 16, True, "float32"),
+        # wgmma path: long, ragged tiles (1,000 = 7 x 128 + 104), hd 64 and
+        # 128, GQA 4:1, causal and not, causal T > S, just past the short path
+        (1, 4096, 4096, 8, 2, 128, True, "bfloat16"),
+        (1, 4096, 4096, 4, 1, 64, False, "bfloat16"),
+        (1, 1000, 1000, 8, 2, 128, False, "bfloat16"),
+        (2, 1000, 1000, 4, 1, 64, True, "bfloat16"),
+        (1, 300, 200, 8, 2, 128, True, "bfloat16"),
+        (3, 33, 33, 4, 2, 64, True, "bfloat16"),
+        (2, 32, 32, 16, 16, 128, True, "bfloat16"),
     ],
 )
 def test_flash_attention_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype):
@@ -225,6 +243,19 @@ def test_flash_attention_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype)
     want = flash_attention(q, k, v, causal=causal, block_k=s)  # the plain version, on the CPU
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_plan_matches_kernel(cuda, dtype):
+    """The .cu entry picks the path that ops.plan names, at every shape of
+    a grid across the path boundaries."""
+    for t in (1, 17, 32, 33, 1000):
+        for s in (1, 17, 32, 33, 4096):
+            for h, kvh in ((8, 8), (8, 2), (32, 8)):
+                for hd in fa_ops.HEAD_DIMS:
+                    for causal in (True, False):
+                        args = (3, t, s, h, kvh, hd, dtype, causal)
+                        assert fa_ops.kernel_plan(*args) == fa_ops.plan(*args), args
 
 
 def test_fraudgt_on_card_equals_cpu(cuda):

@@ -4,8 +4,9 @@ on the CPU) against the JAX package's reference, at every case of
 kernel itself cannot run here (it calls ``pl.load``, which jax 0.9 no
 longer has), so its oracle ``flash_attention_ref``, with the JAX
 wrapper's repeat of the K/V heads, stands for it.  Also: causal
-attention over fewer keys than queries, the launch count, and what the
-wrapper refuses."""
+attention over fewer keys than queries, the launch count, what the
+wrapper refuses, and the path (``ops.plan``) each shape takes on the
+card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 from tests.hypothesis_compat import given, settings, st
 
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -117,3 +119,59 @@ def test_refuses():
         flash_attention(q, k, v, block_q=0)
     with pytest.raises(ValueError, match="takes q"):
         flash_attention(q[0], k, v)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+# (T, S, H, K, hd, dtype, path) at every boundary of ops.plan: T and S at
+# 32 / 33, each head size, both dtypes, GQA, T > S, and two stages of one
+# batch element's slabs against the 227 KB of shared memory
+@pytest.mark.parametrize(
+    "t,s,h,kvh,hd,dtype,path",
+    [
+        (17, 17, 8, 8, 16, F32, "short"),  # FraudGT
+        (32, 32, 8, 8, 16, F32, "short"),
+        (33, 32, 8, 8, 16, F32, "simt"),
+        (32, 33, 8, 8, 16, F32, "simt"),
+        (32, 32, 8, 2, 32, F32, "short"),
+        (33, 33, 8, 2, 32, BF16, "simt"),
+        (32, 32, 8, 8, 64, BF16, "short"),
+        (33, 32, 8, 8, 64, BF16, "wgmma"),
+        (32, 33, 8, 2, 64, BF16, "wgmma"),
+        (33, 33, 8, 8, 64, F32, "simt"),
+        (20, 10, 8, 2, 16, F32, "short"),  # T > S
+        (40, 20, 4, 1, 128, BF16, "wgmma"),
+        (40, 20, 4, 1, 128, F32, "simt"),
+        (32, 32, 2, 2, 128, F32, "short"),  # 2 x 98,304 bytes: two stages fit
+        (32, 32, 4, 4, 128, F32, "simt"),  # 2 x 196,608 bytes do not
+        (32, 32, 4, 4, 128, BF16, "short"),
+        (32, 32, 16, 16, 128, BF16, "wgmma"),
+        (32, 32, 16, 16, 16, BF16, "short"),
+        (1, 1, 1, 1, 16, BF16, "short"),
+        (4096, 4096, 32, 8, 128, BF16, "wgmma"),  # chip_smoke.py's long shape
+        (4096, 4096, 32, 8, 64, BF16, "wgmma"),
+        (4096, 4096, 32, 8, 32, BF16, "simt"),
+        (4096, 4096, 32, 8, 16, BF16, "simt"),
+        (4096, 4096, 32, 8, 128, F32, "simt"),
+    ],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plan_at_path_boundaries(t, s, h, kvh, hd, dtype, path, causal):
+    for b in (1, 1024, 5003):  # the batch size never changes the path
+        assert fa_ops.plan(b, t, s, h, kvh, hd, dtype, causal) == path
+
+
+def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
+    """The flash_attention source includes its path headers; the library's
+    name changes when a header does, so an edited header rebuilds."""
+    assert [p.name for p in build.sources("flash_attention")] == [
+        "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_wgmma.cuh"]
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = build.library_path("k")
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")
+    assert build.library_path("k") != before

@@ -1,0 +1,237 @@
+#!/usr/bin/env python3
+"""Time the port's ``flash_attention`` at FraudGT's shape and a long bf16 shape.
+
+    python3 tools/bench_flash.py [--src DIR ...] [--shapes fraudgt,long] [--out FILE]
+
+Needs one CUDA card.  Each ``--src`` (the ``src/`` of any checkout; the
+default is this checkout's) is timed in a process of its own, in the order
+given, so that two versions can be compared in turns in one call
+(``--src A --src B --src B --src A``).  At every shape it reports:
+
+- ``ms``: CUDA events around ``reps`` back-to-back launches of the wrapper;
+- ``kernel_ms``: the kernel's own mean device time per launch under
+  ``torch.profiler`` (the wrapper's host work left out);
+- ``host_us``: the host's time per wrapper call (``time.perf_counter``
+  over ``reps`` calls that do not wait for the card), which bounds ``ms``
+  from below when the kernel is shorter;
+- ``library_ms``: one ``F.scaled_dot_product_attention`` on the same inputs;
+- ``bound_ms``: the bytes (q, k, v read once, o written once) over
+  3.35 TB/s or the flops (4 * hd per visible pair) over 67 TFLOP/s
+  (float32) or 989 TFLOP/s (bf16 tensor cores), whichever is larger;
+- ``plan``: the path the package's ``ops.plan`` picks, where it has one;
+- ``max_abs_err`` against the plain version.
+
+``--shapes fraudgt_path`` times FraudGT's shape on the inputs FraudGT
+itself gives its first attention call (seeded weights, the first 1,024
+test edges of synthetic HI-Small at ``--scale``), then on copies of
+those tensors and on fresh standard-normal tensors of the same shape, so
+that the data and the tensors' identity can be told apart.
+
+Prints one JSON object per row and writes them all to ``--out`` (default
+``build/bench_flash.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# (B, T, S, H, K, hd, causal, dtype)
+SHAPES = {
+    "fraudgt": (1024, 17, 17, 8, 8, 16, True, "float32"),
+    "short_bf16": (1001, 17, 17, 8, 2, 32, False, "bfloat16"),  # the short path in two passes
+    "long": (1, 4096, 4096, 32, 8, 128, True, "bfloat16"),
+    "long_full": (1, 4096, 4096, 32, 8, 128, False, "bfloat16"),
+    "long_hd64": (1, 4096, 4096, 32, 8, 64, True, "bfloat16"),
+}
+REPS = {"fraudgt": 200, "short_bf16": 200, "fraudgt_path": 200, "fraudgt_path_copies": 200,
+        "fraudgt_path_randn": 200, "long": 20, "long_full": 20, "long_hd64": 20}
+
+
+def bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * t * h * hd + 2 * b * s * kvh * hd) * size
+    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * hd * pairs * b * h / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def profiled_kernel_ms(fn, reps: int):
+    """Mean device time per launch of each kernel ``fn`` launches (the
+    wrapper launches one a call), over the launches the profiler recorded."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = collections.defaultdict(float), collections.Counter()
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            total[ev.name] += ev.device_time_total / 1e3  # us -> ms
+            count[ev.name] += 1
+    return {name: total[name] / count[name] for name in total}
+
+
+def fraudgt_inputs(fa_ops, data_scale: float):
+    """q, k, v of FraudGT's first attention call over 1,024 test edges."""
+    from repro_torch.data.loader import temporal_split
+    from repro_torch.data.synth_aml import generate_aml_dataset
+    from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
+
+    ds = generate_aml_dataset("HI-Small", seed=0, scale=data_scale)
+    _, test_ids = temporal_split(ds)
+    got = {}
+    fn = fa_ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        got.setdefault("qkv", (q, k, v))
+        return fn(q, k, v, **kw)
+
+    fa_ops.flash_attention = capture
+    try:
+        FraudGT(FraudGTParams(), seed=0, device="cuda").predict_proba(ds.graph, test_ids[:1024])
+    finally:
+        fa_ops.flash_attention = fn
+    return got["qkv"]
+
+
+def run_one(src: str, names, out_rows: list, scale: float = 1.0, data_scale: float = 28.0) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = []
+    for name in names:
+        if name != "fraudgt_path":
+            cases.append((name, None))
+            continue
+        qkv = fraudgt_inputs(fa_ops, data_scale)
+        cases += [("fraudgt_path", qkv), ("fraudgt_path_copies", tuple(x.clone() for x in qkv)),
+                  ("fraudgt_path_randn", tuple(torch.randn(x.shape, generator=gen, device="cuda") for x in qkv))]
+    for name, qkv in cases:
+        b, t, s, h, kvh, hd, causal, dtype = SHAPES[name if qkv is None else "fraudgt"]
+        dt = getattr(torch, dtype)
+        if qkv is None:
+            q = (torch.randn((b, t, h, hd), generator=gen, device="cuda") * scale).to(dt)
+            k = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda") * scale).to(dt)
+            v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda") * scale).to(dt)
+        else:
+            q, k, v = qkv
+        run = lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
+        got = run()
+        flat = lambda x, n: x.repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
+        want = flash_attention_ref(flat(q, t), flat(k, s), flat(v, s), causal=causal)
+        want = want.reshape(b, h, t, hd).transpose(1, 2)
+        err = float((got.float() - want.float()).abs().max())
+        reps = REPS[name]
+        kern = profiled_kernel_ms(run, reps)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound, by = bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+        plan = getattr(fa_ops, "plan", None)
+        row = {
+            "src": src, "shape": name, "input_scale": scale, "B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd,
+            "causal": causal, "dtype": dtype,
+            "plan": plan(b, t, s, h, kvh, hd, dt, causal) if plan else "simt",
+            "max_abs_err": err,
+            "ms": cuda_ms(run, reps),
+            "kernel_ms": sum(v for n, v in kern.items() if "flash" in n),
+            "kernels": kern,
+            "host_us": host_us(run, reps),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=h != kvh), reps),
+            "bound_ms": bound, "bound_by": by,
+        }
+        print(json.dumps(row), flush=True)
+        out_rows.append(row)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", action="append", help="src/ of a checkout (repeatable; default this one)")
+    ap.add_argument("--shapes", default="fraudgt,long",
+                    help=f"comma list of {sorted(SHAPES)} and fraudgt_path")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "bench_flash.json")
+    ap.add_argument("--input-scale", type=float, default=1.0,
+                    help="multiply the standard-normal q, k, v by this (the data's effect on the time)")
+    ap.add_argument("--scale", type=float, default=28.0, help="HI-Small scale of fraudgt_path's data")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    names = args.shapes.split(",")
+    if args.one:
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("bench_flash.py: no CUDA device")
+        rows: list = []
+        run_one(args.one, names, rows, args.input_scale, args.scale)
+        return
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    rows = []
+    for src in args.src or [str(ROOT / "src")]:
+        proc = subprocess.run([sys.executable, __file__, "--one", str(Path(src).resolve()),
+                               "--shapes", args.shapes, "--input-scale", str(args.input_scale),
+                               "--scale", str(args.scale)],
+                              capture_output=True, text=True)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            raise SystemExit(f"bench_flash.py: {src} failed (exit {proc.returncode})")
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+            if line.startswith("{"):
+                rows.append({**json.loads(line), "card": card})
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(rows, indent=1))
+
+
+if __name__ == "__main__":
+    main()

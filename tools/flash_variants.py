@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Write copies of a checkout's ``src/`` whose ``flash_attention`` kernel
+differs in one choice, for ``tools/bench_flash.py`` to time at FraudGT's
+shape:
+
+    python3 tools/flash_variants.py build/flash_variants --kind simt --src build/parent/src
+    python3 tools/flash_variants.py build/flash_variants --kind short --src src
+    python3 tools/bench_flash.py --shapes fraudgt --src build/parent/src \\
+        --src build/flash_variants/<name>/src ...
+
+``--kind simt`` varies the CUDA-core kernel (path C, and before the
+short and wgmma paths the only one: a checkout from then times as it
+ran on FraudGT's shape):
+
+- ``exact_keys``: the score and value loops stop at key S instead of
+  running over the whole 32-key tile (at S = 17, 15 padded keys a tile
+  are skipped; the staging still copies the tile);
+- ``stage_only``: the block stages its K/V tiles and stores its rows but
+  computes nothing (the output is wrong; the time is that of the copies
+  and the block schedule alone);
+- ``threads256``: 256 threads a block, so 7 (b, h) problems share a block
+  instead of 3.
+
+``--kind short`` varies the short path (``csrc/flash_short.cuh``):
+
+- ``copy_only``: the ring of bulk copies runs, no row is computed or
+  stored (the output is wrong; the time is that of the copies alone);
+- ``fast_exp``: ``__expf`` (the hardware ex2 with a multiply) for ``expf``;
+- ``stages2`` / ``stages4``: a ring of 2 or 4 stages instead of 3;
+- ``group4`` / ``group8``: the keys taken 4 or 8 at a time between exit
+  tests instead of 1, independent within a group (a key past S reads key
+  S - 1 and is masked);
+- ``dpl16``: 16 head dims a lane instead of 8 (at hd 16 one lane holds a
+  row: no shuffle, half the lanes);
+- ``tmajor``: rows taken query-major (row r is query r / H, head r % H),
+  so that a warp's rows span few queries and, causal, its key loops stop
+  at the group after the last key its rows see (``__reduce_max_sync``);
+  the rows of a warp then read several kv heads' words.
+
+Each copy goes to ``<out>/<name>/src`` and builds its own library under
+``<out>/<name>/build/kernels``.  The copies are experiments, not a
+configuration of the package.
+"""
+from __future__ import annotations
+
+import argparse
+import shutil
+from pathlib import Path
+
+CU = "repro_torch/csrc/flash_attention.cu"
+SHORT = "repro_torch/csrc/flash_short.cuh"
+
+EXACT = (
+    ("      float kk[kDPL];\n", "      if (j0 + jj >= s_len) break;\n      float kk[kDPL];\n"),
+    ("      const float pj = sc[jj]", "      if (j0 + jj >= s_len) break;\n      const float pj = sc[jj]"),
+)
+STAGE_ONLY = (("    __syncthreads();\n\n    const float* kr", "    __syncthreads();\n    continue;\n    const float* kr"),)
+THREADS256 = (("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),)
+SIMT = {"exact_keys": EXACT, "stage_only": STAGE_ONLY, "threads256": THREADS256}
+
+SCORES_LOOP = "      float m = kNeg;\n#pragma unroll\n      for (int j0 = 0; j0 < kShortMaxLen; j0 += kKeyGroup) {\n        if (j0 >= s_len) break;"
+VALUES_LOOP = "acc[i] = 0.f;\n#pragma unroll\n      for (int j0 = 0; j0 < kShortMaxLen; j0 += kKeyGroup) {\n        if (j0 >= s_len) break;"
+SHORT_VARIANTS = {
+    "copy_only": (("for (int r0 = 0; r0 < rows; r0 += slots)", "for (int r0 = 0; r0 < rows * 0; r0 += slots)"),),
+    "fast_exp": (("expf(sc[j] - m)", "__expf(sc[j] - m)"),),
+    "stages2": (("kShortStages = 3;", "kShortStages = 2;"),),
+    "stages4": (("kShortStages = 3;", "kShortStages = 4;"),),
+    "group4": (("kKeyGroup = 1;", "kKeyGroup = 4;"),),
+    "group8": (("kKeyGroup = 1;", "kKeyGroup = 8;"),),
+    "dpl16": (("kShortDPL = 8;", "kShortDPL = 16;"),),
+    "tmajor": (
+        ("const int hh = r / t_len, t = r % t_len, kh = hh / group;",
+         "const int hh = r % n_heads, t = r / n_heads, kh = hh / group;\n"
+         "      const int kv_end = causal ? min(s_len, (int)__reduce_max_sync(0xffffffffu, (unsigned)t) + 1) : s_len;"),
+        (SCORES_LOOP, SCORES_LOOP.replace("j0 >= s_len", "j0 >= kv_end")),
+        (VALUES_LOOP, VALUES_LOOP.replace("j0 >= s_len", "j0 >= kv_end")),
+    ),
+}
+
+
+def apply(cu: str, edits) -> str:
+    for old, new in edits:
+        if cu.count(old) != 1:
+            raise SystemExit(f"flash_variants.py: {old!r} is not in the kernel exactly once; "
+                             "point --src at a checkout with that kernel")
+        cu = cu.replace(old, new)
+    return cu
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out", type=Path)
+    ap.add_argument("--src", type=Path, required=True, help="src/ of the checkout to vary")
+    ap.add_argument("--kind", choices=("simt", "short"), required=True)
+    args = ap.parse_args()
+    rel, variants = (CU, SIMT) if args.kind == "simt" else (SHORT, SHORT_VARIANTS)
+    text = (args.src / rel).read_text()
+    for name, edits in variants.items():
+        dst = args.out / name
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(args.src, dst / "src", ignore=shutil.ignore_patterns("__pycache__"))
+        (dst / "src" / rel).write_text(apply(text, edits))
+        print(name, dst / "src")
+
+
+if __name__ == "__main__":
+    main()
