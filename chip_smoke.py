@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    path must be reached.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
    function, that call; ``flash_attention`` also under ``torch.profiler``
-   (``kernel_ms``, the kernel without the wrapper's host work).
+   (``kernel_ms``, the kernel without the wrapper's host work; null, "not
+   measured", when three profiled runs record no device kernel at all).
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
    5.1M transactions, the size of the published IBM HI-Small) mined with
    ``MiningSession(g, window=4096)`` over the 9-pattern ``"full"``
@@ -42,9 +43,11 @@ Phases, in order; any failure exits non-zero:
    sync fails the run.  The kernels' launch counts are zeroed just before
    and read just after; each must be > 0, and a compiled portfolio mine
    must sync exactly ``1 + n_compiled`` times.
-4. cross-checks — the same mine with ``kernel_backend="torch"`` gives a
-   bit-identical count matrix, and 4,096 seeds mined by the port on the
-   CPU equal the card's rows for them.
+4. cross-checks — the same mine with ``kernel_backend="torch"`` over
+   1,048,576 seeds drawn with the data seed gives bit-identical rows
+   (every edge before phases 9-12 existed; cut to keep the script near
+   10 minutes), and 4,096 seeds mined by the port on the CPU equal the
+   card's rows for them.
 5. detection path — ``run_aml_pipeline(ds, "full")`` (mine, features,
    the default 60-tree GBDT, F1 on the last 20% by time) under
    ``set_sync_debug_mode("error")``, then ``"xgb_only"``, at the same
@@ -76,7 +79,37 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.
+   goes to ``build/chip_smoke.json``.  Phases 9-12 run between phase 8's
+   timing and those last lines:
+9. oracle — every ``full_deep`` pattern mined on the card with each
+   kernel backend equals the port's ``GFPReference`` on every edge of
+   three random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
+   paper's Fig. 10 protocol (``benchmarks/bench_scaling.py``):
+   ``scatter_gather`` on Trovares-10K/100K/1M, 2,000 seeds on the card,
+   the first 400 through the oracle, exact; a ``fig10:`` line gives the
+   compiled and GFP edges/s and their ratio, beside the card line.
+10. partitioned — ``mine(backend="partitioned", n_parts=4)`` over 262,144
+   seeds of the phase-3 graph equals phase 3's rows for them.
+11. streaming — the phase-3 session's ``service(pipeline=True,
+   retain="auto")`` over HI-Small in time order: a first tick of 65,536
+   transactions, then 48 of 8,192, under ``set_sync_debug_mode("error")``
+   with only each tick's gather allowed to sync.  Asserted: one host sync
+   a tick, ``intersect_count`` launched (counts zeroed before, read
+   after), no degraded tick, no new launch shape in the last quarter of
+   the ticks, ``schedule_hits > 0``, counts equal to a card mine of the
+   streamed prefix built in arrival order, and a sequential service over
+   the first 16 ticks giving the same alerts and counts.  Printed:
+   txns/s, tick p50/p99, stage p50s, dirty fraction, live edges, peak
+   memory; ``intersect_count``'s kernels entry gains the streaming path's
+   launches and its largest launch's shape, times and bound.
+12. resilience — 12 ticks of the same feed through a
+   ``ResilientDetectionService`` with a WAL and checkpoints under
+   ``build/``, a transient fault in tick 3's mine retried once, then
+   ``recover()`` into a fresh object: the same store state bit for bit
+   and equal counts.  The ticks and the WAL replay each launch
+   ``intersect_count`` on the service's own ``"kernel"`` backend (counts
+   zeroed before each, read after; the kernels entry gains
+   ``launches_resilience`` and ``launches_recovery``).
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -124,11 +157,13 @@ WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128))  # (B, D)
 WINDOW = 4096
 SEED = 0  # data seed
 CPU_SEEDS = 4096  # seeds the CPU cross-check mines
+TORCH_SEEDS = 1 << 20  # seeds the "torch"-backend cross-check mines
 DET_ROWS = 1 << 20  # training rows of the card's determinism fits
 CPU_FIT_ROWS = 1 << 18  # training rows of the card-against-CPU fits
 CHECK_TREES = 10  # trees of each cross-check fit
 FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
 FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
+PROFILE_TRIES = 3  # torch.profiler runs before a device time is "not measured"
 # flash_attention cases (B, T, S, H, K, hd, causal, dtype): those of
 # tests/test_flash_attention.py (its hypothesis test is drawn for seeds
 # 0-7 in phase_flash_attention and put after them), causal T > S with S
@@ -151,6 +186,29 @@ FA_CASES = (
     (2, 1000, 1000, 8, 2, 128, True, "bfloat16"),
 )
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# phase 9: the oracle's random graphs (nodes, edges, t_max) and their
+# seeds, sized so GFPReference takes under a minute for the 12 full_deep
+# patterns on every edge of the three; the Fig. 10 protocol's seeds
+ORACLE_GRAPH = (512, 5120, 4096)
+ORACLE_SEEDS = (0, 1, 2)
+FIG10_SEEDS = 2000
+FIG10_ORACLE_SEEDS = 400
+PART_SEEDS = 1 << 18  # phase 10: seeds of the partitioned mine
+PART_N = 4
+# phase 11: the live feed (HI-Small in time order): a first tick, then
+# STREAM_TICKS ticks of STREAM_BATCH transactions, at the thresholds of
+# examples/streaming_detection.py; no new launch shape in the last
+# quarter of the ticks (the steady window of benchmarks/bench_streaming.py);
+# the ticks after STREAM_WARM_TICKS that still mint one are reported; a
+# sequential service replays the first STREAM_CHECK_TICKS ticks
+STREAM_FIRST = 65536
+STREAM_BATCH = 8192
+STREAM_TICKS = 48
+STREAM_THRESHOLDS = {"cycle3": 1, "scatter_gather": 1, "fan_in": 6}
+STREAM_WARM_TICKS = 8
+STREAM_CHECK_TICKS = 16
+RESILIENCE_TICKS = 12  # phase 12
+RESILIENCE_CHECKPOINT_EVERY = 5
 
 
 def log(msg: str) -> None:
@@ -518,24 +576,55 @@ def fa_plain(q, k, v, causal):
     return out.reshape(b, h, t, hd).transpose(1, 2)
 
 
+def profiled_device_events(fn, tries: int = PROFILE_TRIES):
+    """Run ``fn`` under ``torch.profiler`` and return the device kernels it
+    recorded as (name, microseconds), with the run's wall in seconds.
+
+    The profiler reads the card through CUPTI, which can record nothing
+    (another client holds CUPTI, or its buffers are dropped): a run that
+    records no device kernel is made again, up to ``tries`` times, and
+    after that the list is empty and the caller reports "not measured".
+    Whether the kernels ran is shown by the wrappers' launch counts, not
+    by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [(ev.name, ev.device_time_total) for ev in prof.events()
+                  if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, wall
+        log(f"torch.profiler recorded no device kernel (attempt {attempt} of {tries})")
+    return [], wall
+
+
 def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel"):
     """Mean device time of the launches of kernels named ``match`` that
     ``fn`` makes (one a call), under ``torch.profiler`` (the wrapper's host
     work left out), and how many of the ``reps`` launches the profiler
-    recorded: the mean is over those it recorded."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    recorded: the mean is over those it recorded.  (None, 0) when the
+    profiler recorded no device kernel at all; a profile that recorded
+    kernels but none named ``match`` fails."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = [ev.device_time_total for ev in prof.events()
-          if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA and match in ev.name]
+
+    events, _ = profiled_device_events(run)
+    if not events:
+        log("kernel_ms not measured: the profiler recorded no device kernel")
+        return None, 0
+    us = [t for name, t in events if match in name]
     if not us:
-        raise AssertionError(f"the profiler saw no kernel named {match!r}")
+        raise AssertionError(f"the profiler saw {len(events)} device kernels and none named {match!r}: "
+                             f"{sorted({name for name, _ in events})[:8]}")
     return sum(us) / 1e3 / len(us), len(us)
 
 
@@ -610,27 +699,26 @@ def profile_forward(ft, toks) -> dict:
     """FraudGT's forward over ``toks`` timed alone and then under
     ``torch.profiler``: device kernel time, the device's busy share of
     the wall (one stream, so kernels do not overlap), the
-    ``flash_attention`` kernel's share and the top kernels by device time."""
+    ``flash_attention`` kernel's share and the top kernels by device time
+    (``"profiled": false`` and only the plain wall when the profiler
+    recorded no device kernel)."""
     import collections
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ft.logits(*toks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ft.logits(*toks)
-        torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
+    events, wall_profiled = profiled_device_events(lambda: ft.logits(*toks))
+    if not events:
+        log("FraudGT forward profile not measured: the profiler recorded no device kernel")
+        return {"edges": int(len(toks[0])), "wall_s": wall, "profiled": False}
     kern = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
-            kern[ev.name][1] += 1
+    for name, us in events:
+        kern[name][0] += us / 1e6  # us -> s
+        kern[name][1] += 1
     busy = sum(v[0] for v in kern.values())
     # every path's kernel is named flash_fwd_kernel* (short, wgmma, or the CUDA-core one)
     flash = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
@@ -638,6 +726,7 @@ def profile_forward(ft, toks) -> dict:
         raise AssertionError("the profiled FraudGT forward shows no flash_fwd_kernel launch")
     return {
         "edges": int(len(toks[0])),
+        "profiled": True,
         "wall_s": wall,
         "wall_profiled_s": wall_profiled,
         "device_kernel_s": busy,
@@ -728,6 +817,308 @@ def phase_fraudgt(ds, device, report, zero_launches, read_launches):
 
 
 
+def random_temporal_graph(seed: int):
+    """A dense random temporal graph (the style of tests/conftest.py):
+    every window of the ``full_deep`` patterns sees many edges."""
+    import numpy as np
+    from repro_torch.graph.csr import build_temporal_graph
+
+    n_nodes, n_edges, t_max = ORACLE_GRAPH
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    fix = src == dst
+    dst[fix] = (dst[fix] + 1) % n_nodes
+    t = rng.integers(0, t_max, n_edges).astype(np.int64)
+    return build_temporal_graph(src, dst, t, n_nodes=n_nodes)
+
+
+def phase_oracle(report):
+    """(a) every ``full_deep`` pattern mined on the card under both kernel
+    backends equals the port's GFPReference on every edge of three random
+    graphs; (b) the paper's Fig. 10 protocol (benchmarks/bench_scaling.py):
+    scatter_gather on Trovares-10K/100K/1M, 2,000 seeds on the card, the
+    first 400 of them through the oracle, exact, with both rates."""
+    import numpy as np
+    from repro_torch.api import MiningSession
+    from repro_torch.core.compiler import CompiledPattern
+    from repro_torch.core.oracle import GFPReference
+    from repro_torch.core.patterns import build_pattern, feature_pattern_set
+    from repro_torch.data.trovares import TROVARES_SIZES, generate_trovares_graph
+
+    pats = feature_pattern_set("full_deep")
+    graphs = []
+    for seed in ORACLE_SEEDS:
+        g = random_temporal_graph(seed)
+        t0 = time.perf_counter()
+        want = MiningSession(g, window=WINDOW, device="cpu").register(*pats).mine(backend="oracle").counts
+        oracle_s = time.perf_counter() - t0
+        row = {"seed": seed, "n_nodes": g.n_nodes, "n_edges": g.n_edges, "oracle_s": oracle_s,
+               "nonzero_cells": int((want != 0).sum()), "totals": dict(zip(pats, want.sum(0).tolist()))}
+        for backend in ("kernel", "torch"):
+            t0 = time.perf_counter()
+            got = MiningSession(g, window=WINDOW, kernel_backend=backend).register(*pats).mine().counts
+            row[f"{backend}_s"] = time.perf_counter() - t0
+            if not np.array_equal(got, want):
+                bad = np.argwhere(got != want)[:5]
+                raise AssertionError(f"graph seed {seed}: the {backend} mine differs from GFPReference at {bad.tolist()}")
+        graphs.append(row)
+        log("oracle: " + json.dumps(row))
+    fig10 = {}
+    spec = build_pattern("scatter_gather", WINDOW)
+    for name, n_edges in TROVARES_SIZES.items():
+        g = generate_trovares_graph(n_edges, seed=1)
+        rng = np.random.default_rng(0)
+        sample = rng.choice(g.n_edges, size=min(FIG10_SEEDS, g.n_edges), replace=False).astype(np.int32)
+        cp = CompiledPattern(spec, g)
+        cp.mine(sample)  # first call: schedule build and first launches
+        t0 = time.perf_counter()
+        got = cp.mine(sample)
+        dt = time.perf_counter() - t0
+        osub = sample[:FIG10_ORACLE_SEEDS]
+        t0 = time.perf_counter()
+        ref = GFPReference(spec, g).mine(osub)
+        odt = time.perf_counter() - t0
+        if not np.array_equal(got[: len(osub)], ref):
+            raise AssertionError(f"Fig. 10 {name}: the card's counts differ from GFPReference")
+        fig10[name] = {"n_edges": g.n_edges, "seeds": int(len(sample)), "oracle_seeds": int(len(osub)),
+                       "compiled_edges_per_s": len(sample) / dt, "gfp_edges_per_s": len(osub) / odt,
+                       "speedup": (len(sample) / dt) / (len(osub) / odt), "nonzero": int((got != 0).sum())}
+    report["oracle"] = {"graph": dict(zip(("n_nodes", "n_edges", "t_max"), ORACLE_GRAPH)),
+                        "patterns": list(pats), "graphs": graphs, "fig10": fig10}
+    return fig10
+
+
+def capture_biggest(biggest):
+    """A stand-in for ic_ops.intersect_count that keeps the arguments of
+    the largest launch (by B * Da * Db) in ``biggest`` and launches."""
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    kernel_fn = ic_ops.intersect_count
+
+    def capture(*a, **kw):
+        b, da = a[0].shape
+        work = b * da * a[2].shape[1]
+        if work > biggest.get("work", -1):
+            biggest.update(work=work, args=a, ordered=kw.get("ordered", False))
+        return kernel_fn(*a, **kw)
+
+    return kernel_fn, capture
+
+
+def stream_feed(g):
+    """The streaming phases' microbatches: HI-Small in time order, one
+    first tick of STREAM_FIRST transactions and then STREAM_TICKS ticks of
+    STREAM_BATCH; ``lateness`` is the widest batch's time span + 1."""
+    import numpy as np
+
+    order = np.argsort(g.t, kind="stable")
+    bounds = [0, STREAM_FIRST] + [STREAM_FIRST + STREAM_BATCH * (i + 1) for i in range(STREAM_TICKS)]
+    chunks = [order[a:b] for a, b in zip(bounds, bounds[1:])]
+    lateness = max(int(g.t[c].max() - g.t[c].min()) for c in chunks) + 1
+    return order, chunks, lateness
+
+
+def alert_arrays(batch):
+    return (batch.eids, batch.src, batch.dst, batch.t, batch.amount, batch.counts, batch.score, batch.triggered)
+
+
+def same_alerts(a, b) -> bool:
+    import numpy as np
+
+    return a.report.tick == b.report.tick and all(
+        np.array_equal(x, y) for x, y in zip(alert_arrays(a), alert_arrays(b)))
+
+
+def phase_streaming(session, g, report, zero_launches, read_launches):
+    """The slice's path: a pipelined DetectionService from the phase-3
+    session over a live HI-Small feed, under sync-debug "error" with only
+    the tick's gather allowed to sync; then the batch recompute of the
+    streamed prefix and a sequential service over the first ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MiningSession
+    from repro_torch.device import allowed_sync
+    from repro_torch.graph.csr import build_temporal_graph
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    order, chunks, lateness = stream_feed(g)
+    names = session.pattern_names
+    svc_kw = dict(thresholds=STREAM_THRESHOLDS, retain="auto", lateness=lateness)
+    svc = session.service(pipeline=True, **svc_kw)
+    biggest = {}
+    kernel_fn, capture = capture_biggest(biggest)
+    batches, walls, jit_after = [], [], []
+    n_check = STREAM_CHECK_TICKS
+    checked_counts = None
+    ic_ops.intersect_count = capture
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, ch in enumerate(chunks):
+            t0 = time.perf_counter()
+            b = svc.submit(g.src[ch], g.dst[ch], g.t[ch], g.amount[ch])
+            walls.append(time.perf_counter() - t0)
+            if b is not None:
+                batches.append(b)
+                jit_after.append(svc.stats["jit_cache_entries"])
+                if b.report.tick == n_check:
+                    # ticks 1..n_check committed, tick n_check + 1 in flight
+                    n_first = sum(len(c) for c in chunks[:n_check])
+                    checked_counts = {n: svc.pattern_counts(n)[:n_first].copy() for n in names}
+        t0 = time.perf_counter()
+        for b in svc.flush():
+            batches.append(b)
+            jit_after.append(svc.stats["jit_cache_entries"])
+        walls[-1] += time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        ic_ops.intersect_count = kernel_fn
+    launches = read_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    reps = [b.report for b in batches]
+    n_ticks = len(chunks)
+    steady = walls[1:]  # the ticks after the first
+    n_steady_txns = sum(len(c) for c in chunks[1:])
+    stream = {
+        "n_ticks": n_ticks, "first_tick_txns": len(chunks[0]), "tick_txns": STREAM_BATCH,
+        "n_txns": int(sum(len(c) for c in chunks)), "lateness": lateness, "retain": svc.store.retain,
+        "time_radius": svc.scheduler.max_time_radius, "thresholds": STREAM_THRESHOLDS,
+        "first_tick_s": walls[0],
+        "txns_per_s": n_steady_txns / sum(steady),
+        "tick_ms": {"p50": float(np.percentile(steady, 50) * 1e3), "p99": float(np.percentile(steady, 99) * 1e3)},
+        "stage_ms_p50": {s: float(np.percentile([getattr(r, s) for r in reps[1:]], 50))
+                         for s in ("ingest_ms", "plan_ms", "mine_ms", "score_ms")},
+        "dirty_fraction": {"mean": float(np.mean([r.dirty_fraction for r in reps[1:]])),
+                           "last": float(reps[-1].dirty_fraction)},
+        "paths": {p: sum(r.path == p for r in reps) for p in sorted({r.path for r in reps})},
+        "live_edges": {"max": int(max(r.n_live for r in reps)), "last": int(reps[-1].n_live)},
+        "peak_mem_bytes": peak,
+        "launches": launches,
+        "stats": dict(svc.stats),
+        "store": dict(svc.store.stats),
+        "trace_misses_by_tick": [int(r.trace_misses) for r in reps],
+        "jit_cache_entries_by_tick": jit_after,
+        "alerts": int(sum(len(b) for b in batches)),
+        "degraded": sorted({d for r in reps for d in r.degraded}),
+    }
+    log("streaming: " + json.dumps({k: v for k, v in stream.items() if k != "trace_misses_by_tick"}))
+    if [r.tick for r in reps] != list(range(1, n_ticks + 1)):
+        raise AssertionError(f"committed ticks {[r.tick for r in reps]} are not 1..{n_ticks}")
+    if svc.stats["host_syncs"] != n_ticks:
+        raise AssertionError(f"the stream synced {svc.stats['host_syncs']} times over {n_ticks} ticks")
+    if launches["intersect_count"] <= 0:
+        raise AssertionError("the streaming ticks launched intersect_count no time")
+    if stream["degraded"]:
+        raise AssertionError(f"a plain service tick reports degradation: {stream['degraded']}")
+    # a launch shape is the JAX package's trace key; the live window keeps
+    # realizing new (strategy, dims, width) structure well past warm-up,
+    # so the steady window is the last quarter, as the reference's own
+    # benchmark defines it
+    n_steady = max(3, n_ticks // 4)
+    stream["steady_window_ticks"] = n_steady
+    stream["steady_trace_misses"] = int(sum(r.trace_misses for r in reps[-n_steady:]))
+    stream["mints_after_warm"] = [[r.tick, int(r.trace_misses)] for r in reps
+                                  if r.tick > STREAM_WARM_TICKS and r.trace_misses]
+    if stream["steady_trace_misses"] or jit_after[-n_steady - 1] != jit_after[-1]:
+        raise AssertionError(f"the last {n_steady} ticks minted new launch shapes: "
+                             f"{stream['jit_cache_entries_by_tick']}")
+    if svc.stats["schedule_hits"] <= 0:
+        raise AssertionError("no streaming tick replayed a cached schedule shape")
+
+    # the batch recompute: the streamed prefix in arrival order, mined on the card
+    prefix = order[: stream["n_txns"]]
+    t0 = time.perf_counter()
+    gp = build_temporal_graph(g.src[prefix], g.dst[prefix], g.t[prefix], g.amount[prefix])
+    full = MiningSession(gp, window=WINDOW).register(*names).mine()
+    stream["recompute_s"] = time.perf_counter() - t0
+    for j, n in enumerate(names):
+        if not np.array_equal(svc.pattern_counts(n), full.counts[:, j]):
+            bad = np.flatnonzero(svc.pattern_counts(n) != full.counts[:, j])[:5]
+            raise AssertionError(f"incremental {n} differs from the batch recompute at eids {bad.tolist()}")
+    stream["recompute_totals"] = full.totals()
+
+    # a sequential service over the first ticks: the same counts and alerts
+    seq = session.service(pipeline=False, **svc_kw)
+    t0 = time.perf_counter()
+    seq_batches = [seq.submit(g.src[c], g.dst[c], g.t[c], g.amount[c]) for c in chunks[:n_check]]
+    with allowed_sync():
+        torch.cuda.synchronize()
+    stream["sequential_s"] = time.perf_counter() - t0
+    if not all(same_alerts(a, b) for a, b in zip(seq_batches, batches[:n_check])):
+        raise AssertionError(f"the sequential service's alerts differ from the pipelined one's over {n_check} ticks")
+    for n in names:
+        if not np.array_equal(seq.pattern_counts(n), checked_counts[n]):
+            raise AssertionError(f"sequential {n} counts differ from the pipelined ones after tick {n_check}")
+    stream["sequential_equal_ticks"] = n_check
+    report["streaming"] = stream
+    log("streaming cross-checks: " + json.dumps({k: stream[k] for k in
+                                                 ("steady_window_ticks", "steady_trace_misses",
+                                                  "mints_after_warm", "recompute_s", "recompute_totals",
+                                                  "sequential_s", "sequential_equal_ticks")}))
+    return launches["intersect_count"], biggest
+
+
+def phase_resilience(session, g, report, zero_launches, read_launches):
+    """RESILIENCE_TICKS ticks of the same feed through a
+    ResilientDetectionService with a WAL and checkpoints under build/, a
+    transient fault armed in tick 3's mine (retried once), then recovery
+    into a fresh object: the same store state bit for bit and equal counts.
+    The ticks and the WAL replay of recover() each launch intersect_count
+    (counts zeroed before each, read after): no rung of the ladder, and no
+    replay, gives way to the plain version.  Returns the two launch counts."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.stream import (FaultInjector, ResilienceConfig, ResilientDetectionService,
+                                    TransientFault, store_states_equal)
+
+    _, chunks, lateness = stream_feed(g)
+    chunks = chunks[:RESILIENCE_TICKS]
+    names = session.pattern_names
+    specs = [session._specs[n] for n in names]
+    base = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(base, ignore_errors=True)
+    cfg = ResilienceConfig(wal_dir=str(base / "wal"), checkpoint_dir=str(base / "ckpt"),
+                           checkpoint_every=RESILIENCE_CHECKPOINT_EVERY)
+    kw = dict(window=WINDOW, thresholds=STREAM_THRESHOLDS, retain="auto", lateness=lateness)
+    chaos = FaultInjector()
+    chaos.arm("mine", tick=3, times=1, exc=TransientFault)
+    svc = ResilientDetectionService(specs, resilience=cfg, chaos=chaos, **kw)
+    zero_launches()
+    t0 = time.perf_counter()
+    reps = [svc.submit(g.src[c], g.dst[c], g.t[c], g.amount[c]).report for c in chunks]
+    run_s = time.perf_counter() - t0
+    tick_launches = read_launches()["intersect_count"]
+    replayed = svc.wal.ticks()
+    zero_launches()
+    t0 = time.perf_counter()
+    rec = ResilientDetectionService.recover(specs, resilience=cfg, **kw)
+    recover_s = time.perf_counter() - t0
+    recover_launches = read_launches()["intersect_count"]
+    res = {"ticks": len(chunks), "checkpoint_every": RESILIENCE_CHECKPOINT_EVERY, "run_s": run_s,
+           "recover_s": recover_s, "retries_by_tick": [r.retries for r in reps],
+           "degraded_by_tick": [list(r.degraded) for r in reps], "recovered_tick": rec.tick,
+           "wal_replayed_ticks": replayed, "backends": [svc.backend, rec.backend],
+           "intersect_count_launches": {"ticks": tick_launches, "recover": recover_launches},
+           "health": svc.health()}
+    report["resilience"] = res
+    log("resilience: " + json.dumps(res))
+    if reps[2].retries != 1 or any(r.retries for i, r in enumerate(reps) if i != 2):
+        raise AssertionError(f"expected one retry on tick 3 alone: {res['retries_by_tick']}")
+    if not replayed or tick_launches <= 0 or recover_launches <= 0 or {svc.backend, rec.backend} != {"kernel"}:
+        raise AssertionError(f"the resilient ticks or the WAL replay {replayed} did not run on "
+                             f"intersect_count: {res['intersect_count_launches']}, {res['backends']}")
+    if rec.tick != svc.tick or not store_states_equal(rec.store.state_dict(), svc.store.state_dict()):
+        raise AssertionError("the recovered store differs from the live one")
+    for n in names:
+        if not np.array_equal(rec.pattern_counts(n), svc.pattern_counts(n)):
+            raise AssertionError(f"the recovered {n} counts differ from the live ones")
+    shutil.rmtree(base, ignore_errors=True)
+    return tick_launches, recover_launches
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -809,15 +1200,7 @@ def main() -> int:
     session = MiningSession(g, window=WINDOW).register(*pats)
 
     biggest = {}
-    kernel_fn = ic_ops.intersect_count
-
-    def capture(*a, **kw):
-        b, da = a[0].shape
-        work = b * da * a[2].shape[1]
-        if work > biggest.get("work", -1):
-            biggest.update(work=work, args=a, ordered=kw.get("ordered", False))
-        return kernel_fn(*a, **kw)
-
+    kernel_fn, capture = capture_biggest(biggest)
     ic_ops.intersect_count = capture
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -870,10 +1253,11 @@ def main() -> int:
 
     # ---- 4. cross-checks on the card ----------------------------------
     t0 = time.perf_counter()
-    res_t = MiningSession(g, window=WINDOW, kernel_backend="torch").register(*pats).mine()
+    tsub = np.random.default_rng(SEED + 1).choice(g.n_edges, size=min(TORCH_SEEDS, g.n_edges), replace=False)
+    res_t = MiningSession(g, window=WINDOW, kernel_backend="torch").register(*pats).mine(seeds=tsub)
     torch_s = time.perf_counter() - t0
-    if not np.array_equal(res_t.counts, counts):
-        bad = np.argwhere(res_t.counts != counts)[:5]
+    if not np.array_equal(res_t.counts, counts[tsub]):
+        bad = tsub[np.argwhere(res_t.counts != counts[tsub])[:5, 0]]
         raise AssertionError(f'kernel_backend="torch" disagrees with "kernel" at {bad.tolist()}')
     rng = np.random.default_rng(SEED)
     sub = rng.choice(g.n_edges, size=min(CPU_SEEDS, g.n_edges), replace=False).astype(np.int32)
@@ -882,7 +1266,7 @@ def main() -> int:
     cpu_s = time.perf_counter() - t0
     if not np.array_equal(res_c.counts, counts[sub]):
         raise AssertionError("the CPU port disagrees with the card on the seed subset")
-    report["cross_checks"] = {"torch_backend_s": torch_s, "torch_backend_equal": True,
+    report["cross_checks"] = {"torch_seeds": int(len(tsub)), "torch_backend_s": torch_s, "torch_backend_equal": True,
                               "cpu_seeds": int(len(sub)), "cpu_s": cpu_s, "cpu_equal": True,
                               "cpu_nonzero_cells": int((res_c.counts != 0).sum())}
     log("cross-checks: " + json.dumps(report["cross_checks"]))
@@ -1084,6 +1468,58 @@ def main() -> int:
         "max_abs_err_cases": fa_err,
         "shape": {k: fa_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
+
+    # ---- 9. the oracle on the card, and the paper's Fig. 10 ------------
+    t0 = time.perf_counter()
+    fig10 = phase_oracle(report)
+    report["oracle"]["phase_s"] = time.perf_counter() - t0
+    log("fig10: " + json.dumps({k: {kk: v[kk] for kk in ("compiled_edges_per_s", "gfp_edges_per_s", "speedup")}
+                                for k, v in fig10.items()}))
+    log(f"card: {card}")
+
+    # ---- 10. partitioned mine against phase 3's rows ------------------
+    sub = np.random.default_rng(SEED).choice(g.n_edges, size=min(PART_SEEDS, g.n_edges),
+                                             replace=False).astype(np.int32)
+    zero_launches()
+    t0 = time.perf_counter()
+    part = session.mine(seeds=sub, backend="partitioned", n_parts=PART_N)
+    part_row = {"seeds": int(len(sub)), "n_parts": part.partition_plan.n_parts, "wall_s": time.perf_counter() - t0,
+                "per_part_s": part.per_part_seconds, "skew": float(part.partition_plan.skew),
+                "launches": read_launches(), "stats": part.stats}
+    report["partitioned"] = part_row
+    log("partitioned: " + json.dumps(part_row))
+    if not np.array_equal(part.counts, counts[sub]):
+        raise AssertionError("the partitioned mine differs from phase 3's rows")
+
+    # ---- 11. the streaming detection service over a live feed ---------
+    t0 = time.perf_counter()
+    stream_launches, sbig = phase_streaming(session, g, report, zero_launches, read_launches)
+    report["streaming"]["phase_s"] = time.perf_counter() - t0
+    a = sbig["args"]
+    b, da = a[0].shape
+    db = a[2].shape[1]
+    got = ic_ops.intersect_count(*a, ordered=sbig["ordered"])
+    want = ic_plain_rows(a, sbig["ordered"])
+    err = int((got.long() - want.long()).abs().max()) if b else 0
+    if err:
+        raise AssertionError(f"intersect_count differs from its plain version on the streaming launch: {err}")
+    bound, by = ic_bound_ms(b, da, db)
+    kernels[0].update({
+        "launches_streaming": stream_launches,
+        "streaming_shape": {"B": b, "Da": da, "Db": db, "ordered": bool(sbig["ordered"])},
+        "streaming_max_abs_err": err,
+        "streaming_ms": cuda_ms(lambda: ic_ops.intersect_count(*a, ordered=sbig["ordered"]), 20),
+        "streaming_plain_ms": cuda_ms(lambda: ic_plain_rows(a, sbig["ordered"], max_cube=1 << 30), 3),
+        "streaming_bound_ms": bound,
+        "streaming_bound_by": by,
+    })
+    log("kernel timing: intersect_count on the streaming path " + json.dumps(
+        {k: v for k, v in kernels[0].items() if k.startswith(("launches_streaming", "streaming_"))}))
+
+    # ---- 12. resilience: retry, WAL + checkpoint recovery -------------
+    res_launches, rec_launches = phase_resilience(session, g, report, zero_launches, read_launches)
+    kernels[0].update({"launches_resilience": res_launches, "launches_recovery": rec_launches})
+
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -20,10 +20,12 @@ in the JAX package.
 
 Where it runs: on the CUDA card by default (``device=None``); the CPU
 only when the caller passes ``device="cpu"``.  There is no silent
-fallback.  Backends: ``mine(backend="compiled")`` is ported; ``"oracle"``,
-``"partitioned"``, ``"sharded"`` and ``"streaming"``, ``mine(witnesses=k)``
-and :meth:`MiningSession.service` raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them.
+fallback.  Backends: ``"compiled"`` (default), ``"oracle"`` (the numpy GFP
+enumerator), ``"streaming"`` (single-shot ingest through
+:class:`repro_torch.stream.DetectionService`) and ``"partitioned"``
+(degree-balanced edge partitions mined in turn through the same compiled
+plans).  ``"sharded"`` and ``mine(witnesses=k)`` raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -73,9 +75,6 @@ BACKENDS = ("compiled", "oracle", "streaming", "partitioned", "sharded")
 # backends of the JAX session not ported yet -> the ROADMAP.md item that
 # ports each
 _NOT_PORTED = {
-    "oracle": "A5.1",
-    "partitioned": "A5.1",
-    "streaming": "A6",
     "sharded": "A8",
 }
 
@@ -274,10 +273,17 @@ class _FusedSeedPlan:
         seed_eids: np.ndarray,
         stats: Dict[str, int],
         unit_sel: Optional[Tuple[int, ...]] = None,
+        dg=None,
+        coalesce: int = 1,
     ) -> torch.Tensor:
         """Dispatch the fused pass WITHOUT the final host sync: returns
         the device-resident ``(padded_n, len(unit_sel))`` int32 unit
-        matrix (rows past ``len(seed_eids)`` are padding)."""
+        matrix (rows past ``len(seed_eids)`` are padding).
+
+        ``dg`` overrides the resident graph mirror (launches land on its
+        device); the unit callables are shared.  ``coalesce > 1`` merges
+        equal-width chunk runs into fatter launches
+        (:func:`executor.coalesce_widths`)."""
         if unit_sel is None:
             unit_sel = tuple(range(self.n_units))
         n_units = len(unit_sel)
@@ -288,11 +294,14 @@ class _FusedSeedPlan:
                 if fn is None:
                     fn = self._build(unit_sel)
                     self._built[unit_sel] = fn
-        g, dg = self.g, self.dg
+        g = self.g
+        dg = self.dg if dg is None else dg
         n = len(seed_eids)
         if n == 0 or n_units == 0:
             return torch.zeros((n, n_units), dtype=torch.int32, device=dg.device)
         widths = executor.chunk_widths(n, self.batch_elem_cap, n_units)
+        if coalesce > 1:
+            widths = executor.coalesce_widths(widths, coalesce)
         total = sum(widths)
         # one padded staging buffer (padding only ever lands in the tail
         # chunk), one host→device transfer for the whole batch
@@ -382,6 +391,9 @@ class MiningResult:
     seconds: Dict[str, float]
     stats: Dict[str, int]
     fused: Tuple[str, ...] = ()
+    # partitioned mines: per-part walls and the partition plan
+    per_part_seconds: Optional[List[float]] = None
+    partition_plan: Optional[object] = None
 
     def column(self, name: str) -> np.ndarray:
         return self.counts[:, self.columns.index(name)]
@@ -452,6 +464,7 @@ class MiningSession:
         self._vals_lock = threading.Lock()
         self._compiled: Dict[str, CompiledPattern] = {}
         self._fused: Optional[_FusedSeedPlan] = None
+        self._oracles: Dict[str, object] = {}  # key -> GFPReference
         self._analyzed = False
         # lifetime counters (mirrors CompiledPattern.stats, portfolio-wide)
         self.stats = executor.new_stats()
@@ -625,8 +638,8 @@ class MiningSession:
         """Mine the requested patterns (default: every registered one)
         over `seeds` (default: every edge) and return a MiningResult.
 
-        Only ``backend="compiled"`` is ported; the other backends of the
-        JAX session, ``n_parts`` and ``witnesses=k`` raise
+        ``n_parts`` applies to ``"partitioned"`` (default 4).  The
+        ``"sharded"`` backend and ``witnesses=k`` raise
         ``NotImplementedError`` naming their ROADMAP.md item."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
@@ -646,7 +659,89 @@ class MiningSession:
         if seeds is None:
             seeds = np.arange(g.n_edges, dtype=np.int32)
         seeds = np.asarray(seeds, dtype=np.int32)
-        counts, seconds, fused, stats = self._mine_compiled(names, seeds)
+
+        if backend == "compiled":
+            counts, seconds, fused, stats = self._mine_compiled(names, seeds)
+            return MiningResult(
+                columns=tuple(names),
+                counts=counts,
+                backend=backend,
+                n_seeds=len(seeds),
+                seconds=seconds,
+                stats=stats,
+                fused=fused,
+            )
+
+        if backend == "oracle":
+            from repro_torch.core.oracle import GFPReference
+
+            counts = np.zeros((len(seeds), len(names)), dtype=np.int64)
+            seconds: Dict[str, float] = {}
+            done: Dict[str, Tuple[np.ndarray, float]] = {}
+            for j, n in enumerate(names):
+                key = self._canon_of[n]
+                if key not in done:
+                    if key not in self._oracles:
+                        self._oracles[key] = GFPReference(self._members[key], g)
+                    t0 = time.perf_counter()
+                    col = self._oracles[key].mine(seeds)
+                    done[key] = (col, time.perf_counter() - t0)
+                counts[:, j], seconds[n] = done[key]
+            return MiningResult(
+                columns=tuple(names),
+                counts=counts,
+                backend=backend,
+                n_seeds=len(seeds),
+                seconds=seconds,
+                stats=executor.new_stats(),
+            )
+
+        if backend == "streaming":
+            svc = self.service(names)
+            t0 = time.perf_counter()
+            svc.submit(g.src, g.dst, g.t, g.amount)
+            dt = time.perf_counter() - t0
+            counts = np.stack(
+                [svc.pattern_counts(n)[seeds] for n in names], axis=1
+            )
+            stats = dict(svc.last_report.stats)
+            for k in self.stats:
+                self.stats[k] += stats[k]
+            return MiningResult(
+                columns=tuple(names),
+                counts=counts,
+                backend=backend,
+                n_seeds=len(seeds),
+                seconds={n: dt for n in names},
+                stats=stats,
+            )
+
+        # partitioned: degree-balanced parts mined in turn through the
+        # SAME compiled plans (kernel caches and _vals_cache are shared,
+        # so later parts build no new callables).  Reassembly scatters
+        # through the plan's slot->input-position map, so every
+        # occurrence of a duplicated seed id gets its count.
+        from repro_torch.graph.partition import partition_edges
+
+        plan = partition_edges(g, 4 if n_parts is None else n_parts, edge_ids=seeds)
+        counts = np.zeros((len(seeds), len(names)), dtype=np.int64)
+        seconds = {n: 0.0 for n in names}
+        stats = executor.new_stats()
+        fused: Tuple[str, ...] = ()
+        per_part: List[float] = []
+        for p in range(plan.n_parts):
+            ids = plan.edge_ids[p][plan.valid[p]]
+            rows = plan.positions[p][plan.valid[p]]
+            t0 = time.perf_counter()
+            part_counts, part_seconds, fused, part_stats = self._mine_compiled(
+                names, ids
+            )
+            per_part.append(time.perf_counter() - t0)
+            counts[rows] = part_counts
+            for n in names:
+                seconds[n] += part_seconds.get(n, 0.0)
+            for k in stats:
+                stats[k] += part_stats[k]
         return MiningResult(
             columns=tuple(names),
             counts=counts,
@@ -655,15 +750,55 @@ class MiningSession:
             seconds=seconds,
             stats=stats,
             fused=fused,
+            per_part_seconds=per_part,
+            partition_plan=plan,
         )
 
     # -- streaming ------------------------------------------------------
-    def service(self, patterns: Optional[Sequence[PatternLike]] = None, **kwargs):
-        """The streaming detection service over the session's portfolio;
-        not ported yet (ROADMAP.md, item A6)."""
-        raise NotImplementedError(
-            "MiningSession.service() is not ported yet (ROADMAP.md, item A6)"
+    def service(
+        self, patterns: Optional[Sequence[PatternLike]] = None, **kwargs
+    ):
+        """A :class:`repro_torch.stream.DetectionService` over the
+        session's portfolio: incremental ingest with per-pattern dirty
+        radii derived from the same registered specs, on the session's
+        device and kernel backend.  ``kwargs`` pass through
+        (``thresholds=``, ``scorer=``, ``retain=``, ``pipeline=``,
+        ``schedule_cache_cap=``, ...)."""
+        from repro_torch.stream import DetectionService
+
+        names = self._resolve_names(patterns)
+        kwargs.setdefault("backend", self.kernel_backend)
+        kwargs.setdefault("device", self.device)
+        return DetectionService(
+            [self._specs[n] for n in names],
+            window=self.window or 0,
+            **kwargs,
         )
+
+    def streaming(self, patterns: Optional[Sequence[PatternLike]] = None):
+        """Deprecated: a :class:`~repro_torch.core.streaming.StreamingMiner`
+        shim over the session's portfolio.  Use :meth:`service` for the
+        streaming subsystem's full surface (alerts, per-pattern dirty
+        sets, eviction)."""
+        import warnings
+
+        from repro_torch.core.streaming import StreamingMiner
+
+        warnings.warn(
+            "MiningSession.streaming() is deprecated; use "
+            "MiningSession.service()",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        names = self._resolve_names(patterns)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return StreamingMiner(
+                [self._specs[n] for n in names],
+                window=self.window or 0,
+                backend=self.kernel_backend,
+                device=self.device,
+            )
 
 
 # ----------------------------------------------------------------------

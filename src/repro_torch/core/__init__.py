@@ -6,8 +6,9 @@ lazily via module ``__getattr__`` — it is authored in the
 :mod:`repro_torch.api` fluent DSL, which itself builds on
 :mod:`repro_torch.core.spec`, and the lazy hop keeps that dependency cycle
 open (``import repro_torch.api`` and ``import repro_torch.core`` both work
-from a cold interpreter).  The enumeration oracle is not ported yet
-(ROADMAP.md, item A5.1).
+from a cold interpreter).  :class:`GFPReference` is the numpy enumeration
+oracle (a copy of the JAX package's ``repro.core.oracle``), independent of
+the compiled path it checks.
 """
 import importlib
 
@@ -30,12 +31,14 @@ from repro_torch.core.compiler import (
     analyze_stage_graph,
     compile_pattern,
 )
+from repro_torch.core.oracle import GFPReference
 
 # name -> defining module, resolved on first attribute access
 _LAZY = {
     "build_pattern": "repro_torch.core.patterns",
     "feature_pattern_set": "repro_torch.core.patterns",
     "PATTERN_NAMES": "repro_torch.core.patterns",
+    "StreamingMiner": "repro_torch.core.streaming",
 }
 
 __all__ = [
@@ -54,6 +57,7 @@ __all__ = [
     "StageGraphIR",
     "analyze_stage_graph",
     "compile_pattern",
+    "GFPReference",
     *_LAZY,
 ]
 

@@ -1617,25 +1617,52 @@ class CompiledPattern:
                 self._schedules.popitem(last=False)  # evict LRU
         return sched
 
-    def mine_async(self, seed_eids: np.ndarray) -> torch.Tensor:
+    def mine_async(
+        self,
+        seed_eids: np.ndarray,
+        *,
+        dg: Optional[DeviceGraph] = None,
+        device=None,
+        stats: Optional[Dict[str, int]] = None,
+        coalesce: int = 1,
+    ) -> torch.Tensor:
         """Dispatch a whole mine WITHOUT the final host sync: returns the
-        device-resident per-seed count vector (int32)."""
-        stats = self.stats
+        device-resident per-seed count vector (int32).
+
+        ``dg`` overrides the plan's resident graph mirror (a streaming
+        tick or a partition passes its own) while the schedule, the
+        kernel callables and the requirement cache stay shared; launches
+        and the result land on the mirror's device.  ``device``, when
+        given, must name that device.  ``stats`` redirects counter deltas
+        (default: the plan's lifetime ``self.stats``).  ``coalesce > 1``
+        merges runs of equal-width chunks into up-to-``coalesce``x fatter
+        launches (:func:`executor.coalesce_groups`)."""
+        stats = self.stats if stats is None else stats
+        dg = self.dg if dg is None else dg
+        if device is not None and torch.device(device).type != dg.device.type:
+            raise ValueError(
+                f"device {device} differs from the graph mirror's {dg.device}"
+            )
         seed_eids = np.asarray(seed_eids, dtype=np.int32)
         n = len(seed_eids)
         if n == 0:
-            return torch.zeros(0, dtype=torch.int32, device=self.device)
+            return torch.zeros(0, dtype=torch.int32, device=dg.device)
         sched = self.schedule_for(seed_eids, stats)
         stats["branch_items"] += sched.branch_items
+        groups = (
+            sched.groups
+            if coalesce <= 1
+            else executor.coalesce_groups(sched.groups, coalesce)
+        )
         # local key set: the gauge delta must be computed per call, and a
         # concurrent caller would corrupt a before/after length snapshot of
         # the shared set.  Merge under the lock instead.
         local_keys: set = set()
         out_dev = executor.execute(
-            sched.groups,
+            groups,
             sched.n_out,
             self._kernel,
-            self.dg,
+            dg,
             stats,
             local_keys,
             trace_tag=(self.n_iters,),
@@ -1643,6 +1670,8 @@ class CompiledPattern:
         with self._jit_lock:
             new_keys = local_keys - self._trace_keys
             self._trace_keys |= new_keys
+        # a delta, so redirected stats dicts shared by several plans stay
+        # additive
         stats["jit_cache_entries"] += len(new_keys)
         return out_dev
 

@@ -6,6 +6,7 @@ from repro_torch.data.synth_aml import (
     load_dataset,
     planted_instances,
 )
+from repro_torch.data.trovares import TROVARES_SIZES, generate_trovares_graph
 
 __all__ = [
     "AMLDataset",
@@ -13,5 +14,7 @@ __all__ = [
     "generate_aml_dataset",
     "load_dataset",
     "planted_instances",
+    "generate_trovares_graph",
+    "TROVARES_SIZES",
     "temporal_split",
 ]

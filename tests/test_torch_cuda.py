@@ -277,3 +277,95 @@ def test_fraudgt_on_card_equals_cpu(cuda):
     np.testing.assert_allclose(proba, torch.sigmoid(on_cpu.logits(*toks)).numpy(), rtol=1e-4, atol=1e-4)
     torch_attn = FraudGT(FraudGTParams(), seed=1, attn_backend="torch")
     torch.testing.assert_close(on_card.logits(*toks), torch_attn.logits(*toks), rtol=1e-5, atol=1e-5)
+
+
+def _feed(seed, n_nodes=150, n_edges=1600, t_span=12_000, n_batches=12):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    fix = src == dst
+    dst[fix] = (dst[fix] + 1) % n_nodes
+    t = np.sort(rng.integers(0, t_span // 4, n_edges)).astype(np.int64) * 4
+    t = np.maximum(0, t + rng.integers(-8, 9, n_edges))
+    amt = rng.uniform(1, 500, n_edges).astype(np.float32)
+    return [(src[c], dst[c], t[c], amt[c]) for c in np.array_split(np.arange(n_edges), n_batches)]
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_service_on_card_equals_cpu(cuda, pipeline):
+    """A small feed's DetectionService on the card: the same alerts,
+    counts, stats and batch recompute as on the CPU, intersect_count
+    launched, one host sync per tick."""
+    from repro_torch.stream import DetectionService
+
+    names = list(feature_pattern_set("full"))
+    kw = dict(thresholds={"cycle3": 1, "scatter_gather": 1, "fan_in": 6}, retain="auto", lateness=2000,
+              pipeline=pipeline)
+    on_card = DetectionService(names, window=64, **kw)
+    on_cpu = DetectionService(names, window=64, device="cpu", **kw)
+    ic_ops.launches = 0
+    got, want = [], []
+    for b in _feed(3):
+        got.append(on_card.submit(*b))
+        want.append(on_cpu.submit(*b))
+    got += on_card.flush()
+    want += on_cpu.flush()
+    assert ic_ops.launches > 0
+    got, want = [b for b in got if b is not None], [b for b in want if b is not None]
+    for a, b in zip(got, want):
+        for f in ("eids", "counts", "score", "triggered"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        assert a.report.stats == b.report.stats and not a.report.degraded
+    assert on_card.stats["host_syncs"] == on_card.tick == len(_feed(3))
+    for n in names:
+        np.testing.assert_array_equal(on_card.pattern_counts(n), on_cpu.pattern_counts(n), err_msg=n)
+        np.testing.assert_array_equal(on_card.recompute_counts(n), on_cpu.recompute_counts(n), err_msg=n)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_oracle_equals_compiled_on_card(cuda, backend):
+    rng = np.random.default_rng(5)
+    n, e = 40, 400
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = (src + rng.integers(1, n, e).astype(np.int32)) % n
+    g = build_temporal_graph(src, dst, rng.integers(0, 600, e).astype(np.int64), n_nodes=n)
+    pats = feature_pattern_set("full_deep")
+    session = MiningSession(g, window=128, kernel_backend=backend).register(*pats)
+    comp = session.mine()
+    orc = session.mine(backend="oracle")
+    np.testing.assert_array_equal(comp.counts, orc.counts)
+    assert (orc.counts != 0).any()
+    part = session.mine(backend="partitioned", n_parts=3)
+    np.testing.assert_array_equal(part.counts, comp.counts)
+
+
+def test_recovery_on_card_replays_through_the_kernel(cuda, tmp_path):
+    """A resilient service on the card retries a transient fault and
+    replays its WAL tail through intersect_count, never through the plain
+    version: launches rise in the retried tick and in recover(), and the
+    recovered store and counts equal the live ones."""
+    from repro_torch.stream import (FaultInjector, ResilienceConfig, ResilientDetectionService,
+                                    TransientFault, store_states_equal)
+
+    names = list(feature_pattern_set("full"))
+    kw = dict(window=64, thresholds={"cycle3": 1, "scatter_gather": 1, "fan_in": 6}, retain="auto",
+              lateness=2000)
+    cfg = ResilienceConfig(wal_dir=str(tmp_path / "wal"), checkpoint_dir=str(tmp_path / "ckpt"),
+                           checkpoint_every=5, backoff_s=0.0)
+    chaos = FaultInjector()
+    chaos.arm("mine", tick=3, times=2, exc=TransientFault)
+    svc = ResilientDetectionService(names, resilience=cfg, chaos=chaos, **kw)
+    feed = _feed(4)
+    for i, b in enumerate(feed):
+        before = ic_ops.launches
+        rep = svc.submit(*b).report
+        assert svc.backend == "kernel" and ic_ops.launches > before, i
+        if i == 2:
+            assert rep.retries == 2 and rep.degraded == ("witnesses_off", "single_device")
+    assert svc.wal.ticks() == [11, 12]
+    ic_ops.launches = 0
+    rec = ResilientDetectionService.recover(names, resilience=cfg, **kw)
+    assert rec.backend == "kernel" and ic_ops.launches > 0
+    assert rec.tick == svc.tick and store_states_equal(rec.store.state_dict(), svc.store.state_dict())
+    for n in names:
+        np.testing.assert_array_equal(rec.pattern_counts(n), svc.pattern_counts(n), err_msg=n)

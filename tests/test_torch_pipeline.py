@@ -111,8 +111,8 @@ def test_pipeline_matches_jax(datasets, jax_full_features, feature_set):
 
 def test_pipeline_backends_and_device(datasets, monkeypatch):
     port = datasets[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_aml_pipeline(port, "fan", backend="oracle", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
+        run_aml_pipeline(port, "fan", backend="sharded", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_aml_pipeline(port, "xgb_only")
