@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero:
    ``nvidia-smi`` reports them.
 2. kernel — hold each kernel to its plain PyTorch version on the card:
    ``intersect_count`` bit for bit over the bucket-ladder shapes, both
-   ``ordered`` modes, ragged batch sizes and the hand-built edge cases;
+   ``ordered`` modes, ragged batch sizes and the hand-built edge cases,
+   then in the broadcast forms the compiler passes (a fixed side of
+   B / W rows, int windows and windows at the fixed side's rate, no a-side
+   time) and on operands one word into their storage, on both of its
+   paths (``ops.plan``: ``"rows"`` and ``"block"``, which must equal the
+   ``.cu`` entry's choice and must both be reached);
    both entries of ``hist_update`` (``keys`` and ``rows``) bit for bit
    equal to the plain fixed-point replay (``ref.fixed_point_ref``), within
    their stated error bound of the plain version in float64, and
@@ -23,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    size (1, 2, 4, 8, 16 blocks) and one past the cluster limit, hot keys
    (every row on one key; 90 % of rows on 1 % of the keys) and the fit's
    level shapes S = 3,072 * 2^L, L = 0..5; ``window_degree`` bit for
-   bit at the ``tests/test_kernels.py`` shapes and (16384, 128);
+   bit at the ``tests/test_kernels.py`` shapes, (16384, 128) and two
+   shapes that stream HBM, (1,048,576, 32) and (262,144, 128);
    ``flash_attention`` within 2e-5 (float32) or 2e-2 (bfloat16) at the
    cases of ``tests/test_flash_attention.py``, causal attention over fewer
    keys than queries, FraudGT's shape and the short path in bf16 with
@@ -32,9 +38,10 @@ Phases, in order; any failure exits non-zero:
    which must be the ``.cu`` entry's, and both the short and the wgmma
    path must be reached.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
-   function, that call; ``flash_attention`` also under ``torch.profiler``
-   (``kernel_ms``, the kernel without the wrapper's host work; null, "not
-   measured", when three profiled runs record no device kernel at all).
+   function, that call; every kernel but ``hist_update`` also under
+   ``torch.profiler`` (``kernel_ms``, the kernel without the wrapper's
+   host work; null, "not measured", when three profiled runs record no
+   device kernel at all).
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
    5.1M transactions, the size of the published IBM HI-Small) mined with
    ``MiningSession(g, window=4096)`` over the 9-pattern ``"full"``
@@ -73,7 +80,8 @@ Phases, in order; any failure exits non-zero:
    first 131,072 test edges under ``torch.profiler``: the device's busy
    share and the kernels that take its time.
 8. report — each kernel checked and timed at the shapes its main path
-   gave it (``hist_update``'s ``rows`` entry at every level of the fit,
+   gave it, in the operands' own forms (``intersect_count``'s largest
+   launch as the compiler passed it; ``hist_update``'s ``rows`` entry at every level of the fit,
    its ``keys`` entry at the leaf sums and on the keys the fit would build
    at every level), then a ``{"kernels": [...]}`` line (launches on the
    main paths, max difference from the plain version, kernel / plain /
@@ -153,7 +161,13 @@ HU_ROWS_SHAPES = (
     (4097, 3, 7, 5),
     (0, 12, 256, 4),
 )
-WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128))  # (B, D)
+# (B, D): tests/test_kernels.py's, then three to time: (16384, 128), where
+# a launch costs more than its bytes, and two of about 140 MB each
+WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128), (1 << 20, 32), (1 << 18, 128))
+# intersect_count's broadcast forms in phase 2: (B_fixed, rep, Da, Db) at
+# both paths, ragged, and the two paths' largest launch shapes
+IC_FORM_SHAPES = ((1, 1, 1, 4), (33, 3, 4, 4), (4097, 64, 1, 4), (4096, 32, 1, 32), (129, 3, 16, 64),
+                  (11, 3, 64, 64), (4, 64, 256, 256), (256, 1, 1024, 1024))
 WINDOW = 4096
 SEED = 0  # data seed
 CPU_SEEDS = 4096  # seeds the CPU cross-check mines
@@ -164,6 +178,10 @@ CHECK_TREES = 10  # trees of each cross-check fit
 FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
 FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
 PROFILE_TRIES = 3  # torch.profiler runs before a device time is "not measured"
+# written between the timed launches of the paths' largest intersect_count
+# calls, so that each finds its operands in HBM and not in the 50 MB L2
+# (the operands are 3-22 MB; the bound counts HBM bytes)
+L2_FLUSH_BYTES = 256 << 20
 # flash_attention cases (B, T, S, H, K, hd, causal, dtype): those of
 # tests/test_flash_attention.py (its hypothesis test is drawn for seeds
 # 0-7 in phase_flash_attention and put after them), causal T > S with S
@@ -234,8 +252,15 @@ def bound_ms(nbytes: int, ops: int, peak_ops: float = PEAK_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ic_bound_ms(b: int, da: int, db: int):
-    return bound_ms(b * (8 * da + 8 * db + 20), b * da * db)
+def ic_bound_ms(args):
+    """intersect_count's bound on its operands as passed: every tensor
+    read once (the fixed side at its own rows, a scalar window not at
+    all), the (B,) int32 output written once; Da * Db pair tests a row."""
+    import torch
+
+    b, da = args[0].shape
+    nbytes = sum(x.numel() * 4 for x in args if isinstance(x, torch.Tensor)) + 4 * b
+    return bound_ms(nbytes, b * da * args[2].shape[1])
 
 
 def hu_bound_ms(n: int, s: int):
@@ -262,11 +287,25 @@ def fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
     return bound_ms(nbytes, 4 * hd * pairs * b * h, peak)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, before=None) -> float:
+    """Mean time of a call of ``fn`` by CUDA events: over ``reps`` calls in
+    a row, or, given ``before``, each call timed alone after ``before()``
+    has run (on the card, outside the timed span)."""
     import torch
 
     fn()  # warm up
     torch.cuda.synchronize()
+    if before is not None:
+        spans = []
+        for _ in range(reps):
+            before()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            spans.append((start, stop))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / reps
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -299,11 +338,63 @@ def ic_inputs(b, da, db, gen, device):
     )
 
 
+def ic_materialised(args):
+    """intersect_count's operands with the broadcast forms expanded: the
+    fixed side repeated to B rows, every window a (B,) tensor, a zero
+    a-side time for a missing one (the plain version's operands)."""
+    import torch
+
+    a_ids, a_t, b_ids, b_t = args[:4]
+    b = a_ids.shape[0]
+    rep = b // max(1, b_ids.shape[0])
+
+    def rows(w):
+        if not isinstance(w, torch.Tensor):
+            return torch.full((b,), w, dtype=torch.int32, device=a_ids.device)
+        return w if w.shape[0] == b else w.repeat_interleave(rep)
+
+    return (a_ids, torch.zeros_like(a_ids) if a_t is None else a_t,
+            b_ids.repeat_interleave(rep, 0), b_t.repeat_interleave(rep, 0), *map(rows, args[4:]))
+
+
+def ic_forms(bf, rep, da, db, gen, device, windows, a_time=True):
+    """Operands in the compiler's broadcast forms: B = bf * rep rows, a
+    fixed side of bf rows, the windows ints (``"scalar"``) or tensors at
+    the fixed side's rate with a per-row a window (``"mixed"``)."""
+    import torch
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)
+
+    b = bf * rep
+    if windows == "scalar":
+        bounds = (5, 40, -3, 50)
+    else:
+        a_lo, b_lo = ri(-4, 32, (b,)), ri(-4, 32, (bf,))
+        bounds = (a_lo, a_lo + ri(-8, 64, (b,)), b_lo, b_lo + ri(-8, 64, (bf,)))
+    if not a_time:
+        bounds = (-(2**31), 2**31 - 1) + bounds[2:]
+    return (ri(-1, 8, (b, da)), ri(0, 64, (b, da)) if a_time else None, ri(-1, 8, (bf, db)),
+            ri(0, 64, (bf, db)), *bounds)
+
+
+def offset_view(x):
+    """A contiguous copy of x that starts one word into its storage."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def ic_plain_rows(args, ordered, max_cube=1 << 27):
-    """The plain version, row-chunked so its compare cube stays small."""
+    """The plain version on the materialised operands, row-chunked so its
+    compare cube stays small."""
     import torch
     from repro_torch.kernels.intersect_count.ref import intersect_count_ref
 
+    args = ic_materialised(args)
     b, da = args[0].shape
     db = args[2].shape[1]
     step = max(1, max_cube // (da * db))
@@ -357,20 +448,90 @@ def phase_kernel(device, report):
             if int(got[r]) != v:
                 raise AssertionError(f"edge case row {r}: {int(got[r])} != {v}")
         n_cases += 1
-    log(f"kernel: intersect_count == plain version on {n_cases} cases (max |diff| {max_err})")
+    # the broadcast forms, and operands one word into their storage
+    paths = set()
+    for bf, rep, da, db in IC_FORM_SHAPES:
+        b = bf * rep
+        path = ic_ops.plan(b, da, db)
+        if ic_ops.kernel_plan(b, da, db) != path:
+            raise AssertionError(f"ops.plan and the .cu entry choose different paths at ({b}, {da}, {db})")
+        paths.add(path)
+        for windows in ("mixed", "scalar"):
+            for ordered, a_time in ((False, True), (True, True), (False, False)):
+                args = ic_forms(bf, rep, da, db, gen, device, windows, a_time)
+                want = ic_plain_rows(args, ordered)
+                for form, run in (("broadcast", args), ("offset", tuple(
+                        offset_view(x) if isinstance(x, torch.Tensor) else x for x in args))):
+                    got = ic_ops.intersect_count(*run, ordered=ordered)
+                    err = int((got.long() - want.long()).abs().max())
+                    n_cases += 1
+                    if err:
+                        raise AssertionError(f"intersect_count differs ({form}, {windows}, a_t={a_time}, "
+                                             f"ordered={ordered}) at B={b} rep={rep} Da={da} Db={db}: {err}")
+    log(f"kernel: intersect_count == plain version on {n_cases} cases, broadcast forms and storage offsets "
+        f"included (max |diff| {max_err}); paths {sorted(paths)}")
 
     timings = []
     for da, db in SMOKE_SHAPES:
         b = max(256, (1 << 24) // (da * db))
         args = ic_inputs(b, da, db, gen, device)
-        ms = cuda_ms(lambda: ic_ops.intersect_count(*args, ordered=True), 20)
-        plain_ms = cuda_ms(lambda: ic_plain_rows(args, True, max_cube=1 << 30), 3)
-        bound, by = ic_bound_ms(b, da, db)
-        row = {"B": b, "Da": da, "Db": db, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        row = {"B": b, "Da": da, "Db": db, "ordered": True, **ic_times(args, True, 20)}
+        paths.add(row["plan"])
         timings.append(row)
         log("kernel timing: " + json.dumps(row))
+    if paths != {"rows", "block"}:
+        raise AssertionError(f"the intersect_count cases reached only the paths {sorted(paths)}")
     report["intersect_count_shapes"] = timings
     return max_err
+
+
+def ic_times(args, ordered, reps, cold: bool = False) -> dict:
+    """intersect_count on its operands as passed: the path ``ops.plan``
+    names (it must be the ``.cu`` entry's), CUDA events over ``reps``
+    wrapper calls (``ms``), the kernel's mean device time under
+    ``torch.profiler`` (``kernel_ms``), the host's time a call, the plain
+    version on the materialised operands, and the bound.
+
+    ``cold``: ``ms`` and ``kernel_ms`` time each launch after a write of
+    ``L2_FLUSH_BYTES`` has evicted the operands from L2, as the bound
+    assumes; the back-to-back times, operands in L2, are kept as
+    ``l2_warm_ms`` and ``l2_warm_kernel_ms``."""
+    import torch
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    b, da = args[0].shape
+    db = args[2].shape[1]
+    path = ic_ops.plan(b, da, db)
+    if ic_ops.kernel_plan(b, da, db) != path:
+        raise AssertionError(f"ops.plan and the .cu entry choose different paths at ({b}, {da}, {db})")
+    run = lambda: ic_ops.intersect_count(*args, ordered=ordered)
+    kernel_ms, seen = kernel_device_ms(run, reps, match="intersect_count")
+    times = {"ms": cuda_ms(run, reps), "kernel_ms": kernel_ms}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=args[0].device)
+        evict = flush.zero_
+        kernel_ms, seen = kernel_device_ms(run, reps, match="intersect_count", before=evict)
+        times = {"ms": cuda_ms(run, reps, before=evict), "kernel_ms": kernel_ms, "l2_flushed": True,
+                 "l2_warm_ms": times["ms"], "l2_warm_kernel_ms": times["kernel_ms"]}
+        del flush
+    bound, by = ic_bound_ms(args)
+    return {"plan": path, **times, "kernel_launches_profiled": seen, "host_us": host_us(run, reps),
+            "plain_ms": cuda_ms(lambda: ic_plain_rows(args, ordered, max_cube=1 << 30), 3),
+            "bound_ms": bound, "bound_by": by}
+
+
+def host_us(fn, reps: int) -> float:
+    """The host's time a call of ``fn`` (no wait for the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def hu_hold(a, b, replay, exact, bound, what: str) -> float:
@@ -553,8 +714,10 @@ def phase_window_degree(device, report):
         if not torch.equal(wd_ops.window_degree(t, lo, hi), window_degree_ref(t, lo, hi)):
             raise AssertionError(f"window_degree differs from its plain version at B={b} D={d}")
         bound, by = wd_bound_ms(b, d)
+        run = lambda: wd_ops.window_degree(t, lo, hi)
+        kernel_ms, seen = kernel_device_ms(run, 20, match="window_degree")
         row = {"B": b, "D": d, "max_abs_err": 0,
-               "ms": cuda_ms(lambda: wd_ops.window_degree(t, lo, hi), 20),
+               "ms": cuda_ms(run, 20), "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
                "plain_ms": cuda_ms(lambda: window_degree_ref(t, lo, hi), 20),
                "library_ms": None, "bound_ms": bound, "bound_by": by}
         rows.append(row)
@@ -604,17 +767,20 @@ def profiled_device_events(fn, tries: int = PROFILE_TRIES):
     return [], wall
 
 
-def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel"):
+def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None):
     """Mean device time of the launches of kernels named ``match`` that
     ``fn`` makes (one a call), under ``torch.profiler`` (the wrapper's host
     work left out), and how many of the ``reps`` launches the profiler
     recorded: the mean is over those it recorded.  (None, 0) when the
     profiler recorded no device kernel at all; a profile that recorded
-    kernels but none named ``match`` fails."""
+    kernels but none named ``match`` fails.  ``before``, if given, runs
+    ahead of each call (its kernels are not named ``match``)."""
     fn()
 
     def run():
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
 
     events, _ = profiled_device_events(run)
@@ -887,6 +1053,17 @@ def phase_oracle(report):
     report["oracle"] = {"graph": dict(zip(("n_nodes", "n_edges", "t_max"), ORACLE_GRAPH)),
                         "patterns": list(pats), "graphs": graphs, "fig10": fig10}
     return fig10
+
+
+def ic_form(args, ordered) -> dict:
+    """The shape and operand forms of an intersect_count launch."""
+    import torch
+
+    b, da = args[0].shape
+    bf, db = args[2].shape
+    form = lambda w: "int" if not isinstance(w, torch.Tensor) else ("per row" if w.shape[0] == b else "per fixed row")
+    return {"B": b, "Da": da, "Db": db, "B_fixed": bf, "W1_Wk": b // max(1, bf), "ordered": bool(ordered),
+            "a_t": args[1] is not None, "windows": [form(w) for w in args[4:8]]}
 
 
 def capture_biggest(biggest):
@@ -1365,17 +1542,15 @@ def main() -> int:
     # ---- 8. report -----------------------------------------------------
     a = biggest["args"]
     ordered = biggest["ordered"]
-    b, da = a[0].shape
-    db = a[2].shape[1]
+    b = a[0].shape[0]
     got = ic_ops.intersect_count(*a, ordered=ordered)
     want = ic_plain_rows(a, ordered)
     err = int((got.long() - want.long()).abs().max()) if b else 0
     if err:
         raise AssertionError(f"intersect_count differs from its plain version on the main path's launch: {err}")
     max_err = max(max_err, err)
-    ms = cuda_ms(lambda: ic_ops.intersect_count(*a, ordered=ordered), 20)
-    plain_ms = cuda_ms(lambda: ic_plain_rows(a, ordered, max_cube=1 << 30), 3)
-    bound, by = ic_bound_ms(b, da, db)
+    times = ic_times(a, ordered, 20, cold=True)
+    log("kernel timing: intersect_count on the mining path " + json.dumps(times))
     kernels = [{
         "name": "intersect_count",
         "route": "cuda",
@@ -1383,12 +1558,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/intersect_count/kernel.py:83",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
+        **{k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms", "l2_flushed",
+                                 "l2_warm_ms", "l2_warm_kernel_ms", "plan")},
         "library_ms": None,
-        "shape": {"B": b, "Da": da, "Db": db, "ordered": bool(ordered)},
+        "shape": ic_form(a, ordered),
     }]
     # hist_update on the detection path: the rows entry at every level of
     # the fit and the keys entry at the leaf sums, each as the fit launched
@@ -1496,22 +1669,19 @@ def main() -> int:
     stream_launches, sbig = phase_streaming(session, g, report, zero_launches, read_launches)
     report["streaming"]["phase_s"] = time.perf_counter() - t0
     a = sbig["args"]
-    b, da = a[0].shape
-    db = a[2].shape[1]
+    b = a[0].shape[0]
     got = ic_ops.intersect_count(*a, ordered=sbig["ordered"])
     want = ic_plain_rows(a, sbig["ordered"])
     err = int((got.long() - want.long()).abs().max()) if b else 0
     if err:
         raise AssertionError(f"intersect_count differs from its plain version on the streaming launch: {err}")
-    bound, by = ic_bound_ms(b, da, db)
+    times = ic_times(a, sbig["ordered"], 20, cold=True)
     kernels[0].update({
         "launches_streaming": stream_launches,
-        "streaming_shape": {"B": b, "Da": da, "Db": db, "ordered": bool(sbig["ordered"])},
+        "streaming_shape": ic_form(a, sbig["ordered"]),
         "streaming_max_abs_err": err,
-        "streaming_ms": cuda_ms(lambda: ic_ops.intersect_count(*a, ordered=sbig["ordered"]), 20),
-        "streaming_plain_ms": cuda_ms(lambda: ic_plain_rows(a, sbig["ordered"], max_cube=1 << 30), 3),
-        "streaming_bound_ms": bound,
-        "streaming_bound_by": by,
+        **{f"streaming_{k}": times[k] for k in ("ms", "kernel_ms", "l2_warm_ms", "l2_warm_kernel_ms", "host_us",
+                                                "plain_ms", "bound_ms", "bound_by", "plan")},
     })
     log("kernel timing: intersect_count on the streaming path " + json.dumps(
         {k: v for k, v in kernels[0].items() if k.startswith(("launches_streaming", "streaming_"))}))

@@ -145,33 +145,38 @@ def _kernel_pair_count(
 ):
     """Route a pairwise compare cube through the intersect_count kernel.
 
-    The query shape ``lead = (B, W1..Wk)`` is flattened to kernel rows and
-    both padded neighbor tiles are broadcast to ``(rows, D)``; window
+    The query shape ``lead = (B, W1..Wk)`` is flattened to kernel rows.
+    The x (frontier) tile is broadcast to ``(rows, Da)``; ``x_t`` may be
+    None (no a-side time: unordered, with the a window unbounded).  The y
+    (fixed) tile is ``(B, Db)``, one row per seed, and goes to the kernel as
+    it is: kernel row r reads fixed row ``r // (W1 * ... * Wk)``.  Window
     bounds must be constant along the D axes (they anchor at seed or
-    frontier stage times, never at the expansion element).  As in the JAX
-    package, the broadcast materializes the fixed side once per W1..Wk
-    row (``expand().reshape()`` copies).
+    frontier stage times, never at the expansion element); a Python int
+    goes in by value, a bound constant along W1..Wk as one value per seed
+    (no copy), and only a bound that varies along W1..Wk is broadcast to
+    ``(rows,)``.
     """
-    device = x_ids.device
-    rows = int(np.prod(lead, dtype=np.int64))
 
     def tile(a, w):
         return a.expand(lead + (w,)).reshape(-1, w).contiguous()
 
-    def row(a):
+    def bound(a):
         if not isinstance(a, torch.Tensor):
-            return torch.full((rows,), int(a), dtype=torch.int32, device=device)
-        return a.to(torch.int32).expand(lead + (1,)).reshape(-1).contiguous()
+            return int(a)
+        a = a.to(torch.int32)
+        if a.dim() and a.shape[0] == lead[0] and a.numel() == lead[0]:
+            return a.reshape(-1)  # one per seed: read at the fixed side's rate
+        return a.expand(lead + (1,)).reshape(-1).contiguous()
 
     cnt = ic_ops.intersect_count(
         tile(x_ids, d_a),
-        tile(x_t, d_a),
-        tile(y_ids, d_b),
-        tile(y_t, d_b),
-        row(a_lo),
-        row(a_hi),
-        row(b_lo),
-        row(b_hi),
+        None if x_t is None else tile(x_t, d_a),
+        y_ids.contiguous(),
+        y_t.contiguous(),
+        bound(a_lo),
+        bound(a_hi),
+        bound(b_lo),
+        bound(b_hi),
         ordered=ordered,
     )
     return cnt.reshape(lead)
@@ -1033,8 +1038,8 @@ class CompiledPattern:
                             d_b,
                             torch.where(m_x, x_ids, -1),
                             x_t,
-                            mid_lift(torch.where(m3, y_ids, -1), lx),
-                            mid_lift(y_t, lx),
+                            torch.where(m3, y_ids, -1),
+                            y_t,
                             _I32_MIN,
                             _I32_MAX,
                             bound_at(it.window2.after, lx),
@@ -1101,17 +1106,17 @@ class CompiledPattern:
                         uw = bound_at(st.window.until, lx)
                         if backend == "kernel":
                             # degenerate Da=1 tile: the frontier id itself
-                            # (its -1 sentinel already marks invalid slots)
+                            # (its -1 sentinel already marks invalid slots),
+                            # with no time: every slot is in the a window
                             lead = (s.shape[0],) + tuple(dims[:k])
-                            xb = lift(base, lx)
                             cnt = _kernel_pair_count(
                                 lead,
                                 1,
                                 d_b,
-                                xb,
-                                torch.zeros_like(xb),
-                                mid_lift(torch.where(m3, y_ids, -1), lx),
-                                mid_lift(y_t, lx),
+                                lift(base, lx),
+                                None,
+                                torch.where(m3, y_ids, -1),
+                                y_t,
                                 _I32_MIN,
                                 _I32_MAX,
                                 aw,

@@ -62,15 +62,73 @@ def _case(b, da, db, seed):
     )
 
 
-@pytest.mark.parametrize("da,db", [(1, 4), (1, 1024), (4, 16), (16, 64), (1024, 1024)])
+def _forms(bf, rep, da, db, seed, a_time=True, windows="mixed"):
+    """Operands in the compiler's broadcast forms: B = bf * rep rows, a
+    fixed side of bf rows, windows as ints, (B,) or (B_fixed,) tensors."""
+    g = torch.Generator().manual_seed(seed)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+    b = bf * rep
+    b_lo, a_lo = ri(-4, 32, (bf,)), ri(-4, 32, (b,))
+    forms = {
+        "mixed": (a_lo, a_lo + ri(-8, 64, (b,)), b_lo, b_lo + ri(-8, 64, (bf,))),
+        "scalar": (5, 40, -3, 50),
+        "fixed": (ri(-4, 8, (bf,)), ri(30, 64, (bf,)), b_lo, b_lo + ri(-8, 64, (bf,))),
+    }
+    bounds = forms[windows] if a_time else (-(2**31), 2**31 - 1) + forms[windows][2:]
+    return (ri(-1, 8, (b, da)), ri(0, 64, (b, da)) if a_time else None, ri(-1, 8, (bf, db)),
+            ri(0, 64, (bf, db)), *bounds)
+
+
+def _offset_view(x):
+    """A contiguous copy of x that starts one word into its storage."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _on(args, device):
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+# both sides of the plan's crossover (4,096 pairs; 32 KB of operands a
+# row), the ladder's narrow and wide corners, and the widest tiles
+@pytest.mark.parametrize(
+    "da,db",
+    [(1, 4), (1, 1024), (4, 16), (16, 64), (1024, 1024), (63, 65), (64, 64), (1, 4093), (1, 4094), (3, 5)],
+)
 @pytest.mark.parametrize("ordered", [False, True])
 def test_kernel_matches_plain(cuda, da, db, ordered):
-    for b in (1, 33, 257):
+    wide = da * db > 1 << 16
+    for b in (1, 33, 257) if wide else (1, 33, 257, 4097):
         args = _case(b, da, db, b + da + db)
         before = ic_ops.launches
         got = intersect_count(*(a.to(cuda) for a in args), ordered=ordered)
         assert ic_ops.launches == before + 1
         assert torch.equal(got.cpu(), intersect_count_ref(*args, ordered=ordered))
+        # the same operands one word into their storage (16-byte copies
+        # then start at an unaligned head)
+        got = intersect_count(*(_offset_view(a.to(cuda)) for a in args), ordered=ordered)
+        assert torch.equal(got.cpu(), intersect_count_ref(*args, ordered=ordered))
+        # the broadcast forms: fixed rows shared by rep rows, each window
+        # form, and (unordered) no a-side time; the CPU wrapper expands
+        # them for the plain version
+        for rep in (1, 3, 64):
+            bf = max(1, b // rep) if not wide else max(1, b // 64)
+            for windows in ("mixed", "scalar", "fixed"):
+                for a_time in (True, False) if not ordered else (True,):
+                    fargs = _forms(bf, rep, da, db, b + rep, a_time, windows)
+                    before = ic_ops.launches
+                    got = intersect_count(*_on(fargs, cuda), ordered=ordered)
+                    assert ic_ops.launches == before + 1
+                    assert torch.equal(got.cpu(), intersect_count(*fargs, ordered=ordered)), (b, rep, windows, a_time)
+
+
+def test_kernel_plan_equals_ops_plan(cuda):
+    for da in (1, 4, 32, 63, 64, 256, 1024, 4093):
+        for db in (1, 4, 32, 64, 65, 256, 1024, 4094):
+            if da + db <= ic_ops.MAX_TILE_SUM:
+                assert ic_ops.kernel_plan(1 << 20, da, db) == ic_ops.plan(1 << 20, da, db), (da, db)
 
 
 def test_mine_on_card_equals_cpu(cuda):
@@ -159,7 +217,13 @@ def test_hist_update_rows_equals_fixed_point_replay(cuda, n_nodes, kind):
     assert torch.all((a.double() - exact).abs() <= error_bound_rows(xb, node, gh, n_nodes, n_bins))
 
 
-@pytest.mark.parametrize("b,d", [(1, 1), (7, 16), (64, 128), (100, 33), (16384, 128)])
+# D = 1, 3 and 33 take single-word loads, 32 and 128 16-byte vectors;
+# large B runs the persistent grid's row loop many times
+@pytest.mark.parametrize(
+    "b,d",
+    [(1, 1), (7, 16), (64, 128), (100, 33), (16384, 128), (4097, 1), (4097, 3), (4097, 32), (4097, 33),
+     (1 << 20, 32), (1 << 18, 128), (3, 0)],
+)
 def test_window_degree_matches_plain(cuda, b, d):
     rng = np.random.default_rng(b + d)
     t = rng.integers(0, 128, (b, d)).astype(np.int32)

@@ -14,7 +14,7 @@ from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degre
 from repro_torch.kernels.window_degree import ops as wd_ops
 
 
-@pytest.mark.parametrize("b,d", [(1, 1), (7, 16), (64, 128), (100, 33)])
+@pytest.mark.parametrize("b,d", [(1, 1), (7, 16), (64, 128), (100, 33), (5, 3), (40, 32)])
 def test_matches_jax(b, d):
     rng = np.random.default_rng(b + d)
     t = rng.integers(0, 128, (b, d)).astype(np.int32)

@@ -17,7 +17,14 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
 3. a warm mine under ``torch.profiler``: the top CUDA kernels by device
    time, the ``intersect_count`` kernel's own device time and launches,
    and the device's busy share of the mine's wall (kernel time over
-   wall; one stream, so kernels do not overlap).
+   wall; one stream, so kernels do not overlap); and, through
+   ``tools/pair_count_trace.py``, the histogram of the kernel's launch
+   shapes ``(B, Da, Db, W1...Wk, ordered)`` with launches and device time
+   per shape, and the device time, kernels and peak bytes of the operand
+   copies the compiler's ``_kernel_pair_count`` launches around it.
+
+``--parts 1,3`` leaves out part 2 (part 3 needs part 1's cold mine
+first, and the cold mine always runs).
 
 Prints one JSON object per part and writes them all to
 ``build/profile_mine.json``.
@@ -39,7 +46,9 @@ TOP = 20  # rows kept in each ranking
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=282.0)
+    ap.add_argument("--parts", default="1,2,3", help="comma list of the parts to report")
     args = ap.parse_args()
+    parts = {int(x) for x in args.parts.split(",")}
 
     import torch
 
@@ -47,7 +56,9 @@ def main() -> int:
         print("profile_mine.py: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))
     import repro_torch.core.compiler as TC
+    from pair_count_trace import PairCountTrace
     from repro_torch.api import MiningSession
     from repro_torch.core.patterns import feature_pattern_set
     from repro_torch.data.synth_aml import generate_aml_dataset
@@ -72,7 +83,20 @@ def main() -> int:
     report["cold"] = {"wall_s": cold_s, "span_s": dict(spans)}
     print(json.dumps({"cold": report["cold"]}), flush=True)
 
-    # ---- 2. warm mine, synced per kernel call --------------------------
+    if 2 in parts:
+        warm_synced(session, report, TC, ic_ops)
+    if 3 in parts:
+        warm_profiled(session, report, PairCountTrace)
+    out = ROOT / "build" / "profile_mine.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+def warm_synced(session, report, TC, ic_ops) -> None:
+    """Part 2: a warm mine with a device sync after every kernel call."""
+    import torch
+
     walls = collections.defaultdict(float)
     calls = collections.Counter()
     ic_walls = collections.defaultdict(float)
@@ -144,10 +168,15 @@ def main() -> int:
     }
     print(json.dumps({"warm_synced": report["warm_synced"]}), flush=True)
 
-    # ---- 3. warm mine under torch.profiler -----------------------------
+
+def warm_profiled(session, report, PairCountTrace) -> None:
+    """Part 3: a warm mine under torch.profiler, with intersect_count's
+    launch shapes and the copies around it."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    trace = PairCountTrace()
+    with trace.hooked(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         session.mine()
         torch.cuda.synchronize()
@@ -169,12 +198,9 @@ def main() -> int:
             {"name": k[:120], "s": v[0], "count": v[1]}
             for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]
         ],
+        "pair_count": trace.report(prof),
     }
     print(json.dumps({"warm_profiled": report["warm_profiled"]}), flush=True)
-    out = ROOT / "build" / "profile_mine.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(report, indent=1))
-    return 0
 
 
 if __name__ == "__main__":

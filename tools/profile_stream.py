@@ -114,6 +114,7 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=282.0)
     ap.add_argument("--cpu-twin", action="store_true", help="rerun part 1 with the service on the CPU and compare")
     ap.add_argument("--no-profile", action="store_true", help="leave out the torch.profiler run (part 2)")
+    ap.add_argument("--profile-only", action="store_true", help="leave out the plain run (part 1)")
     args = ap.parse_args()
 
     import torch
@@ -124,7 +125,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
     import chip_smoke as cs
+    from pair_count_trace import PairCountTrace
     from repro_torch.api import MiningSession
     from repro_torch.core.patterns import feature_pattern_set
     from repro_torch.data.synth_aml import generate_aml_dataset
@@ -137,20 +140,22 @@ def main() -> int:
     kw = dict(thresholds=cs.STREAM_THRESHOLDS, pipeline=True, retain="auto", lateness=lateness)
 
     # ---- 1. a plain run: walls, stages, the launch shapes each tick minted
-    part1, card_batches, card_svc = plain_run(session, g, chunks, kw)
-    report["plain"] = part1
     brief = ("device", "ticks", "tick_ms_p50_after_first", "jit_cache_entries_by_submit", "minted")
-    print(json.dumps({k: v for k, v in part1.items() if k in brief}), flush=True)
+    if not args.profile_only:
+        part1, card_batches, card_svc = plain_run(session, g, chunks, kw)
+        report["plain"] = part1
+        print(json.dumps({k: v for k, v in part1.items() if k in brief}), flush=True)
 
     # ---- 3. the same run with the service on the CPU ---------------------
     diff = []
-    if args.cpu_twin:
+    if args.cpu_twin and not args.profile_only:
         part3, cpu_batches, cpu_svc = plain_run(session, g, chunks, dict(kw, device="cpu"))
         diff = same_run(part1, part3, card_batches, cpu_batches, card_svc, cpu_svc)
         part3["differs_from_card"] = diff
         report["cpu_twin"] = part3
         print(json.dumps({k: v for k, v in part3.items() if k in brief + ("differs_from_card",)}), flush=True)
-    del card_batches, card_svc
+    if not args.profile_only:
+        del card_batches, card_svc
 
     # ---- 2. the same stream under torch.profiler ------------------------
     if args.no_profile:
@@ -158,7 +163,8 @@ def main() -> int:
     svc = session.service(**kw)
     ic_ops.launches = 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    trace = PairCountTrace()
+    with trace.hooked(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         walls, _ = stream(svc, g, chunks)
         torch.cuda.synchronize()
@@ -179,6 +185,7 @@ def main() -> int:
         "intersect_count_device_ms": sum(v[0] for _, v in ic),
         "top_kernels": [{"name": k[:100], "ms": v[0], "count": v[1]}
                         for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]],
+        "pair_count": trace.report(prof),
     }
     report["profiled"] = part2
     print(json.dumps(part2), flush=True)
