@@ -87,7 +87,7 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-12 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-14 run between phase 8's
    timing and those last lines:
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
@@ -118,6 +118,37 @@ Phases, in order; any failure exits non-zero:
    ``intersect_count`` on the service's own ``"kernel"`` backend (counts
    zeroed before each, read after; the kernels entry gains
    ``launches_resilience`` and ``launches_recovery``).
+13. witnesses — (a) on phase 9's three random graphs, every library
+   pattern with a witness layout (the refused ones are listed), 512 seeds
+   at k = 3, under both kernel backends: the card's witnesses equal the
+   port's ``GFPReference.mine_witnesses`` tuple for tuple, one host sync
+   a mine, and witness-mode counts equal a counting mine's; (b)
+   ``session.mine(<the 9 "full" patterns>, seeds, witnesses=2)`` over
+   65,536 seeds of the phase-3 graph under ``set_sync_debug_mode("error")``
+   (cycle4 and scatter_gather over a prefix, ``WIT_SEEDS_CUT``): one host
+   sync per unique plan, counts equal phase 3's rows, the first 4,096
+   seeds' witnesses (scatter_gather's first 16) equal the CPU port's bit
+   for bit; each
+   pattern's count-only and witness-mode wall and their ratio, and peak
+   memory, are printed; (c) every strictly time-ordered 3-cycle the data
+   generator planted in the phase-3 dataset is a ``cycle3`` witness at its
+   seed edge (k = that seed's count).
+14. triage — the port's ``TriageServer`` over ``DetectionService(
+   DEFAULT_PORTFOLIO, window=4096, witnesses=2)`` on the card (the
+   service of ``src/repro/launch/serve.py``), fed HI-Small in time order
+   through ``make_feed``: one warm submit of 262,144 transactions, then
+   64 submits of 64 through 4 submitters (``load_test``), an audit log
+   under ``build/``, under ``set_sync_debug_mode("error")``.  Asserted: no
+   ``SubmitError`` and no degraded tick, ``intersect_count`` launched
+   (``launches_triage``), host syncs == ticks + witness mines, every alert
+   of a pattern counted this tick carries min(k, count) witnesses (and
+   only those carry evidence), every evidence hop is the fed transaction
+   with that id, the audit file ends with its metrics line; then a
+   sequential service at k = 3 over 16,384 transactions and 8 submits of
+   64, whose last tick's evidence equals the oracle on the store's
+   snapshot for up to 256 pairs.  Printed: submit p50/p99/max, txns/s,
+   alerts, evidence hops, suppressed duplicates, the share of tick time
+   in ``tick:witness`` and the other tick spans, peak memory.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -227,6 +258,40 @@ STREAM_WARM_TICKS = 8
 STREAM_CHECK_TICKS = 16
 RESILIENCE_TICKS = 12  # phase 12
 RESILIENCE_CHECKPOINT_EVERY = 5
+# phase 13: witnesses.  (a) the oracle's graphs, WIT_ORACLE_SEEDS seeds at
+# k = WIT_ORACLE_K; (b) the session's witness mode over WIT_SEEDS seeds of
+# the phase-3 graph at k = WIT_K, the first WIT_CPU_SEEDS of them also on
+# the CPU port
+WIT_ORACLE_SEEDS = 512
+WIT_ORACLE_K = 3
+WIT_SEEDS = 1 << 16
+WIT_K = 2
+WIT_CPU_SEEDS = 4096
+# bulk-only witness schedules cannot decompose hub rows into branches as a
+# counting mine does, so hub seeds sweep whole rows: at this size up to
+# 8,192 offset combinations a launch for cycle4 (253 s over 65,536 seeds
+# on an NVIDIA H100 at 700 W) and 1,024 for scatter_gather (123 s over
+# 4,096 seeds, 24 s over 512).
+# These patterns mine a prefix of the seeds, and scatter_gather's CPU
+# check a shorter one (PERF.md section 4 lists the cuts)
+WIT_SEEDS_CUT = {"cycle4": 4096, "scatter_gather": 512}
+WIT_CPU_SEEDS_CUT = {"scatter_gather": 16}
+# phase 14: the triage server (src/repro/launch/serve.py's service and
+# defaults) over HI-Small in time order: one warm submit, then
+# TRIAGE_SUBMITS submits of TRIAGE_BATCH through TRIAGE_SUBMITTERS
+# threads; then a sequential service at k = TRIAGE_EXACT_K whose last
+# tick's evidence is held to the oracle for up to TRIAGE_EXACT_PAIRS
+# pairs.  A live submit takes 1.47 s on an NVIDIA H100 at 700 W (751 s
+# for 512), so the submits are cut to 64 (PERF.md section 4)
+TRIAGE_WARM = 1 << 18
+TRIAGE_BATCH = 64
+TRIAGE_SUBMITS = 64
+TRIAGE_SUBMITTERS = 4
+TRIAGE_K = 2
+TRIAGE_EXACT_WARM = 16384
+TRIAGE_EXACT_SUBMITS = 8
+TRIAGE_EXACT_K = 3
+TRIAGE_EXACT_PAIRS = 256
 
 
 def log(msg: str) -> None:
@@ -1296,6 +1361,302 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
     return tick_launches, recover_launches
 
 
+def phase_witness(session, ds, counts, report):
+    """(a) compiled witnesses on the card equal the port's GFPReference on
+    the oracle's three random graphs, for every library pattern that has a
+    witness layout, under both kernel backends, and witness-mode counts
+    equal a counting mine's; (b) the session's witness mode over WIT_SEEDS
+    seeds of the phase-3 graph under sync-debug "error" (one host sync per
+    unique plan; counts equal phase 3's rows; the first WIT_CPU_SEEDS
+    seeds' witnesses equal the CPU port's), beside each pattern's
+    count-only wall; (c) every strictly time-ordered 3-cycle the data
+    generator planted comes back as a cycle3 witness at its seed edge."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MiningSession
+    from repro_torch.core.compiler import CompiledPattern, analyze_stage_graph
+    from repro_torch.core.oracle import GFPReference
+    from repro_torch.core.patterns import PATTERN_NAMES, build_pattern
+    from repro_torch.data.synth_aml import planted_instances
+    from repro_torch.device import allowed_sync
+    from repro_torch.witness import witness_layout
+
+    wit = {}
+    # (a) oracle exactness on the card
+    accepted, refused = [], []
+    for name in PATTERN_NAMES:
+        try:
+            witness_layout(analyze_stage_graph(build_pattern(name, WINDOW)))
+            accepted.append(name)
+        except NotImplementedError:
+            refused.append(name)
+    t0 = time.perf_counter()
+    oracle_s, card_s, n_witnesses = 0.0, 0.0, 0
+    for seed in ORACLE_SEEDS:
+        g = random_temporal_graph(seed)
+        seeds = np.random.default_rng(seed).choice(g.n_edges, size=WIT_ORACLE_SEEDS, replace=False).astype(np.int32)
+        for name in accepted:
+            spec = build_pattern(name, WINDOW)
+            ts = time.perf_counter()
+            oc, ow = GFPReference(spec, g).mine_witnesses(seeds, k=WIT_ORACLE_K)
+            oracle_s += time.perf_counter() - ts
+            n_witnesses += sum(len(x[:WIT_ORACLE_K]) for x in ow)
+            for backend in ("kernel", "torch"):
+                ts = time.perf_counter()
+                cp = CompiledPattern(spec, g, backend=backend)
+                w = cp.mine(seeds, witnesses=WIT_ORACLE_K)
+                card_s += time.perf_counter() - ts
+                if cp.stats["host_syncs"] != 1:
+                    raise AssertionError(f"{name} ({backend}): the witness mine synced {cp.stats['host_syncs']} times")
+                if not np.array_equal(w.counts, oc) or not np.array_equal(cp.mine(seeds), w.counts):
+                    raise AssertionError(f"graph seed {seed}, {name} ({backend}): witness-mode counts differ")
+                for i in range(len(seeds)):
+                    if w.tuples(i) != ow[i][:WIT_ORACLE_K]:
+                        raise AssertionError(f"graph seed {seed}, {name} ({backend}): seed {int(seeds[i])}'s "
+                                             f"witnesses {w.tuples(i)} differ from the oracle's {ow[i][:WIT_ORACLE_K]}")
+    wit["oracle"] = {"patterns": accepted, "refused": refused, "graphs": len(ORACLE_SEEDS),
+                     "seeds": WIT_ORACLE_SEEDS, "k": WIT_ORACLE_K, "witnesses_checked": n_witnesses,
+                     "oracle_s": oracle_s, "card_s": card_s, "phase_s": time.perf_counter() - t0}
+    log("witness oracle: " + json.dumps(wit["oracle"]))
+
+    # (b) the session's witness mode at full width, over the seed prefix
+    # each pattern is cut to (WIT_SEEDS_CUT), one session mine per prefix
+    g = ds.graph
+    pats = list(session.pattern_names)
+    seeds = np.random.default_rng(SEED).choice(g.n_edges, size=min(WIT_SEEDS, g.n_edges), replace=False).astype(np.int32)
+    n_of = {n: min(WIT_SEEDS_CUT.get(n, WIT_SEEDS), len(seeds)) for n in pats}
+    cpu_of = {n: min(WIT_CPU_SEEDS_CUT.get(n, WIT_CPU_SEEDS), n_of[n]) for n in pats}
+    count_s, res, stats = {}, {}, []
+    wit_wall = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for n in pats:
+            cp = session._compiled_for(session._canon_of[n])
+            ts = time.perf_counter()
+            col = cp.mine(seeds[: n_of[n]])
+            count_s[n] = time.perf_counter() - ts
+            if not np.array_equal(col, counts[seeds[: n_of[n]], pats.index(n)]):
+                raise AssertionError(f"the count-only {n} mine differs from phase 3's rows")
+        for m in sorted(set(n_of.values()), reverse=True):
+            group = [n for n in pats if n_of[n] == m]
+            ts = time.perf_counter()
+            r = session.mine(group, seeds[:m], witnesses=WIT_K)
+            wit_wall += time.perf_counter() - ts
+            n_plans = len({session._canon_of[n] for n in group})
+            if r.stats["host_syncs"] != n_plans:
+                raise AssertionError(f"the witness mine of {group} synced {r.stats['host_syncs']} times, not {n_plans}")
+            if not np.array_equal(r.counts, counts[seeds[:m]][:, [pats.index(n) for n in group]]):
+                raise AssertionError(f"witness-mode counts of {group} differ from phase 3's rows")
+            stats.append({"patterns": group, "seeds": m, **r.stats})
+            res.update({n: (r.witnesses[n], r.seconds[n]) for n in group})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    peak = int(torch.cuda.max_memory_allocated())
+    ts = time.perf_counter()
+    cpu = MiningSession(g, window=WINDOW, device="cpu").register(*pats)
+    cpu_group_s = []
+    for m in sorted(set(cpu_of.values()), reverse=True):
+        group = [n for n in pats if cpu_of[n] == m]
+        tg = time.perf_counter()
+        r = cpu.mine(group, seeds[:m], witnesses=WIT_K)
+        cpu_group_s.append({"patterns": group, "seeds": m, "s": time.perf_counter() - tg})
+        for n in group:
+            a, b = res[n][0], r.witnesses[n]
+            if not (np.array_equal(a.eids[:m], b.eids) and np.array_equal(a.counts[:m], b.counts)):
+                raise AssertionError(f"{n}: the card's witnesses differ from the CPU port's")
+    cpu_s = time.perf_counter() - ts
+    per = {n: {"seeds": n_of[n], "cpu_seeds": cpu_of[n], "count_only_s": count_s[n], "witness_s": res[n][1],
+               "overhead_x": res[n][1] / count_s[n], "n_hops": res[n][0].n_hops,
+               "seeds_with_witnesses": int((res[n][0].n_found > 0).sum())}
+           for n in pats}
+    wit["session"] = {"seeds": int(len(seeds)), "k": WIT_K, "witness_wall_s": wit_wall,
+                      "count_only_wall_s": sum(count_s.values()), "per_pattern": per, "mines": stats,
+                      "peak_mem_bytes": peak, "cpu_s": cpu_s, "cpu_mines": cpu_group_s, "cpu_equal": True}
+    log("witness session: " + json.dumps(wit["session"]))
+
+    # (c) plant and recover at full size
+    planted = [inst["eids"] for inst in planted_instances(ds, "cycle")
+               if len(inst["eids"]) == 3 and np.all(np.diff(g.t[inst["eids"]]) > 0)]
+    if not planted:
+        raise AssertionError("the data generator planted no strictly time-ordered 3-cycle")
+    cp = session._compiled_for(session._canon_of["cycle3"])
+    seed_edges = np.asarray([e[0] for e in planted], dtype=np.int32)
+    ts = time.perf_counter()
+    c3 = cp.mine(seed_edges)
+    recovered = 0
+    for k in sorted({max(1, int(c)) for c in c3}):
+        sel = np.flatnonzero(np.maximum(c3, 1) == k)
+        w = cp.mine(seed_edges[sel], witnesses=k)
+        for r, i in enumerate(sel):
+            if (int(planted[i][1]), int(planted[i][2])) not in w.tuples(r):
+                raise AssertionError(f"planted 3-cycle {planted[i].tolist()} is not a cycle3 witness at its seed edge "
+                                     f"(count {int(c3[i])}, witnesses {w.tuples(r)})")
+            recovered += 1
+    with allowed_sync():
+        torch.cuda.synchronize()
+    wit["plant_and_recover"] = {"planted_3cycles": len(planted), "recovered": recovered,
+                                "max_count": int(c3.max()), "s": time.perf_counter() - ts}
+    log("witness plant-and-recover: " + json.dumps(wit["plant_and_recover"]))
+    report["witness"] = wit
+
+
+def phase_triage(g, report, zero_launches, read_launches):
+    """The port's TriageServer over DetectionService(DEFAULT_PORTFOLIO,
+    witnesses=2) on the card (src/repro/launch/serve.py's service), fed
+    HI-Small in time order through make_feed: one warm submit, then
+    TRIAGE_SUBMITS submits through TRIAGE_SUBMITTERS threads, with an
+    audit log under build/, under sync-debug "error".  Then a sequential
+    service at k = TRIAGE_EXACT_K whose last tick's evidence equals the
+    oracle on the store's snapshot.  Returns intersect_count's launches."""
+    import numpy as np
+    import torch
+    import repro_torch.stream.service as service_mod
+    from repro_torch.core.oracle import GFPReference
+    from repro_torch.launch.serve import DEFAULT_PORTFOLIO, SubmitError, TriageServer, load_test, make_feed
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.stream import DetectionService
+
+    feed = make_feed(g, TRIAGE_BATCH)
+    n_warm = TRIAGE_WARM // TRIAGE_BATCH
+    warm = tuple(np.concatenate([b[j] for b in feed[:n_warm]]) for j in range(4))
+    live = feed[n_warm : n_warm + TRIAGE_SUBMITS]
+    names = list(DEFAULT_PORTFOLIO)
+    svc = DetectionService(names, window=WINDOW, thresholds=dict(DEFAULT_PORTFOLIO), witnesses=TRIAGE_K)
+    audit = ROOT / "build" / "chip_smoke_triage.jsonl"
+    audit.parent.mkdir(parents=True, exist_ok=True)
+    audit.unlink(missing_ok=True)
+    server = TriageServer(svc, audit_path=str(audit))
+    # independent records of what the service was fed and what it mined:
+    # the inputs in the order they reached the store (global eids are
+    # arrival order), each tick's dirty seeds, and the witness mines run
+    fed, dirty, outs, wit_mines = [], {}, [], [0]
+    svc_submit, dispatch, mine_witnesses = svc.submit, svc._dispatch_mine, service_mod.mine_witnesses
+
+    def record_submit(src, dst, t, amount=None):
+        fed.append((src, dst, t, amount))
+        return svc_submit(src, dst, t, amount)
+
+    def record_dispatch(plan, view, stats):
+        dirty[svc.tick] = {n: set(int(e) for e in d) for n, d in plan.dirty.items()}
+        return dispatch(plan, view, stats)
+
+    def count_mines(*a, **kw):
+        wit_mines[0] += 1
+        return mine_witnesses(*a, **kw)
+
+    server_submit = server.submit
+
+    def keep(*a):
+        out = server_submit(*a)
+        outs.append(out)
+        return out
+
+    svc.submit, svc._dispatch_mine, service_mod.mine_witnesses, server.submit = (
+        record_submit, record_dispatch, count_mines, keep)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    tracer = obs_trace.get_tracer()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        server.submit(*warm)
+        tracer.reset()
+        obs_trace.enable()
+        lt = load_test(server, live, TRIAGE_SUBMITTERS)
+    finally:
+        obs_trace.disable()
+        torch.cuda.set_sync_debug_mode(0)
+        service_mod.mine_witnesses = mine_witnesses
+    launches = read_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    spans = tracer.spans()
+    server.close()
+    errors = [o for o in outs if isinstance(o, SubmitError)]
+    if errors:
+        raise AssertionError(f"{len(errors)} submits failed: {errors[0]}")
+    lat = np.asarray(server.latencies[1:]) * 1e3  # the live submits, the warm one set aside
+    span_ms = {}
+    for ev in spans:
+        if ev["name"] == "tick" or ev["name"].startswith("tick:"):
+            span_ms[ev["name"]] = span_ms.get(ev["name"], 0.0) + ev["dur_ns"] / 1e6
+    reps = [b.report for b in outs[1:]]
+    tri = {
+        "warm_txns": int(len(warm[0])), "submits": len(live), "batch": TRIAGE_BATCH, "submitters": TRIAGE_SUBMITTERS,
+        "k": TRIAGE_K, "portfolio": DEFAULT_PORTFOLIO, "warm_submit_s": float(server.latencies[0]),
+        "submit_ms": {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
+                      "max": float(lat.max())},
+        "txns_per_s": float(sum(len(b[0]) for b in live) / lt["wall_s"]),
+        "wall_s": float(lt["wall_s"]), "alerts": int(server.n_alerts), "evidence_hop_tuples": int(server.n_evidence_hops),
+        "suppressed_duplicates": int(server.n_suppressed), "ticks": int(svc.tick), "witness_mines": wit_mines[0],
+        "host_syncs": int(svc.stats["host_syncs"]), "launches": launches, "peak_mem_bytes": peak,
+        "span_ms": span_ms, "witness_share": span_ms.get("tick:witness", 0.0) / span_ms["tick"],
+        "stage_ms_p50": {s: float(np.percentile([getattr(r, s) for r in reps], 50))
+                         for s in ("ingest_ms", "plan_ms", "mine_ms", "score_ms")},
+        "paths": {p: sum(r.path == p for r in reps) for p in sorted({r.path for r in reps})},
+        "degraded": sorted({d for b in outs for d in b.report.degraded}),
+    }
+    if tri["degraded"]:
+        raise AssertionError(f"a triage tick reports degradation: {tri['degraded']}")
+    if launches["intersect_count"] <= 0:
+        raise AssertionError("the triage ticks launched intersect_count no time")
+    if svc.stats["host_syncs"] != svc.tick + wit_mines[0]:
+        raise AssertionError(f"{svc.stats['host_syncs']} host syncs over {svc.tick} ticks and {wit_mines[0]} witness mines")
+    # every alert of a pattern counted this tick carries min(k, count)
+    # witnesses, and only those carry evidence
+    fsrc, fdst, ft, famt = (np.concatenate([np.asarray(f[j]) for f in fed]) for j in range(4))
+    pairs = hops = 0
+    for b in outs:
+        mined = dirty.get(b.report.tick, {})
+        for i in range(len(b)):
+            e = int(b.eids[i])
+            want = {n for j, n in enumerate(b.columns) if b.triggered[i, j] and e in mined.get(n, ())}
+            if set(b.evidence[i]) != want:
+                raise AssertionError(f"tick {b.report.tick}, eid {e}: evidence for {sorted(b.evidence[i])}, "
+                                     f"fired and counted {sorted(want)}")
+            for n, wits in b.evidence[i].items():
+                if len(wits) != min(TRIAGE_K, int(b.counts[i, b.columns.index(n)])):
+                    raise AssertionError(f"tick {b.report.tick}, eid {e}, {n}: {len(wits)} witnesses")
+                pairs += 1
+                for hop in (h for wit in wits for h in wit if h["eid"] >= 0):
+                    x = hop["eid"]
+                    if (int(fsrc[x]), int(fdst[x]), int(ft[x]), float(np.float32(famt[x]))) != (
+                            hop["src"], hop["dst"], hop["t"], hop["amount"]):
+                        raise AssertionError(f"evidence hop {hop} is not the fed transaction {x}")
+                    hops += 1
+    tri["evidence_pairs_checked"], tri["evidence_hops_checked"] = pairs, hops
+    lines = [json.loads(ln) for ln in audit.read_text().splitlines()]
+    if not lines or lines[-1].get("metrics") is not True:
+        raise AssertionError("the audit log does not end with its metrics line")
+    tri["audit_lines"] = len(lines)
+
+    # exactness, sequentially, small enough for the oracle
+    seq = DetectionService(names, window=WINDOW, thresholds=dict(DEFAULT_PORTFOLIO), witnesses=TRIAGE_EXACT_K)
+    order = np.argsort(g.t, kind="stable")
+    head = order[:TRIAGE_EXACT_WARM]
+    seq.submit(g.src[head], g.dst[head], g.t[head], g.amount[head])
+    for i in range(TRIAGE_EXACT_SUBMITS):
+        c = order[TRIAGE_EXACT_WARM + i * TRIAGE_BATCH : TRIAGE_EXACT_WARM + (i + 1) * TRIAGE_BATCH]
+        last = seq.submit(g.src[c], g.dst[c], g.t[c], g.amount[c])
+    snap = seq.store.snapshot()
+    oracles = {n: GFPReference(seq._specs[n], snap.graph) for n in names}
+    checked = 0
+    for i in range(len(last)):
+        for n, wits in last.evidence[i].items():
+            if checked >= TRIAGE_EXACT_PAIRS:
+                break
+            seed = int(last.eids[i])  # no retention: global ids are the snapshot's
+            _, ow = oracles[n].mine_witnesses(np.array([seed], np.int32), k=TRIAGE_EXACT_K)
+            if [tuple(h["eid"] for h in wit) for wit in wits] != ow[0][:TRIAGE_EXACT_K]:
+                raise AssertionError(f"sequential tick {last.report.tick}, eid {seed}, {n}: evidence differs from the oracle")
+            checked += 1
+    if checked == 0:
+        raise AssertionError("the sequential service's last tick carried no evidence to check")
+    tri["oracle_pairs_checked"] = checked
+    report["triage"] = tri
+    log("triage: " + json.dumps(tri))
+    return launches["intersect_count"]
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -1689,6 +2050,17 @@ def main() -> int:
     # ---- 12. resilience: retry, WAL + checkpoint recovery -------------
     res_launches, rec_launches = phase_resilience(session, g, report, zero_launches, read_launches)
     kernels[0].update({"launches_resilience": res_launches, "launches_recovery": rec_launches})
+
+    # ---- 13. witnesses: oracle, session witness mode, plant and recover
+    t0 = time.perf_counter()
+    phase_witness(session, ds, counts, report)
+    report["witness"]["phase_s"] = time.perf_counter() - t0
+
+    # ---- 14. the triage server over a live feed -----------------------
+    t0 = time.perf_counter()
+    kernels[0]["launches_triage"] = phase_triage(g, report, zero_launches, read_launches)
+    report["triage"]["phase_s"] = time.perf_counter() - t0
+    log(f"card: {card}")
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

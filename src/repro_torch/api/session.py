@@ -24,8 +24,10 @@ fallback.  Backends: ``"compiled"`` (default), ``"oracle"`` (the numpy GFP
 enumerator), ``"streaming"`` (single-shot ingest through
 :class:`repro_torch.stream.DetectionService`) and ``"partitioned"``
 (degree-balanced edge partitions mined in turn through the same compiled
-plans).  ``"sharded"`` and ``mine(witnesses=k)`` raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+plans).  ``"sharded"`` raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it.  ``mine(witnesses=k)`` (compiled
+backend) returns, next to the counts, the top-k matching edge tuples of
+every seed (:class:`repro_torch.witness.Witnesses`).
 """
 from __future__ import annotations
 
@@ -391,6 +393,10 @@ class MiningResult:
     seconds: Dict[str, float]
     stats: Dict[str, int]
     fused: Tuple[str, ...] = ()
+    # witness mode (mine(witnesses=k)): per-pattern
+    # :class:`repro_torch.witness.Witnesses` — top-k matching edge tuples
+    # per seed, aligned with ``counts`` rows
+    witnesses: Optional[Dict[str, object]] = None
     # partitioned mines: per-part walls and the partition plan
     per_part_seconds: Optional[List[float]] = None
     partition_plan: Optional[object] = None
@@ -463,6 +469,10 @@ class MiningSession:
         self._vals_cache: Dict[str, np.ndarray] = {}
         self._vals_lock = threading.Lock()
         self._compiled: Dict[str, CompiledPattern] = {}
+        # witness mode bypasses seed-local fusion (a fused launch has no
+        # per-pattern compare cube to select witnesses from), so fused
+        # patterns get an on-demand standalone plan cached here
+        self._wit_compiled: Dict[str, CompiledPattern] = {}
         self._fused: Optional[_FusedSeedPlan] = None
         self._oracles: Dict[str, object] = {}  # key -> GFPReference
         self._analyzed = False
@@ -627,6 +637,68 @@ class MiningSession:
             self.stats[k] += stats[k]
         return out, seconds, tuple(n for _, n in fused_cols), stats
 
+    def _compiled_for(self, key: str) -> CompiledPattern:
+        """A standalone compiled plan for a canonical key — the regular
+        plan when one exists, else (seed-local patterns, normally served
+        by the fused kernel) an on-demand plan sharing the session's
+        device graph and requirement cache."""
+        cp = self._compiled.get(key)
+        if cp is not None:
+            return cp
+        cp = self._wit_compiled.get(key)
+        if cp is None:
+            cp = CompiledPattern(
+                self._members[key],
+                self.graph,
+                ladder=self.ladder,
+                batch_elem_cap=self.batch_elem_cap,
+                device_graph=self._dg,
+                vals_cache=self._vals_cache,
+                vals_lock=self._vals_lock,
+                backend=self.kernel_backend,
+                ir=self._irs[key],
+            )
+            self._wit_compiled[key] = cp
+        return cp
+
+    def _mine_witnesses(
+        self, names: List[str], seeds: np.ndarray, k: int
+    ) -> MiningResult:
+        """The witness-mode portfolio pass: one witness mine per unique
+        plan (each with its single combined counts+ids host sync); counts
+        come straight from the witness kernels, so no counting pass runs."""
+        self.compile()
+        stats = executor.new_stats()
+        out = np.zeros((len(seeds), len(names)), dtype=np.int64)
+        seconds: Dict[str, float] = {}
+        wits: Dict[str, object] = {}
+        done: Dict[str, Tuple[object, float]] = {}
+        for j, n in enumerate(names):
+            key = self._canon_of[n]
+            if key not in done:
+                cp = self._compiled_for(key)
+                before = dict(cp.stats)
+                t0 = time.perf_counter()
+                w = cp.mine(seeds, witnesses=k)
+                done[key] = (w, time.perf_counter() - t0)
+                for kk in stats:
+                    stats[kk] += cp.stats[kk] - before[kk]
+            w, dt = done[key]
+            out[:, j] = w.counts
+            seconds[n] = dt
+            wits[n] = w
+        for kk in stats:
+            self.stats[kk] += stats[kk]
+        return MiningResult(
+            columns=tuple(names),
+            counts=out,
+            backend="compiled",
+            n_seeds=len(seeds),
+            seconds=seconds,
+            stats=stats,
+            witnesses=wits,
+        )
+
     def mine(
         self,
         patterns: Optional[Sequence[PatternLike]] = None,
@@ -639,8 +711,12 @@ class MiningSession:
         over `seeds` (default: every edge) and return a MiningResult.
 
         ``n_parts`` applies to ``"partitioned"`` (default 4).  The
-        ``"sharded"`` backend and ``witnesses=k`` raise
-        ``NotImplementedError`` naming their ROADMAP.md item."""
+        ``"sharded"`` backend raises ``NotImplementedError`` naming its
+        ROADMAP.md item.
+
+        ``witnesses=k`` (compiled backend only) returns, per pattern and
+        seed, the top-k matching edge tuples next to the counts — see
+        :class:`repro_torch.witness.Witnesses`; ``result.witnesses[name]``."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
         if backend in _NOT_PORTED:
@@ -648,17 +724,21 @@ class MiningSession:
                 f"backend={backend!r} is not ported yet "
                 f"(ROADMAP.md, item {_NOT_PORTED[backend]})"
             )
-        if witnesses:
-            raise NotImplementedError(
-                "witnesses=k is not ported yet (ROADMAP.md, item A7)"
-            )
         if self.graph is None:
             raise ValueError("session has no graph; pass one to MiningSession()")
+        if witnesses and backend != "compiled":
+            raise ValueError(
+                "witnesses=k is a compiled-backend feature (device-side "
+                f"selection over the compare cubes); got backend={backend!r}"
+            )
         names = self._resolve_names(patterns)
         g = self.graph
         if seeds is None:
             seeds = np.arange(g.n_edges, dtype=np.int32)
         seeds = np.asarray(seeds, dtype=np.int32)
+
+        if witnesses:
+            return self._mine_witnesses(names, seeds, int(witnesses))
 
         if backend == "compiled":
             counts, seconds, fused, stats = self._mine_compiled(names, seeds)

@@ -1689,12 +1689,19 @@ class CompiledPattern:
         :func:`repro_torch.core.executor.execute`: one host→device copy per
         bucket group, async launches scatter-added into a device output
         vector, and exactly ONE blocking device→host sync for the finished
-        counts.  ``witnesses=k`` is not ported yet (ROADMAP.md, item A7).
+        counts.
+
+        ``witnesses=k`` switches to witness mode: the return value is a
+        :class:`repro_torch.witness.Witnesses` carrying the same exact
+        counts PLUS the per-seed top-k matching edge tuples, selected on
+        the device over the same compare cubes
+        (:mod:`repro_torch.witness.extract`) — still exactly one host
+        sync, counts and packed ids fetched together.
         """
         if witnesses:
-            raise NotImplementedError(
-                "witness extraction is not ported yet (ROADMAP.md, item A7)"
-            )
+            from repro_torch.witness.extract import mine_witnesses
+
+            return mine_witnesses(self, seed_eids, int(witnesses))
         if seed_eids is None:
             seed_eids = np.arange(self.g.n_edges, dtype=np.int32)
         seed_eids = np.asarray(seed_eids, dtype=np.int32)

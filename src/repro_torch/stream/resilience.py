@@ -35,8 +35,7 @@ batch, so the live (rolled-back) state and the recovered state agree.
 (:class:`repro_torch.stream.chaos.TransientFault` by default) are retried
 with exponential backoff, each retry ascending ``DEGRADATION_LADDER``:
 
-  1. ``witnesses_off``  — shed evidence extraction (inert until
-     witnesses are ported: the port's service takes no ``witnesses=k``);
+  1. ``witnesses_off``  — shed evidence extraction;
   2. ``single_device``  — retry on attempt-local plan caches.  The
      reference falls back to its ``xla`` backend here; the port has no
      second device path to fall to, so the attempt keeps the service's
@@ -346,7 +345,7 @@ class ResilientDetectionService(DetectionService):
             self._count_only,
         )
         if level >= 1:
-            self.witnesses = 0  # always 0 until witnesses are ported
+            self.witnesses = 0
         if level >= 2:
             # the backend stays: the attempt gets fresh plan caches, so a
             # plan cached by the failed attempt is not reused
@@ -598,6 +597,7 @@ class ResilientDetectionService(DetectionService):
             for k, v in zip(executor.STAT_KEYS, np.asarray(tree["exec"]))
         }
         self.tick = int(extra["tick"])
+        self._tick_ctx = None
         self.last_report = None
         self.last_plan = None
 

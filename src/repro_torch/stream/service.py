@@ -25,15 +25,20 @@ phase:
    exactly :func:`repro_torch.api.featurize` order, so an offline-trained
    classifier's ``predict_proba`` plugs in as ``scorer=``), apply the
    per-pattern count ``thresholds``, and emit an :class:`AlertBatch`
-   carrying the executor/store counter glossary for the tick.
-
-The reference's sixth stage, evidence (``witnesses=k``), is not ported
-yet (ROADMAP.md, item A7): ``witnesses=k`` raises at construction.
+   carrying the executor/store counter glossary for the tick;
+6. **evidence** (``witnesses=k``): every alert seed whose count was
+   recomputed this tick is witness-mined (:mod:`repro_torch.witness`) on
+   the SAME tick-local view and device mirror the counting pass used, the
+   hop edge ids translated compact->global through ``view.edge_ids`` and
+   resolved against the view's own arrival columns into concrete
+   ``(src, dst, t, amount)`` transaction hops an analyst can act on.
 
 Where it runs: the device mirror and every launch live on ``device``
 (default: the CUDA card; the CPU only when asked).  ``backend="kernel"``
-(default) sends the ``pw`` buckets of every tick's mine through the CUDA
-``intersect_count``; ``"torch"`` broadcasts the compare cube inline.
+(default) sends the ``pw`` buckets of every tick's counting mine through
+the CUDA ``intersect_count``; ``"torch"`` broadcasts the compare cube
+inline.  Witness extraction broadcasts its compare cube on both, as the
+JAX package does (the kernel returns counts, not positions).
 
 ``pipeline=True`` overlaps consecutive ticks: ``submit`` dispatches tick
 N+1 (ingest/plan/mine launches) while tick N's device mining is still in
@@ -72,6 +77,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.stream.delta import DeltaPlan, DeltaScheduler
 from repro_torch.stream.store import GraphView, TemporalGraphStore
+from repro_torch.witness import witness_layout
+from repro_torch.witness.extract import mine_witnesses
 
 __all__ = [
     "DetectionService",
@@ -165,8 +172,13 @@ class AlertBatch:
     count in pattern ``columns[j]`` and ``triggered[:, j]`` marks which
     pattern(s) fired.
 
-    ``evidence`` is the reference's per-row witness payload; it stays
-    ``None`` until witnesses are ported (ROADMAP.md, item A7)."""
+    ``evidence`` (services built with ``witnesses=k``) carries, per row,
+    a dict mapping each pattern that fired AND was re-mined this tick to
+    its top-k witnesses — each witness a list of resolved hop dicts
+    ``{stage, eid, src, dst, t, amount}`` (see
+    :meth:`repro_torch.witness.Witnesses.resolve`).  A fired pattern whose
+    count carried over from an earlier tick is absent from the dict (its
+    witnesses were attached when it was last re-mined)."""
 
     eids: np.ndarray  # (n,) global edge ids
     src: np.ndarray
@@ -249,8 +261,11 @@ class _InflightTick:
     path: str = "empty"
     plan: Optional[DeltaPlan] = None
     view: Optional[GraphView] = None
+    dg: object = None
     vecs: Dict[str, object] = dataclasses.field(default_factory=dict)
     seed_map: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    cps: Dict[str, CompiledPattern] = dataclasses.field(default_factory=dict)
+    mined: Dict[str, set] = dataclasses.field(default_factory=dict)
     n_live: int = 0
     store_delta: Dict[str, int] = dataclasses.field(default_factory=dict)
     trace_misses: int = 0
@@ -279,10 +294,12 @@ class DetectionService:
     ``repro_torch.ml.GBDTClassifier().predict_proba``); without one, the score
     is the max threshold-normalized count.  ``retain`` is the store's
     sliding window ("auto" derives the sound ``2*TR + lateness`` bound,
-    ``None`` keeps everything).  ``witnesses=k`` is not ported yet and
-    raises (ROADMAP.md, item A7).  ``device`` places the per-tick device
-    mirror and every launch: ``None`` means the CUDA card (raising when
-    there is none); ``device="cpu"`` runs the plain PyTorch path.
+    ``None`` keeps everything).  ``witnesses=k`` attaches to every alert
+    the top-k matching edge tuples per fired pattern, resolved into
+    ``(src, dst, t, amount)`` hops (:attr:`AlertBatch.evidence`).
+    ``device`` places the per-tick device mirror and every launch:
+    ``None`` means the CUDA card (raising when there is none);
+    ``device="cpu"`` runs the plain PyTorch path.
     ``backend`` is the compiled plans' kernel backend: ``"kernel"``
     (default, the CUDA ``intersect_count``) or ``"torch"`` — the
     counterparts of the JAX service's ``"pallas"`` and ``"xla"``.
@@ -314,11 +331,6 @@ class DetectionService:
         chaos=None,
         device=None,
     ):
-        if witnesses:
-            raise NotImplementedError(
-                "witnesses=k on the streaming service is not ported yet "
-                "(ROADMAP.md, item A7)"
-            )
         self.device = resolve_device(device)
         self.window = int(window)
         self.backend = backend
@@ -395,6 +407,16 @@ class DetectionService:
             "deg": 1,
             "view_nodes": 0,  # local_view compact-node floor
         }
+        if self.witnesses:
+            # fail at construction, not mid-stream, if a registered
+            # pattern's stage shape has no witness lowering
+            for n in self.pattern_names:
+                witness_layout(self._irs[n])
+        # tick-local mining context (view, device mirror, per-pattern
+        # plans, per-pattern freshly-mined seed sets) kept alive between
+        # commit's gather and _finish so alert seeds can be witness-mined
+        # on the exact graph their counts came from
+        self._tick_ctx: Optional[tuple] = None
         self.tick = 0
         self.last_report: Optional[TickReport] = None
         self.last_plan: Optional[DeltaPlan] = None
@@ -493,6 +515,7 @@ class DetectionService:
         self.stats = dict(txn["stats"])
         self.last_report = txn["last_report"]
         self.last_plan = txn["last_plan"]
+        self._tick_ctx = None
 
     # -- mining (dispatch phase) ----------------------------------------
     def _device_mirror(self, view: GraphView):
@@ -528,6 +551,8 @@ class DetectionService:
         vals_cache: Dict[str, np.ndarray] = {}
         vecs: Dict[str, object] = {}
         seed_map: Dict[str, np.ndarray] = {}
+        cps: Dict[str, CompiledPattern] = {}
+        mined: Dict[str, set] = {}
         for name in self.pattern_names:
             seeds = plan.dirty.get(name)
             if seeds is None or len(seeds) == 0:
@@ -549,10 +574,13 @@ class DetectionService:
             vecs[name] = cp.mine_async(view.local_seeds(seeds), stats=stats)
             self._fire("mine")
             seed_map[name] = seeds
+            if self.witnesses:
+                cps[name] = cp
+                mined[name] = set(int(e) for e in seeds)
         stats["jit_cache_entries"] = sum(
             len(s) for s in self._trace_keys.values()
         )
-        return vecs, seed_map
+        return dg, vecs, seed_map, cps, mined
 
     def _gather_counts(self, inflight: _InflightTick) -> None:
         """The tick's ONE host sync: fetch every pattern's finished count
@@ -569,6 +597,51 @@ class DetectionService:
                 (name, seeds, self.counts[name][seeds].copy())
             )
             self.counts[name][seeds] = vals
+
+    def _extract_evidence(
+        self,
+        eids: np.ndarray,
+        triggered: np.ndarray,
+        stats: Dict[str, int],
+        tick: Optional[int] = None,
+    ) -> List[Dict[str, list]]:
+        """Top-k witnesses for every (alert seed, fired pattern) pair
+        whose count was recomputed this tick, witness-mined on the tick's
+        own view/device mirror and resolved into transaction hops."""
+        self._fire("witness", tick)
+        out: List[Dict[str, list]] = [dict() for _ in range(len(eids))]
+        if self._tick_ctx is None:
+            return out
+        view, dg, cps, mined = self._tick_ctx
+        for j, name in enumerate(self.pattern_names):
+            cp = cps.get(name)
+            if cp is None:
+                continue
+            fresh = mined[name]
+            rows = [
+                i
+                for i in range(len(eids))
+                if triggered[i, j] and int(eids[i]) in fresh
+            ]
+            if not rows:
+                continue
+            before = dict(cp.stats)
+            sub = np.asarray(eids[rows], dtype=np.int64)
+            w = mine_witnesses(
+                cp, view.local_seeds(sub), self.witnesses, dg=dg
+            )
+            for k in stats:
+                stats[k] += cp.stats[k] - before[k]
+            # resolve against the VIEW's arrival columns, not the store's
+            # — under pipelining the store already holds the successor
+            # tick's ingest (and may have evicted below the view window)
+            resolved = w.translate(view.edge_ids).resolve(view.edge_fields)
+            for r, i in enumerate(rows):
+                out[i][name] = resolved[r]
+        stats["jit_cache_entries"] = sum(
+            len(s) for s in self._trace_keys.values()
+        )
+        return out
 
     def _score(
         self,
@@ -762,6 +835,7 @@ class DetectionService:
         dispatch)."""
         t0 = time.perf_counter()
         self.tick += 1
+        self._tick_ctx = None
         traces_before = sum(len(s) for s in self._trace_keys.values())
         src = np.asarray(src, dtype=np.int32)
         dst = np.asarray(dst, dtype=np.int32)
@@ -818,7 +892,7 @@ class DetectionService:
                 self._pad_floors["view_nodes"] = max(
                     self._pad_floors["view_nodes"], view.graph.n_nodes
                 )
-            vecs, seed_map = self._dispatch_mine(
+            dg, vecs, seed_map, cps, mined = self._dispatch_mine(
                 plan, view, stats
             )
         inflight.mine_ms = (time.perf_counter() - ts) * 1e3
@@ -826,8 +900,11 @@ class DetectionService:
         inflight.path = path
         inflight.plan = plan
         inflight.view = view
+        inflight.dg = dg
         inflight.vecs = vecs
         inflight.seed_map = seed_map
+        inflight.cps = cps
+        inflight.mined = mined
         inflight.n_live = self.store.n_live
         # store deltas close at dispatch end: the store only mutates
         # during dispatch, and under pipelining the successor's ingest
@@ -838,7 +915,8 @@ class DetectionService:
         }
         # launch shapes are minted at dispatch; snapshotting the delta
         # here keeps a pipelined successor's fresh shapes out of this
-        # tick's miss count
+        # tick's miss count (witness-stage shapes are added by _finish
+        # around the extraction itself)
         inflight.trace_misses = max(
             0,
             sum(len(s) for s in self._trace_keys.values()) - traces_before,
@@ -848,8 +926,8 @@ class DetectionService:
     def _tick_commit(self, inflight: _InflightTick) -> AlertBatch:
         """Host-sync phase of a tick: ONE portfolio gather fetches every
         pattern's finished device counts (the transactional commit
-        point), then score/report run on the tick's own dispatch-time
-        view."""
+        point), then score/evidence/report run on the tick's own
+        dispatch-time view."""
         if inflight.vecs:
             ts = time.perf_counter()
             with obs_trace.span(
@@ -861,17 +939,27 @@ class DetectionService:
                 self._gather_counts(inflight)
             self._fire("gather", inflight.tick)
             inflight.mine_ms += (time.perf_counter() - ts) * 1e3
+        self._tick_ctx = (
+            (inflight.view, inflight.dg, inflight.cps, inflight.mined)
+            if self.witnesses and inflight.cps
+            else None
+        )
         batch = self._finish(inflight)
         self._txn_counts_undo = []  # committed: nothing left to undo
         return batch
 
     def _finish(self, inflight: _InflightTick) -> AlertBatch:
+        # score + evidence BEFORE the stats/seconds snapshot, so witness
+        # mining is accounted to this tick's report
         plan, view, stats = inflight.plan, inflight.view, inflight.stats
         notes = inflight.notes
-        degraded = tuple(notes.get("degraded", ()))
+        degraded = list(notes.get("degraded", ()))
         scored = None
-        evidence = None  # witness evidence: ROADMAP.md, item A7
+        evidence = [] if self.witnesses else None
         score_ms = 0.0
+        witness_traces_before = sum(
+            len(s) for s in self._trace_keys.values()
+        )
         if (
             plan is not None
             and len(plan.union_dirty)
@@ -881,14 +969,36 @@ class DetectionService:
             with obs_trace.span("tick:score", n_seeds=len(plan.union_dirty)):
                 scored = self._score(plan.union_dirty, view, inflight.tick)
             score_ms = (time.perf_counter() - ts) * 1e3
+            if self.witnesses:
+                # in-tick shed: if the deadline budget is already blown,
+                # drop evidence extraction (the most expensive optional
+                # stage) rather than blow it further
+                if (
+                    inflight.deadline is not None
+                    and time.perf_counter() > inflight.deadline
+                ):
+                    if "witnesses_off" not in degraded:
+                        degraded.append("witnesses_off")
+                else:
+                    with obs_trace.span(
+                        "tick:witness", stats=stats, n_alerts=len(scored[0])
+                    ):
+                        evidence = self._extract_evidence(
+                            scored[0], scored[7], stats, inflight.tick
+                        )
         for k in self.stats:
             if k == "jit_cache_entries":  # a gauge, not a counter
                 self.stats[k] = max(self.stats[k], stats[k])
             else:
                 self.stats[k] += stats[k]
-        # fresh launch shapes minted this tick (the dispatch-phase delta
-        # snapshotted into the inflight record)
-        trace_misses = inflight.trace_misses
+        # fresh launch shapes minted this tick: the dispatch-phase delta
+        # was snapshotted into the inflight record; add whatever the
+        # witness stage just minted
+        trace_misses = inflight.trace_misses + max(
+            0,
+            sum(len(s) for s in self._trace_keys.values())
+            - witness_traces_before,
+        )
         if trace_misses and inflight.path in ("local", "full"):
             logger.warning(
                 "tick %d (%s path) minted %d fresh launch shape(s) — warm "
@@ -928,7 +1038,7 @@ class DetectionService:
                 inflight.store_delta.get("late_contract_breaches", 0)
             )
             + int(notes.get("late", 0)),
-            degraded=degraded,
+            degraded=tuple(degraded),
             retries=int(notes.get("retries", 0)),
             trace_misses=trace_misses,
             span_id=inflight.span_id,

@@ -91,6 +91,8 @@ def test_backend_and_device_rules(dense):
             TC.CompiledPattern(spec, dense[1])
     cp = TC.CompiledPattern(spec, dense[1], device="cpu")
     assert cp.backend == "kernel" and cp.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A7"):
-        cp.mine(witnesses=2)
+    # witness mode is ported: the same counts, one host sync for both
+    w = cp.mine(witnesses=2)
+    np.testing.assert_array_equal(w.counts, cp.mine())
+    assert w.eids.shape == (dense[1].n_edges, 2, w.n_hops) and cp.stats["host_syncs"] == 2
     assert cp.mine(np.zeros(0, np.int32)).shape == (0,)

@@ -3,7 +3,9 @@ hist_update's two entries, window_degree, flash_attention) against their
 plain PyTorch versions (hist_update also bit for bit against its plain
 fixed-point replay, at every cluster size), a portfolio mine on the card
 against the same mine on the CPU, a GBDT fit on the card against the same
-fit on the CPU, and FraudGT's logits on the card against the CPU port's.
+fit on the CPU, FraudGT's logits on the card against the CPU port's, and
+witness extraction and evidence-carrying alerts on the card against the
+CPU port's.
 Every test skips itself where there is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -433,3 +435,56 @@ def test_recovery_on_card_replays_through_the_kernel(cuda, tmp_path):
     assert rec.tick == svc.tick and store_states_equal(rec.store.state_dict(), svc.store.state_dict())
     for n in names:
         np.testing.assert_array_equal(rec.pattern_counts(n), svc.pattern_counts(n), err_msg=n)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_witnesses_on_card_equal_cpu(cuda, backend):
+    """Witness extraction on the card: the same counts, witness eids and
+    stats as the CPU port on a dense random graph (sweeps forced by a
+    tiny ladder), and exactly one host sync a mine under sync-debug
+    "error"."""
+    from repro_torch.core.compiler import CompiledPattern
+    from repro_torch.core.patterns import PATTERN_NAMES, build_pattern
+
+    rng = np.random.default_rng(13)
+    n, e = 24, 240
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = (src + rng.integers(1, n, e).astype(np.int32)) % n
+    g = build_temporal_graph(src, dst, rng.integers(0, 300, e).astype(np.int64), n_nodes=n)
+    seeds = np.arange(0, e, 2, dtype=np.int32)
+    tiny = [(n, {"ladder": (2, 4)}) for n in ("cycle5", "peel_chain", "scatter_gather")]
+    for name, kw in [(n, {}) for n in PATTERN_NAMES] + tiny:
+        spec = build_pattern(name, 96)
+        on_card = CompiledPattern(spec, g, backend=backend, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = on_card.mine(seeds, witnesses=3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        on_cpu = CompiledPattern(spec, g, backend=backend, device="cpu", **kw)
+        want = on_cpu.mine(seeds, witnesses=3)
+        np.testing.assert_array_equal(got.counts, want.counts, err_msg=name)
+        np.testing.assert_array_equal(got.eids, want.eids, err_msg=name)
+        assert on_card.stats == on_cpu.stats and on_card.stats["host_syncs"] == 1, name
+
+
+def test_evidence_service_on_card_equals_cpu(cuda):
+    """A DetectionService(witnesses=2) on the card: the same alerts and
+    evidence as on the CPU over a small feed, intersect_count launched,
+    host syncs == ticks + witness mines (as the CPU counts them)."""
+    from repro_torch.stream import DetectionService
+
+    names = ["fan_in", "fan_out", "cycle2", "cycle3", "scatter_gather"]
+    kw = dict(thresholds={"fan_in": 4, "fan_out": 4, "cycle2": 1, "cycle3": 1, "scatter_gather": 2},
+              witnesses=2)
+    on_card = DetectionService(names, window=64, **kw)
+    on_cpu = DetectionService(names, window=64, device="cpu", **kw)
+    ic_ops.launches = 0
+    n_evidence = 0
+    for b in _feed(5):
+        got, want = on_card.submit(*b), on_cpu.submit(*b)
+        assert got.evidence == want.evidence and got.to_rows() == want.to_rows()
+        assert got.report.stats == want.report.stats and not got.report.degraded
+        n_evidence += sum(len(ev) for ev in got.evidence)
+    assert ic_ops.launches > 0 and n_evidence > 0
+    assert on_card.stats == on_cpu.stats and on_card.stats["host_syncs"] > on_card.tick

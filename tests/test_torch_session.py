@@ -88,10 +88,11 @@ def test_unported_surfaces_name_their_roadmap_item(dense):
     ts = MiningSession(dense[1], window=W, device="cpu").register("fan_in")
     with pytest.raises(NotImplementedError, match="A8"):
         ts.mine(backend="sharded")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ts.mine(witnesses=3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ts.service(witnesses=2)
+    # witnesses (A7) are ported: counts as a counting mine, top-k tuples
+    res = ts.mine(witnesses=3)
+    np.testing.assert_array_equal(res.counts, ts.mine().counts)
+    assert set(res.witnesses) == {"fan_in"} and res.witnesses["fan_in"].k == 3
+    assert ts.service(witnesses=2).witnesses == 2
     with pytest.raises(ValueError, match="unknown backend"):
         ts.mine(backend="nope")
 

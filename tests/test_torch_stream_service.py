@@ -152,8 +152,12 @@ def test_session_streaming_surfaces_match_jax(backends):
 
 
 def test_witnesses_raise_naming_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        DetectionService(NAMES, window=W, witnesses=2, device="cpu")
+    # witnesses (A7) are ported: the service takes witnesses=k and its
+    # alerts carry evidence; without it, evidence stays None
+    wsvc = DetectionService(NAMES, window=W, witnesses=2, thresholds=THRESH, device="cpu")
+    assert wsvc.submit(np.zeros(0), np.zeros(0), np.zeros(0)).evidence == []
+    batch = wsvc.submit(*_feed(4)[0])
+    assert batch.evidence is not None and len(batch.evidence) == len(batch)
     svc = DetectionService(NAMES, window=W, device="cpu")
     assert svc.submit(np.zeros(0), np.zeros(0), np.zeros(0)).evidence is None
 
