@@ -36,7 +36,13 @@ Phases, in order; any failure exits non-zero:
    GQA, and long bfloat16 shapes on the wgmma path (causal and not, hd 64
    and 128, ragged tiles); each row logs the path ``ops.plan`` picked,
    which must be the ``.cu`` entry's, and both the short and the wgmma
-   path must be reached.  Each shape is timed with CUDA events beside its
+   path must be reached; the short path's backward (``flash_attention_bwd``,
+   on the forward kernel's output and logsumexp) within 1e-5 (float32) or
+   2e-2 relative and absolute (bfloat16) of its plain version and
+   bit-identical across two launches, at FraudGT's training and inference
+   shapes, GQA with T > S, the short cases of ``tests/test_torch_cuda.py``
+   and a block at the shared-memory limit, timed beside the backward of
+   ``scaled_dot_product_attention``.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
    function, that call; every kernel but ``hist_update`` also under
    ``torch.profiler`` (``kernel_ms``, the kernel without the wrapper's
@@ -87,8 +93,9 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-14 run between phase 8's
-   timing and those last lines:
+   goes to ``build/chip_smoke.json``.  Phases 9-16 run between phase 8's
+   timing and those last lines (the backward's kernels entry, at the shape
+   of phase 16's first backward launch, after phase 16):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
    three random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
@@ -137,7 +144,7 @@ Phases, in order; any failure exits non-zero:
    DEFAULT_PORTFOLIO, window=4096, witnesses=2)`` on the card (the
    service of ``src/repro/launch/serve.py``), fed HI-Small in time order
    through ``make_feed``: one warm submit of 262,144 transactions, then
-   64 submits of 64 through 4 submitters (``load_test``), an audit log
+   32 submits of 64 through 4 submitters (``load_test``), an audit log
    under ``build/``, under ``set_sync_debug_mode("error")``.  Asserted: no
    ``SubmitError`` and no degraded tick, ``intersect_count`` launched
    (``launches_triage``), host syncs == ticks + witness mines, every alert
@@ -149,6 +156,24 @@ Phases, in order; any failure exits non-zero:
    snapshot for up to 256 pairs.  Printed: submit p50/p99/max, txns/s,
    alerts, evidence hops, suppressed duplicates, the share of tick time
    in ``tick:witness`` and the other tick spans, peak memory.
+15. sharded — the phase-3 session's ``mine(backend="sharded")`` under
+   ``set_sync_debug_mode("error")``: 4 partitions over every edge (on one
+   card they time-share it: the host gather), then 1 partition over
+   1,048,576 seeds drawn with the data seed (the device-side sum); each
+   equals phase 3's rows, syncs once, launches ``intersect_count`` (counts
+   zeroed before, read after) and has per-shard stats that sum to its
+   totals.  Printed: walls, the dispatch window, the overlap ratio,
+   ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
+   --pattern scatter_gather --parts 4 --scale 28`` once, in process.
+16. FraudGT training — ``FraudGT(FraudGTParams(epochs=1)).fit`` (d_model
+   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 1,048,576
+   edges of the HI-Small training split under
+   ``set_sync_debug_mode("error")``: the forward launches with the
+   logsumexp and the backward launches each equal n_layers * steps, every
+   loss finite; the threshold picked on the trained edges
+   (``benchmarks/bench_fraudgt.py``), the 1,027,527 test edges scored:
+   probabilities not constant, F1 > 0, printed beside phase 5's.  Then 32
+   steps of a second fit under ``torch.profiler``.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -235,6 +260,26 @@ FA_CASES = (
     (2, 1000, 1000, 8, 2, 128, True, "bfloat16"),
 )
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the short-path backward (B, T, S, H, K, hd, causal, dtype): FraudGT's
+# training shape (a batch of 256 edges), its inference chunk, GQA with
+# T > S, the short-path cases of tests/test_torch_cuda.py (a ragged B past
+# the grid, the 32/32 edge at hd 128, one key; in bf16 GQA, whole kv groups
+# in chunks, one group in parts) and a block at the shared-memory limit;
+# float32 within FA_BWD_TOL absolute, bf16 within 2e-2 relative and
+# absolute (one rounding of each output)
+FA_BWD_CASES = (
+    (256, 17, 17, 8, 8, 16, True, "float32"),
+    (1024, 17, 17, 8, 8, 16, True, "float32"),
+    (1000, 20, 12, 8, 2, 16, True, "float32"),
+    (5003, 17, 17, 8, 8, 16, True, "float32"),
+    (37, 32, 32, 2, 2, 128, True, "float32"),
+    (3, 1, 1, 8, 8, 16, True, "float32"),
+    (2, 32, 32, 12, 1, 64, True, "float32"),
+    (1001, 17, 17, 8, 2, 32, False, "bfloat16"),
+    (5, 32, 32, 4, 4, 128, True, "bfloat16"),
+    (3, 32, 32, 16, 1, 64, True, "bfloat16"),
+)
+FA_BWD_TOL = 1e-5
 # phase 9: the oracle's random graphs (nodes, edges, t_max) and their
 # seeds, sized so GFPReference takes under a minute for the 12 full_deep
 # patterns on every edge of the three; the Fig. 10 protocol's seeds
@@ -282,16 +327,37 @@ WIT_CPU_SEEDS_CUT = {"scatter_gather": 16}
 # threads; then a sequential service at k = TRIAGE_EXACT_K whose last
 # tick's evidence is held to the oracle for up to TRIAGE_EXACT_PAIRS
 # pairs.  A live submit takes 1.47 s on an NVIDIA H100 at 700 W (751 s
-# for 512), so the submits are cut to 64 (PERF.md section 4)
+# for 512), so the submits are cut to 32 (64 until phases 15-16 came;
+# PERF.md section 4)
 TRIAGE_WARM = 1 << 18
 TRIAGE_BATCH = 64
-TRIAGE_SUBMITS = 64
+TRIAGE_SUBMITS = 32
 TRIAGE_SUBMITTERS = 4
 TRIAGE_K = 2
 TRIAGE_EXACT_WARM = 16384
 TRIAGE_EXACT_SUBMITS = 8
 TRIAGE_EXACT_K = 3
 TRIAGE_EXACT_PAIRS = 256
+# phase 15: the sharded mine of the phase-3 portfolio: SHARD_PARTS
+# partitions over every edge (time-shared on one card: the host gather),
+# then one partition over SHARD_SEEDS seeds drawn with the data seed (the
+# device-side sum); then repro_torch.launch.mine's command line at
+# SHARD_CLI_SCALE
+SHARD_PARTS = 4
+SHARD_SEEDS = 1 << 20
+SHARD_CLI_ARGS = ("--pattern", "scatter_gather", "--parts", "4", "--scale", "28")
+# phase 16: FraudGT trained for FGT_EPOCHS epoch (the reference trains 3)
+# on the first FGT_FIT_ROWS training edges, its threshold picked on the
+# edges it trained on (as benchmarks/bench_fraudgt.py picks it on its
+# training edges), then scored on the test split.  One epoch over all
+# 4,110,125 training edges takes 236-255 s of steps (63-68 steps/s, host
+# bound) on an NVIDIA H100 at 700 W and the threshold 48-58 s more
+# (tools/smoke_phases.py --fit-rows 0), so the rows are
+# cut to a quarter (PERF.md section 4 lists both cuts); FGT_PROFILE_STEPS
+# steps of a second fit run under torch.profiler
+FGT_EPOCHS = 1
+FGT_FIT_ROWS = 1 << 20
+FGT_PROFILE_STEPS = 32
 
 
 def log(msg: str) -> None:
@@ -350,6 +416,18 @@ def fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
     pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_OPS_PER_S
     return bound_ms(nbytes, 4 * hd * pairs * b * h, peak)
+
+
+def fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+    """The backward's bytes: q, k, v, o, dO and the float32 lse read once,
+    dQ, dK, dV written once; its operations: 10 * hd flops per (row, key)
+    pair the mask lets through (the scores again, dP, dV, dQ and dK, two
+    flops a multiply-add each)."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (4 * b * t * h * hd + 4 * b * s * kvh * hd) * size + 4 * b * h * t
+    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_OPS_PER_S
+    return bound_ms(nbytes, 10 * hd * pairs * b * h, peak)
 
 
 def cuda_ms(fn, reps: int, before=None) -> float:
@@ -922,6 +1000,87 @@ def phase_flash_attention(device, report):
         raise AssertionError(f"the flash_attention cases reached only the paths {sorted(reached)}")
     worst = {d: max(r["max_abs_err"] for r in rows if r["dtype"] == d) for d in FA_TOL}
     log(f"kernel: flash_attention within {FA_TOL} of its plain version on {len(rows)} cases "
+        f"(max |diff| {worst})")
+    return worst
+
+
+def fa_bwd_plain(q, k, v, o, do, lse, causal):
+    """The backward's plain version in float32 on (B, T, H, hd) / (B, S, K,
+    hd) operands: K/V heads repeated, dK and dV summed over each group
+    before any rounding to the operands' type."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    flat = lambda x, n: x.float().repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
+    dq, dk, dv = flash_attention_bwd_ref(flat(q, t), flat(k, s), flat(v, s), flat(o, t), flat(do, t),
+                                         lse.reshape(b * h, t), causal=causal)
+    fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
+    return dq.reshape(b, h, t, hd).transpose(1, 2), fold(dk), fold(dv)
+
+
+def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None) -> dict:
+    """The short-path backward kernel against its plain version on the same
+    inputs (the forward kernel's o and lse unless given): max |diff| over
+    dQ, dK, dV, within FA_BWD_TOL in float32 and 2e-2 relative and
+    absolute in bf16; two launches bit-identical; and kernel / plain /
+    library times with the bound (``ms`` by CUDA events over wrapper calls,
+    ``kernel_ms`` under ``torch.profiler``).  The library call is the
+    backward of one ``F.scaled_dot_product_attention`` at the same shape
+    (``torch.autograd.grad`` of its output at dO)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    if o is None:
+        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    got, again = run(), run()
+    want = fa_bwd_plain(q, k, v, o, do, lse, causal)
+    err = max(float((x.float() - z).abs().max()) for x, z in zip(got, want))
+    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (0.0, FA_BWD_TOL)
+    for name, x, y, z in zip("qkv", got, again, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"two launches of flash_attention_bwd differ in d{name} at {tuple(q.shape)}")
+        if not bool(((x.float() - z).abs() <= atol + rtol * z.abs()).all()):
+            raise AssertionError(f"flash_attention_bwd differs from its plain version in d{name} at "
+                                 f"{tuple(q.shape)}, {tuple(k.shape)}, causal={causal}: {err}")
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
+    do_t = do.transpose(1, 2)
+    bound, by = fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+    kernel_ms, seen = kernel_device_ms(run, reps, match="flash_bwd_kernel")
+    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
+            "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
+            "ms": cuda_ms(run, reps), "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
+            "plain_ms": cuda_ms(lambda: fa_bwd_plain(q, k, v, o, do, lse, causal), max(3, reps // 10)),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True),
+                                  reps),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_flash_attention_bwd(device, report):
+    """The short-path backward kernel against its plain version at every
+    case of FA_BWD_CASES, timed beside its bound and SDPA's backward."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    rows = []
+    for b, t, s, h, kvh, hd, causal, dtype in FA_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((b, t, h, hd), generator=gen, device=device).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
+        row = fa_bwd_row(q, k, v, do, causal, 20)
+        rows.append(row)
+        log("kernel timing: flash_attention_bwd " + json.dumps(row))
+    report["flash_attention_bwd_shapes"] = rows
+    worst = max(r["max_abs_err"] for r in rows if r["dtype"] == "float32")
+    log(f"kernel: flash_attention_bwd within {FA_BWD_TOL} (float32) of its plain version on {len(rows)} cases "
         f"(max |diff| {worst})")
     return worst
 
@@ -1657,6 +1816,182 @@ def phase_triage(g, report, zero_launches, read_launches):
     return launches["intersect_count"]
 
 
+def phase_sharded(session, g, counts, report, zero_launches, read_launches):
+    """Phase 15: the phase-3 session's sharded mine, twice, under
+    ``set_sync_debug_mode("error")``: SHARD_PARTS partitions over every
+    edge (they time-share the card: the host gather) and one partition
+    over SHARD_SEEDS seeds (the device-side sum).  Each must equal phase
+    3's rows, sync once, launch ``intersect_count`` and have per-shard
+    stats that sum to its totals.  Then ``repro_torch.launch.mine``'s
+    command line once.  Returns intersect_count's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.device import allowed_sync
+    from repro_torch.launch import mine as mine_cli
+
+    sub = np.random.default_rng(SEED).choice(g.n_edges, size=min(SHARD_SEEDS, g.n_edges),
+                                             replace=False).astype(np.int32)
+    rows = {}
+    launches = 0
+    for name, seeds, n_parts, mode in (("every_edge", None, SHARD_PARTS, "host"), ("seeds", sub, 1, "collective")):
+        zero_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            res = session.mine(seeds=seeds, backend="sharded", n_parts=n_parts)
+            with allowed_sync():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = {"n_seeds": int(res.n_seeds), "n_parts": res.partition_plan.n_parts, "wall_s": wall,
+               "dispatch_wall_s": res.dispatch_wall_s, "overlap_ratio": res.dispatch_overlap_ratio(),
+               "per_shard_s": res.per_shard_seconds, "balance": res.shard_balance(),
+               "gather_mode": res.gather_mode, "devices": list(res.shard_devices),
+               "launches": read_launches(), "stats": res.stats}
+        rows[name] = row
+        log(f"sharded mine ({name}): " + json.dumps(row))
+        want = counts if seeds is None else counts[seeds]
+        if not np.array_equal(res.counts, want):
+            raise AssertionError(f"the sharded mine ({name}) differs from phase 3's rows")
+        if res.gather_mode != mode or res.stats["host_syncs"] != 1:
+            raise AssertionError(f"the sharded mine ({name}) gathered by {res.gather_mode!r} with "
+                                 f"{res.stats['host_syncs']} host syncs, not {mode!r} with 1")
+        if row["launches"]["intersect_count"] <= 0:
+            raise AssertionError(f"the sharded mine ({name}) launched intersect_count no time")
+        for key in executor.STAT_KEYS:
+            part = sum(st[key] for st in res.shard_stats)
+            if key in ("host_syncs", "bytes_d2h"):
+                part += res.stats[key]  # charged to the mine's gather alone
+            if part != res.stats[key]:
+                raise AssertionError(f"the shards' {key} sum to {part}, not the mine's {res.stats[key]}")
+        launches += row["launches"]["intersect_count"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_counts, _, cli_timing = mine_cli.main(list(SHARD_CLI_ARGS))
+    cli = {"argv": list(SHARD_CLI_ARGS), "wall_s": time.perf_counter() - t0, "output": buf.getvalue().strip(),
+           "instances": int(cli_counts.sum()), "host_syncs": cli_timing["host_syncs"],
+           "gather_mode": cli_timing["gather_mode"]}
+    rows["cli"] = cli
+    log("sharded mine (repro_torch.launch.mine): " + json.dumps(cli))
+    if cli["host_syncs"] != 1:
+        raise AssertionError(f"repro_torch.launch.mine synced {cli['host_syncs']} times")
+    report["sharded"] = rows
+    return launches
+
+
+def phase_fraudgt_fit(ds, report, zero_launches, read_launches):
+    """Phase 16: FraudGT trained on the card (FraudGTParams(epochs=
+    FGT_EPOCHS), the widths every caller uses) over the first FGT_FIT_ROWS
+    training edges under ``set_sync_debug_mode("error")``, every step's
+    attention through the forward kernel (with the logsumexp) and the
+    backward kernel; the threshold picked on the edges it trained on and
+    F1 on the test split, as ``benchmarks/bench_fraudgt.py`` does; then
+    FGT_PROFILE_STEPS steps of a second fit under ``torch.profiler`` (the
+    device's busy share of a step, kernels a step).  Returns the launch
+    counts and the arguments of the fit's first backward launch."""
+    import numpy as np
+    import torch
+    from repro_torch.data.loader import temporal_split
+    from repro_torch.device import allowed_sync, to_host
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
+    from repro_torch.ml.metrics import best_f1_threshold, precision_recall_f1
+
+    g = ds.graph
+    y = ds.labels.astype(np.float32)
+    train_ids, test_ids = temporal_split(ds)
+    fit_ids = train_ids if FGT_FIT_ROWS is None else train_ids[:FGT_FIT_ROWS]
+    params = FraudGTParams(epochs=FGT_EPOCHS)
+    ft = FraudGT(params, seed=0)
+    bwd_fn = fa_ops.flash_attention_bwd
+    path = {}  # the fit's first backward launch: a batch of 256 edges
+
+    def capture_bwd(q, k, v, o, do, lse, **kw):
+        path.setdefault("args", tuple(x.detach() for x in (q, k, v, o, do, lse)) + (kw.get("causal", True),))
+        return bwd_fn(q, k, v, o, do, lse, **kw)
+
+    fa_ops.flash_attention_bwd = capture_bwd
+    zero_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ft.fit(g, ds.labels, fit_ids)
+        with allowed_sync():
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        fa_ops.flash_attention_bwd = bwd_fn
+    launches = read_launches()
+    steps = ft.fit_seconds["steps"]
+    losses = to_host(ft.losses)
+    t0 = time.perf_counter()
+    thr = best_f1_threshold(y[fit_ids], ft.predict_proba(g, fit_ids))
+    thr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proba = ft.predict_proba(g, test_ids)
+    predict_s = time.perf_counter() - t0
+    prec, rec, f1 = precision_recall_f1(y[test_ids], proba >= thr)
+    det = report.get("detection", {})
+    row = {"epochs": params.epochs, "fit_edges": int(len(fit_ids)), "batch": params.batch, "steps": steps,
+           "tokenize_s": ft.fit_seconds["tokenize"], "train_s": ft.fit_seconds["train"], "fit_s": fit_s,
+           "steps_per_s": steps / ft.fit_seconds["train"], "threshold": thr, "threshold_s": thr_s,
+           "predict_s": predict_s, "predict_tokenize_s": ft.seconds["tokenize"], "n_test": int(len(test_ids)),
+           "f1": f1, "precision": prec, "recall": rec,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "loss_mean_last_100": float(losses[-100:].mean()),
+           "proba_min": float(proba.min()), "proba_max": float(proba.max()), "proba_std": float(proba.std()),
+           "launches": launches, "expected_attention_launches": params.n_layers * steps,
+           "pipeline_f1": {fs: det.get(fs, {}).get("f1") for fs in ("full", "xgb_only")}}
+    row["profile"] = profile_fit(FraudGT(params, seed=0), g, ds.labels,
+                                 fit_ids[: FGT_PROFILE_STEPS * params.batch], FGT_PROFILE_STEPS)
+    report["fraudgt_fit"] = row
+    log("FraudGT training: " + json.dumps(row))
+    want = params.n_layers * steps
+    got = (launches["flash_attention"], launches["flash_attention_lse"], launches["flash_attention_bwd"])
+    if got != (want, want, want):
+        raise AssertionError(f"the fit's attention launches (forward, with lse, backward) are {got}, not {want} each")
+    if not np.all(np.isfinite(losses)) or len(losses) != steps:
+        raise AssertionError(f"the fit's {len(losses)} losses are not {steps} finite values")
+    if not proba.std() > 0 or not np.all(np.isfinite(proba)):
+        raise AssertionError("the trained FraudGT scores every test edge alike or not finitely")
+    if not f1 > 0:
+        raise AssertionError(f"the trained FraudGT detected nothing on the test split (F1 {f1})")
+    return launches, path["args"]
+
+
+def profile_fit(ft, g, labels, ids, steps) -> dict:
+    """``steps`` steps of ``ft.fit`` on ``ids`` timed under
+    ``torch.profiler``: the device's kernel time against the wall (one
+    stream: the busy share), kernels a step, the attention kernels' share
+    and the top kernels (``"profiled": false`` when the profiler recorded
+    no device kernel).  The wall includes tokenizing ``ids``."""
+    import collections
+
+    events, wall = profiled_device_events(lambda: ft.fit(g, labels, ids))
+    if not events:
+        return {"steps": steps, "wall_s": wall, "profiled": False}
+    kern = collections.defaultdict(lambda: [0.0, 0])
+    for name, us in events:
+        kern[name][0] += us / 1e6
+        kern[name][1] += 1
+    busy = sum(v[0] for v in kern.values())
+    train = ft.fit_seconds["train"]
+    return {"steps": steps, "profiled": True, "wall_s": wall, "train_s": train,
+            "device_kernel_s": busy, "device_busy_share_of_steps": busy / train if train else None,
+            "kernels_per_step": len(events) / steps,
+            "flash_fwd_s": sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k),
+            "flash_bwd_s": sum(v[0] for k, v in kern.items() if "flash_bwd_kernel" in k),
+            "top_kernels": [{"name": k[:100], "s": v[0], "count": v[1]}
+                            for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]]}
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -1702,12 +2037,15 @@ def main() -> int:
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
+        fa_ops.lse_launches = fa_ops.bwd_launches = 0
 
     def read_launches():
-        # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone
+        # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone;
+        # "flash_attention" every forward launch, "flash_attention_lse" those that wrote the logsumexp
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches,
-                "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches}
+                "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches,
+                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches}
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1726,6 +2064,7 @@ def main() -> int:
     hu_err = phase_hist_update(device, report)
     wd_row = phase_window_degree(device, report)
     fa_err = phase_flash_attention(device, report)
+    fa_bwd_err = phase_flash_attention_bwd(device, report)
 
     # ---- 3. main path at a real size ----------------------------------
     t0 = time.perf_counter()
@@ -2060,6 +2399,35 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels[0]["launches_triage"] = phase_triage(g, report, zero_launches, read_launches)
     report["triage"]["phase_s"] = time.perf_counter() - t0
+    log(f"card: {card}")
+
+    # ---- 15. the sharded mine -------------------------------------------
+    t0 = time.perf_counter()
+    kernels[0]["launches_sharded"] = phase_sharded(session, g, counts, report, zero_launches, read_launches)
+    report["sharded"]["phase_s"] = time.perf_counter() - t0
+
+    # ---- 16. FraudGT training through the attention kernels both ways --
+    t0 = time.perf_counter()
+    fit_launches, bwd_args = phase_fraudgt_fit(ds, report, zero_launches, read_launches)
+    report["fraudgt_fit"]["phase_s"] = time.perf_counter() - t0
+    kernels[-1]["launches_fit"] = fit_launches["flash_attention"]
+    q, k, v, o, do, lse, causal = bwd_args
+    bwd_main = fa_bwd_row(q, k, v, do, causal, 50, o=o, lse=lse)
+    log("kernel timing: flash_attention_bwd on the FraudGT training path " + json.dumps(bwd_main))
+    report["flash_attention_bwd_path_shape"] = bwd_main
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_short_bwd.cuh",
+        # not a TPU kernel: the JAX fit differentiates XLA's attention
+        "replaces": "src/repro/models/layers.py:108",
+        "launches": fit_launches["flash_attention_bwd"],
+        **{k: bwd_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                    "kernel_ms")},
+        "max_abs_err_cases": fa_bwd_err,
+        "library": "the backward of F.scaled_dot_product_attention at the same shape",
+        "shape": {k: bwd_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
+    })
     log(f"card: {card}")
 
     report["kernels"] = kernels

@@ -22,12 +22,13 @@ Where it runs: on the CUDA card by default (``device=None``); the CPU
 only when the caller passes ``device="cpu"``.  There is no silent
 fallback.  Backends: ``"compiled"`` (default), ``"oracle"`` (the numpy GFP
 enumerator), ``"streaming"`` (single-shot ingest through
-:class:`repro_torch.stream.DetectionService`) and ``"partitioned"``
+:class:`repro_torch.stream.DetectionService`), ``"partitioned"``
 (degree-balanced edge partitions mined in turn through the same compiled
-plans).  ``"sharded"`` raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it.  ``mine(witnesses=k)`` (compiled
-backend) returns, next to the counts, the top-k matching edge tuples of
-every seed (:class:`repro_torch.witness.Witnesses`).
+plans) and ``"sharded"`` (every partition's launches dispatched to its
+own device via :mod:`repro_torch.core.shard`, per-device resident
+accumulators, ONE blocking gather per mine).  ``mine(witnesses=k)``
+(compiled backend) returns, next to the counts, the top-k matching edge
+tuples of every seed (:class:`repro_torch.witness.Witnesses`).
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from repro_torch.core.compiler import (
     CompiledPattern,
     StageGraphIR,
     analyze_stage_graph,
+    schedule_cache_cap_for,
 )
 from repro_torch.core.spec import (
     Neigh,
@@ -74,11 +76,6 @@ __all__ = [
 ]
 
 BACKENDS = ("compiled", "oracle", "streaming", "partitioned", "sharded")
-# backends of the JAX session not ported yet -> the ROADMAP.md item that
-# ports each
-_NOT_PORTED = {
-    "sharded": "A8",
-}
 
 
 # ----------------------------------------------------------------------
@@ -276,16 +273,20 @@ class _FusedSeedPlan:
         stats: Dict[str, int],
         unit_sel: Optional[Tuple[int, ...]] = None,
         dg=None,
+        device=None,
         coalesce: int = 1,
     ) -> torch.Tensor:
         """Dispatch the fused pass WITHOUT the final host sync: returns
         the device-resident ``(padded_n, len(unit_sel))`` int32 unit
         matrix (rows past ``len(seed_eids)`` are padding).
 
-        ``dg`` overrides the resident graph mirror (launches land on its
-        device); the unit callables are shared.  ``coalesce > 1`` merges
-        equal-width chunk runs into fatter launches
-        (:func:`executor.coalesce_widths`)."""
+        ``dg``/``device`` override the resident graph mirror and launch
+        placement: the sharded executor passes one replica and device per
+        partition (launches land on the replica's device; ``device``, when
+        given, must be of its kind).  The unit callables are shared.
+        ``coalesce > 1`` merges equal-width chunk runs into fatter
+        launches (:func:`executor.coalesce_widths`), the sharded
+        executor's dispatch-overhead knob."""
         if unit_sel is None:
             unit_sel = tuple(range(self.n_units))
         n_units = len(unit_sel)
@@ -298,6 +299,8 @@ class _FusedSeedPlan:
                     self._built[unit_sel] = fn
         g = self.g
         dg = self.dg if dg is None else dg
+        if device is not None and torch.device(device).type != dg.device.type:
+            raise ValueError(f"device {device} differs from the graph mirror's {dg.device}")
         n = len(seed_eids)
         if n == 0 or n_units == 0:
             return torch.zeros((n, n_units), dtype=torch.int32, device=dg.device)
@@ -384,6 +387,18 @@ class MiningResult:
     elements, branch items, host syncs (exactly one per compiled plan and
     one for the fused pass), staging bytes h2d/d2h, new launch shapes,
     and bucket-schedule cache hits.
+
+    Sharded mines (``backend="sharded"``) also report per-shard
+    observability: ``per_shard_seconds`` (per-shard dispatch walls,
+    measured on concurrent per-device dispatch threads, so they overlap
+    and do NOT sum to the mine wall), ``dispatch_wall_s`` (the true
+    window of the overlapped dispatch), ``gather_mode`` (``"collective"``
+    when the shards' rows were reduced on the device, ``"host"`` for the
+    time-shared ``n_parts > n_devices`` fallback), ``shard_stats`` (one
+    executor counter dict per shard), ``shard_devices`` (the device each
+    shard ran on) and ``worker_liveness``; :meth:`dispatch_overlap_ratio`
+    and :meth:`shard_balance` summarize them.  A sharded mine's
+    ``stats["host_syncs"]`` is exactly 1 in either gather mode.
     """
 
     columns: Tuple[str, ...]
@@ -400,9 +415,44 @@ class MiningResult:
     # partitioned mines: per-part walls and the partition plan
     per_part_seconds: Optional[List[float]] = None
     partition_plan: Optional[object] = None
+    per_shard_seconds: Optional[List[float]] = None
+    shard_stats: Optional[List[Dict[str, int]]] = None
+    shard_devices: Optional[Tuple[str, ...]] = None
+    dispatch_wall_s: Optional[float] = None
+    gather_mode: Optional[str] = None
+    # per-device dispatch-worker liveness (heartbeat instants, beat
+    # counts, wall medians, flagged stragglers): sharded mines only
+    worker_liveness: Optional[dict] = None
+
+    def dispatch_overlap_ratio(self) -> Optional[float]:
+        """Sum of per-shard dispatch walls over the overlapped dispatch
+        window: 1.0 means fully serialized dispatch, ``n_shards`` means
+        perfect overlap.  None unless ``backend="sharded"``."""
+        if self.per_shard_seconds is None or not self.dispatch_wall_s:
+            return None
+        return float(sum(self.per_shard_seconds) / self.dispatch_wall_s)
 
     def column(self, name: str) -> np.ndarray:
         return self.counts[:, self.columns.index(name)]
+
+    def shard_balance(self) -> Optional[Dict[str, float]]:
+        """Predicted vs achieved load balance of a sharded mine: the
+        partitioner's cost-model skew next to the realized kernel-call
+        and padded-element skews (max over shards / mean; 1.0 = perfectly
+        balanced).  None unless ``backend="sharded"``."""
+        if self.shard_stats is None or self.partition_plan is None:
+            return None
+
+        def skew(xs) -> float:
+            xs = np.asarray(xs, dtype=np.float64)
+            m = xs.mean() if xs.size else 0.0
+            return float(xs.max() / m) if m > 0 else 1.0
+
+        return {
+            "predicted_cost_skew": float(self.partition_plan.skew),
+            "kernel_call_skew": skew([s["kernel_calls"] for s in self.shard_stats]),
+            "padded_element_skew": skew([s["padded_elements"] for s in self.shard_stats]),
+        }
 
     def as_features(self) -> np.ndarray:
         """float32 feature block, one column per pattern."""
@@ -440,6 +490,12 @@ class MiningSession:
     ``kernel_backend="xla"``, which keeps its own Pallas kernel off its
     main path; this port defaults to the kernel, so its main path runs
     it.  Counts are identical either way.
+
+    ``shard_coalesce`` is the sharded backend's chunk-coalescing factor
+    (runs of up to this many equal-width chunks merge into one launch per
+    device; 1 disables), and ``shard_heartbeat_dir`` turns on file-backed
+    per-device dispatch-worker heartbeats (liveness is reported on
+    ``MiningResult.worker_liveness`` either way).
     """
 
     def __init__(
@@ -451,6 +507,8 @@ class MiningSession:
         batch_elem_cap: int = BATCH_ELEM_CAP,
         kernel_backend: str = "kernel",
         device=None,
+        shard_coalesce: int = 4,
+        shard_heartbeat_dir: Optional[str] = None,
     ):
         self.graph = graph
         self.window = window
@@ -458,6 +516,8 @@ class MiningSession:
         self.batch_elem_cap = int(batch_elem_cap)
         self.kernel_backend = kernel_backend
         self.device = resolve_device(device)
+        self.shard_coalesce = int(shard_coalesce)
+        self.shard_heartbeat_dir = shard_heartbeat_dir
         self._specs: Dict[str, PatternSpec] = {}  # name -> spec (reg. order)
         self._canon_of: Dict[str, str] = {}  # name -> canonical key
         self._members: Dict[str, PatternSpec] = {}  # key -> representative
@@ -475,6 +535,7 @@ class MiningSession:
         self._wit_compiled: Dict[str, CompiledPattern] = {}
         self._fused: Optional[_FusedSeedPlan] = None
         self._oracles: Dict[str, object] = {}  # key -> GFPReference
+        self._shard_ctx = None  # per-device graph replicas (sharded backend)
         self._analyzed = False
         # lifetime counters (mirrors CompiledPattern.stats, portfolio-wide)
         self.stats = executor.new_stats()
@@ -710,20 +771,17 @@ class MiningSession:
         """Mine the requested patterns (default: every registered one)
         over `seeds` (default: every edge) and return a MiningResult.
 
-        ``n_parts`` applies to ``"partitioned"`` (default 4).  The
-        ``"sharded"`` backend raises ``NotImplementedError`` naming its
-        ROADMAP.md item.
+        ``n_parts`` applies to the partition-based backends: default 4
+        for ``"partitioned"`` and one partition per mining device for
+        ``"sharded"`` (round-robin when it exceeds the device count; the
+        devices are the visible cards, or on the CPU the lanes of
+        :func:`repro_torch.launch.mesh.ensure_host_devices`).
 
         ``witnesses=k`` (compiled backend only) returns, per pattern and
         seed, the top-k matching edge tuples next to the counts — see
         :class:`repro_torch.witness.Witnesses`; ``result.witnesses[name]``."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
-        if backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported yet "
-                f"(ROADMAP.md, item {_NOT_PORTED[backend]})"
-            )
         if self.graph is None:
             raise ValueError("session has no graph; pass one to MiningSession()")
         if witnesses and backend != "compiled":
@@ -796,6 +854,9 @@ class MiningSession:
                 stats=stats,
             )
 
+        if backend == "sharded":
+            return self._mine_sharded(names, seeds, n_parts)
+
         # partitioned: degree-balanced parts mined in turn through the
         # SAME compiled plans (kernel caches and _vals_cache are shared,
         # so later parts build no new callables).  Reassembly scatters
@@ -832,6 +893,117 @@ class MiningSession:
             fused=fused,
             per_part_seconds=per_part,
             partition_plan=plan,
+        )
+
+    def _mine_sharded(
+        self, names: List[str], seeds: np.ndarray, n_parts: Optional[int]
+    ) -> MiningResult:
+        """One multi-device sharded pass (see :mod:`repro_torch.core.shard`):
+        cost-balanced partitions dispatched concurrently (one dispatch
+        thread per device, schedule builds overlapping device work),
+        per-device resident accumulators, a device-side cross-shard
+        reduction when partitions map 1:1 onto devices, and exactly ONE
+        blocking host sync: the fetch of the gathered result (already
+        reduced, under the collective)."""
+        from repro_torch.core import shard
+        from repro_torch.graph.partition import partition_edges
+
+        self.compile()
+        if self._shard_ctx is None:
+            self._shard_ctx = shard.ShardContext(
+                self._dg, heartbeat_dir=self.shard_heartbeat_dir
+            )
+        ctx = self._shard_ctx
+        if n_parts is None:
+            n_parts = ctx.n_devices
+        plan = partition_edges(self.graph, n_parts, edge_ids=seeds)
+
+        fused_cols = [
+            (j, n) for j, n in enumerate(names) if self._canon_of[n] in self._fused.emits
+        ]
+        unit_sel: Tuple[int, ...] = ()
+        if fused_cols:
+            unit_sel = self._fused.units_for({self._canon_of[n] for _, n in fused_cols})
+        compiled_keys: List[str] = []
+        for n in names:
+            key = self._canon_of[n]
+            if key in self._compiled and key not in compiled_keys:
+                compiled_keys.append(key)
+                cp = self._compiled[key]
+                # keep every shard's schedule resident across mines: the
+                # streaming service's sizing rule for portfolio caches
+                cp.schedule_cache_cap = max(
+                    cp.schedule_cache_cap, schedule_cache_cap_for(plan.n_parts)
+                )
+
+        coalesce = self.shard_coalesce
+
+        def launch(p, ids, dgr, device, st):
+            outs = {}
+            if fused_cols:
+                outs["__fused__"] = self._fused.launch_units(
+                    ids, st, unit_sel, dg=dgr, device=device, coalesce=coalesce
+                )
+            for key in compiled_keys:
+                outs[key] = self._compiled[key].mine_async(
+                    ids, dg=dgr, device=device, stats=st, coalesce=coalesce
+                )
+            return outs
+
+        stats = executor.new_stats()
+        t0 = time.perf_counter()
+        run = shard.run_sharded(plan, launch, ctx, stats)
+        wall = time.perf_counter() - t0
+
+        counts = np.zeros((len(seeds), len(names)), dtype=np.int64)
+        if run.gather_mode == "collective":
+            # the device sum already reduced every shard's placed rows:
+            # each output is full-length, in input order
+            host = run.host_outs
+            if fused_cols:
+                unit_vals = np.asarray(host["__fused__"], dtype=np.int64)
+                for j, n in fused_cols:
+                    counts[:, j] = self._fused.assemble(self._canon_of[n], unit_vals, unit_sel)
+            for j, n in enumerate(names):
+                key = self._canon_of[n]
+                if key in self._compiled:
+                    counts[:, j] = np.asarray(host[key], dtype=np.int64)
+        else:
+            # host gather: scatter each shard's ragged outputs through the
+            # plan's slot -> input-position map (duplicate seed ids land on
+            # their own rows)
+            for p in range(plan.n_parts):
+                rows = plan.positions[p][plan.valid[p]]
+                if len(rows) == 0:
+                    continue
+                out_p = run.host_outs[p]
+                if fused_cols:
+                    unit_vals = np.asarray(out_p["__fused__"])[: len(rows)].astype(np.int64)
+                    for j, n in fused_cols:
+                        counts[rows, j] = self._fused.assemble(self._canon_of[n], unit_vals, unit_sel)
+                for j, n in enumerate(names):
+                    key = self._canon_of[n]
+                    if key in self._compiled:
+                        counts[rows, j] = np.asarray(out_p[key], dtype=np.int64)
+        for k in stats:
+            self.stats[k] += stats[k]
+        return MiningResult(
+            columns=tuple(names),
+            counts=counts,
+            backend="sharded",
+            n_seeds=len(seeds),
+            # one shared device-parallel pass: every pattern reports the
+            # whole mine's wall (not additive across patterns or shards)
+            seconds={n: wall for n in names},
+            stats=stats,
+            fused=tuple(n for _, n in fused_cols),
+            partition_plan=plan,
+            per_shard_seconds=run.shard_walls,
+            shard_stats=run.shard_stats,
+            shard_devices=tuple(run.shard_devices),
+            dispatch_wall_s=run.dispatch_wall_s,
+            gather_mode=run.gather_mode,
+            worker_liveness=run.worker_liveness,
         )
 
     # -- streaming ------------------------------------------------------

@@ -13,7 +13,10 @@ read a ``repro`` object by class and field name — they never import
   becomes the port's classifier with the same bins, trees and margin;
 * :func:`fraudgt_from_reference` — a ``repro.ml.fraudgt.FraudGT`` with
   weights becomes the port's model with the same weights and amount
-  buckets.
+  buckets;
+* :func:`fraudgt_params_numpy` — the way back: the port's FraudGT
+  weights (after ``fit``, say) as numpy in the reference's ``params``
+  layout, for comparing trained weights.
 """
 from __future__ import annotations
 
@@ -26,7 +29,13 @@ from repro_torch.graph.csr import TemporalGraph
 from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams
 
-__all__ = ["graph_from_reference", "spec_from_reference", "gbdt_from_reference", "fraudgt_from_reference"]
+__all__ = [
+    "graph_from_reference",
+    "spec_from_reference",
+    "gbdt_from_reference",
+    "fraudgt_from_reference",
+    "fraudgt_params_numpy",
+]
 
 # classes rebuilt field by field, looked up by the reference's class name
 _SPEC_CLASSES = {
@@ -118,3 +127,32 @@ def fraudgt_from_reference(ft, device=None) -> FraudGT:
     if ft.amount_edges is not None:
         out.amount_edges = np.array(ft.amount_edges)
     return out
+
+
+def fraudgt_params_numpy(ft: FraudGT) -> dict:
+    """The port's FraudGT weights as float32 numpy arrays in the
+    reference's ``params`` layout (``emb_*``, ``blocks`` of ``norm1``,
+    ``attn``, ``norm2``, ``mlp``, then ``head`` and ``bias``)."""
+    if ft.net is None:
+        raise ValueError("the FraudGT has no weights yet (fit it or call init_params)")
+    arr = lambda x: x.detach().cpu().numpy().astype(np.float32)
+    net = ft.net
+    return {
+        "emb_amount": arr(net.emb_amount),
+        "emb_dt": arr(net.emb_dt),
+        "emb_role": arr(net.emb_role),
+        "blocks": [
+            {
+                "norm1": {"scale": arr(blk.norm1.scale)},
+                "attn": {
+                    **{k: arr(v) for k, v in blk.attn.w.items()},
+                    **{k: {"scale": arr(m.scale)} for k, m in blk.attn.norms.items()},
+                },
+                "norm2": {"scale": arr(blk.norm2.scale)},
+                "mlp": {k: arr(v) for k, v in blk.mlp.w.items()},
+            }
+            for blk in net.blocks
+        ],
+        "head": arr(net.head),
+        "bias": arr(net.bias),
+    }

@@ -36,6 +36,11 @@
 // A refused launch (shared memory, occupancy, tensor-map encoding)
 // returns its error and nothing runs; no path falls back to another.
 //
+// Training: on path A the launch can also write the rows' logsumexp, and
+// flash_attention_bwd_launch (flash_short_bwd.cuh) computes dQ, dK, dV
+// from it.  Only path A's shapes have a backward; a backward, or a
+// logsumexp, asked of another path's shape is refused.
+//
 // Path C.  A lane group of G = hd / 8 lanes holds one query row: each
 // lane keeps 8 of its dims of q and of the accumulator in registers, and
 // a score is a dot product of 8 products per lane summed across the group
@@ -52,6 +57,7 @@
 
 #include "flash_common.cuh"
 #include "flash_short.cuh"
+#include "flash_short_bwd.cuh"
 #include "flash_wgmma.cuh"
 
 #include <type_traits>
@@ -209,9 +215,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int
 }
 
 template <typename T, int HD>
-int launch_path(int path, const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h,
-                int kvh, int causal, float scale, cudaStream_t st) {
-  if (path == kShort) return flash::launch_short<T, HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+int launch_path(int path, const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s,
+                int h, int kvh, int causal, float scale, cudaStream_t st) {
+  if (path == kShort) return flash::launch_short<T, HD>(q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
   if constexpr (std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128)) {
     if (path == kWgmma) return flash::launch_wgmma<HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
   }
@@ -219,13 +225,26 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
 }
 
 template <typename T>
-int launch_hd(int path, const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h,
-              int kvh, int hd, int causal, float scale, cudaStream_t st) {
+int launch_hd(int path, const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s,
+              int h, int kvh, int hd, int causal, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_path<T, 16>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 32: return launch_path<T, 32>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 64: return launch_path<T, 64>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
-    case 128: return launch_path<T, 128>(path, q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    case 16: return launch_path<T, 16>(path, q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
+    case 32: return launch_path<T, 32>(path, q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
+    case 64: return launch_path<T, 64>(path, q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
+    case 128: return launch_path<T, 128>(path, q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_bwd_hd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+                  void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh, int hd, int causal,
+                  float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16: return flash::launch_short_bwd<T, 16>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+    case 32: return flash::launch_short_bwd<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+    case 64: return flash::launch_short_bwd<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+    case 128: return flash::launch_short_bwd<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -243,15 +262,40 @@ extern "C" int flash_attention_plan(int b, int t, int s, int h, int kvh, int hd,
   return valid(b, t, s, h, kvh, hd, dtype) ? plan(b, t, s, h, kvh, hd, dtype, causal) : -1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  lse, when
+// not null, receives the rows' float32 logsumexp in (B, H, T); only the
+// short path writes it, so another path's shape is refused with it.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int b, int t, int s, int h, int kvh,
-                                      int hd, int causal, float scale,
-                                      void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int dtype, int b, int t, int s, int h,
+                                      int kvh, int hd, int causal,
+                                      float scale, void* stream) {
   if (!valid(b, t, s, h, kvh, hd, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int path = plan(b, t, s, h, kvh, hd, dtype, causal);
-  if (dtype == 0) return launch_hd<float>(path, q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
-  return launch_hd<__nv_bfloat16>(path, q, k, v, o, b, t, s, h, kvh, hd, causal, scale, st);
+  if (lse != nullptr && path != kShort) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_hd<float>(path, q, k, v, o, lse, b, t, s, h, kvh, hd, causal, scale, st);
+  return launch_hd<__nv_bfloat16>(path, q, k, v, o, lse, b, t, s, h, kvh, hd, causal, scale, st);
+}
+
+// the query heads a backward block takes at a time at this shape (all of
+// them where one element's rows fit in shared memory); 0 if the shape is
+// not the short path's and has no backward
+extern "C" int flash_attention_bwd_chunk(int b, int t, int s, int h, int kvh, int hd, int dtype) {
+  if (!valid(b, t, s, h, kvh, hd, dtype) || plan(b, t, s, h, kvh, hd, dtype, 1) != kShort) return 0;
+  return flash::bwd_chunk_heads(t, s, h, kvh, hd);
+}
+
+// the backward of a short-path forward: dq (B, T, H, hd), dk and dv
+// (B, S, K, hd) in the inputs' dtype, from q, k, v, the forward's o and
+// lse, and the output gradient dout
+extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                                          const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                                          int dtype, int b, int t, int s, int h, int kvh, int hd, int causal,
+                                          float scale, void* stream) {
+  if (!valid(b, t, s, h, kvh, hd, dtype) || plan(b, t, s, h, kvh, hd, dtype, causal) != kShort)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_bwd_hd<float>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, hd, causal, scale, st);
+  return launch_bwd_hd<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, hd, causal, scale, st);
 }

@@ -27,6 +27,10 @@
 // whole key range as one tile: q scaled first, masked scores NEG,
 // probabilities of scores <= NEG / 2 zeroed, sums in float32, the output
 // acc / max(l, 1e-30) in q's type.
+//
+// For training, the launch may also write each row's float32 logsumexp,
+// lse = m + log(l) in (B, H, T), which the backward (flash_short_bwd.cuh)
+// recomputes the probabilities from; a null pointer writes nothing.
 #pragma once
 
 #include <atomic>
@@ -63,8 +67,8 @@ __device__ __forceinline__ void load_dims(const T* p, float* out) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kShortMaxThreads)
 flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ o, int n_b, int t_len, int s_len, int n_heads, int group,
-                       int kv_heads, int causal, float scale, int stages) {
+                       T* __restrict__ o, float* __restrict__ lse, int n_b, int t_len, int s_len,
+                       int n_heads, int group, int kv_heads, int causal, float scale, int stages) {
   constexpr int G = HD / kShortDPL;  // lanes per row
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -167,6 +171,7 @@ flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
         T* out = o + (size_t)e * q_elems + (t * n_heads + hh) * HD + sub * kShortDPL;
 #pragma unroll
         for (int c = 0; c < kShortDPL; c += 8) Io<T>::store8(out + c, acc + c);
+        if (lse != nullptr && sub == 0) lse[((size_t)e * n_heads + hh) * t_len + t] = m + logf(l);
       }
     }
     __syncthreads();  // every row is done reading stage st
@@ -175,8 +180,8 @@ flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
 }
 
 template <typename T, int HD>
-int launch_short(const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h,
-                 int kvh, int causal, float scale, cudaStream_t st) {
+int launch_short(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s,
+                 int h, int kvh, int causal, float scale, cudaStream_t st) {
   const long long stage = short_stage_bytes(t, s, h, kvh, HD, (int)sizeof(T));
   const int stages = (int)((kSmemMax - kShortHeader) / stage) < kShortStages
                          ? (int)((kSmemMax - kShortHeader) / stage)
@@ -206,8 +211,8 @@ int launch_short(const void* q, const void* k, const void* v, void* o, int b, in
     if (resident < 0xFFFF) cache.store(key | (unsigned long long)resident, std::memory_order_relaxed);
   }
   const int grid = (int)(b < resident ? b : resident);
-  kern<<<grid, threads, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, b, t, s, h, h / kvh, kvh,
-                                     causal, scale, stages);
+  kern<<<grid, threads, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, b, t, s, h, h / kvh,
+                                     kvh, causal, scale, stages);
   return (int)cudaGetLastError();
 }
 

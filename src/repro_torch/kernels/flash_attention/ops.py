@@ -25,22 +25,51 @@ FraudGT's shape), ``"wgmma"`` (bf16 at hd 64 or 128: TMA tiles and the
 tensor cores) or ``"simt"`` (the rest, on the CUDA cores).  A launch the
 card refuses raises; no path stands in for another.
 
-``launches`` counts kernel launches in this process (one per call that
-reached the card); comparisons that call the plain version do not count.
+Training (the gradient of the short path): ``flash_attention(...,
+return_lse=True)`` also returns each row's float32 logsumexp (B, H, T),
+and :func:`flash_attention_bwd` launches the hand-written backward
+(``csrc/flash_short_bwd.cuh``) on it; :class:`FlashAttentionFn` joins the
+two for autograd.  Only the short path's shapes (T, S <= 32) have a
+backward: any other shape raises ``NotImplementedError`` on either device
+(ROADMAP A13), and nothing stands in for the missing kernel.
+
+``launches`` counts forward launches in this process (one per call that
+reached the card), ``lse_launches`` those of them that wrote the
+logsumexp, and ``bwd_launches`` the backward's launches; comparisons that
+call the plain versions do not count.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 import math
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "plan", "kernel_plan", "launches", "HEAD_DIMS", "DTYPES", "PATHS"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_bwd",
+    "FlashAttentionFn",
+    "plan",
+    "kernel_plan",
+    "bwd_chunk_heads",
+    "launches",
+    "lse_launches",
+    "bwd_launches",
+    "HEAD_DIMS",
+    "DTYPES",
+    "PATHS",
+]
 
 launches = 0
+lse_launches = 0
+bwd_launches = 0
+# the sharded executor's dispatch threads launch concurrently: the
+# read-modify-write of a count is guarded
+_count_lock = threading.Lock()
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the launch's dtype code
@@ -50,9 +79,11 @@ PATHS = ("short", "wgmma", "simt")  # in the order of the .cu entry's path codes
 SHORT_MAX_LEN = 32
 SHORT_HEADER = 128  # bytes of barriers before the slabs
 SMEM_MAX = 232448  # shared memory a block can use on sm_90 (227 KB)
+NEG_LSE = -float("inf")  # the logsumexp of a row with no key (S = 0)
 ERR_TENSOR_MAP = 10001  # the wgmma path's refusal to encode a tensor map (csrc/flash_wgmma.cuh)
 
 _fn = None
+_bwd_fn = None
 
 
 def plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
@@ -75,12 +106,43 @@ def _launcher():
     if _fn is None:
         lib = build.load("flash_attention")
         fn = lib.flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_attention_plan.argtypes = [ctypes.c_int] * 8
         lib.flash_attention_plan.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_chunk.argtypes = [ctypes.c_int] * 7
+        lib.flash_attention_bwd_chunk.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def bwd_chunk_heads(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype) -> int:
+    """The query heads a backward block of the built ``.cu`` takes at a
+    time at this shape (all H where one batch element's rows fit in shared
+    memory), 0 where the shape has no backward; needs the card's toolkit."""
+    _bwd_launcher()
+    return build.load("flash_attention").flash_attention_bwd_chunk(b, t, s, h, kvh, hd, DTYPES[dtype])
+
+
+def _need_short(b, t, s, h, kvh, hd, dtype, causal, what: str) -> None:
+    path = plan(b, t, s, h, kvh, hd, dtype, causal)
+    if path != "short":
+        raise NotImplementedError(
+            f"flash_attention has no {what} at (B, T, S, H, K, hd) = {(b, t, s, h, kvh, hd)}, "
+            f"a {path!r}-path shape: only the short path (T, S <= {SHORT_MAX_LEN}) has a "
+            "hand-written backward (ROADMAP A13)"
+        )
 
 
 def kernel_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
@@ -127,33 +189,57 @@ def _check(q, k, v, causal, block_q, block_k):
     return b, t, h, hd, s, kvh
 
 
-def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128, block_k: int = 128):
+def _heads_flat(x, n):
+    """(B, n, H, hd) -> (B * H, n, hd), the plain versions' layout."""
+    b, _, h, hd = x.shape
+    return x.transpose(1, 2).reshape(b * h, n, hd)
+
+
+def _heads_back(x, b, h, n):
+    """(B * H, n, hd) -> (B, n, H, hd), contiguous."""
+    return x.reshape(b, h, n, x.shape[-1]).transpose(1, 2).contiguous()
+
+
+def flash_attention(
+    q, k, v, *, causal: bool = True, block_q: int = 128, block_k: int = 128, return_lse: bool = False
+):
     """q (B, T, H, hd); k/v (B, S, K, hd) with H % K == 0 (GQA) ->
     (B, T, H, hd): softmax(q k^T / sqrt(hd)) v per head, over keys j <= i
-    when ``causal`` (top-left aligned) and over all S keys otherwise."""
-    global launches
+    when ``causal`` (top-left aligned) and over all S keys otherwise.
+
+    ``return_lse`` returns ``(out, lse)`` with the rows' float32
+    logsumexp (B, H, T) of the scaled, masked scores, which
+    :func:`flash_attention_bwd` takes; only short-path shapes have it."""
+    global launches, lse_launches
     b, t, h, hd, s, kvh = _check(q, k, v, causal, block_q, block_k)
+    if return_lse:
+        _need_short(b, t, s, h, kvh, hd, q.dtype, causal, "backward (nor the logsumexp that feeds it)")
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
         g = h // kvh
         kk = k.repeat_interleave(g, dim=2) if g > 1 else k
         vv = v.repeat_interleave(g, dim=2) if g > 1 else v
-        flat = lambda x, n: x.transpose(1, 2).reshape(b * h, n, hd)
-        out = flash_attention_ref(flat(q, t), flat(kk, s), flat(vv, s), causal=causal)
-        return out.reshape(b, h, t, hd).transpose(1, 2).contiguous()
+        res = flash_attention_ref(
+            _heads_flat(q, t), _heads_flat(kk, s), _heads_flat(vv, s), causal=causal, return_lse=return_lse
+        )
+        if return_lse:
+            return _heads_back(res[0], b, h, t), res[1].reshape(b, h, t)
+        return _heads_back(res, b, h, t)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
         raise ValueError("flash_attention reads 16-byte vectors; an input is misaligned")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0 or s == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(NEG_LSE)) if return_lse else out
     fn = _launcher()
     dev = q.get_device()
-    args = (qp, kp, vp, out.data_ptr(), DTYPES[q.dtype], b, t, s, h, kvh, hd, 1 if causal else 0,
-            _SCALE[hd])
+    args = (qp, kp, vp, out.data_ptr(), None if lse is None else lse.data_ptr(), DTYPES[q.dtype],
+            b, t, s, h, kvh, hd, 1 if causal else 0, _SCALE[hd])
     # the raw handle of the current stream, without building a Stream object
     # (this call sits on FraudGT's path 3,012 times a predict)
     if dev == torch.cuda.current_device():
@@ -165,5 +251,82 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128, block_k
         path = plan(b, t, s, h, kvh, hd, q.dtype, causal)
         what = "a tensor map could not be encoded" if err == ERR_TENSOR_MAP else f"CUDA error {err}"
         raise RuntimeError(f"flash_attention launch failed on the {path!r} path: {what}")
-    launches += 1
-    return out
+    with _count_lock:
+        launches += 1
+        if return_lse:
+            lse_launches += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
+    """The gradients of :func:`flash_attention` at a short-path shape: from
+    q (B, T, H, hd), k and v (B, S, K, hd), the forward's output o and
+    logsumexp lse (B, H, T), and the output gradient do (B, T, H, hd) ->
+    (dq, dk, dv) in q's dtype, dk and dv summed over each GQA group.  On
+    the card one launch of the hand-written backward; on the CPU its plain
+    version.  Another shape raises ``NotImplementedError`` (ROADMAP A13)."""
+    global bwd_launches
+    b, t, h, hd, s, kvh = _check(q, k, v, causal, 128, 128)
+    _need_short(b, t, s, h, kvh, hd, q.dtype, causal, "backward")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be q's shape {tuple(q.shape)} and dtype {q.dtype}")
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 ({b}, {h}, {t}), got {lse.dtype} {tuple(lse.shape)}")
+    if any(x.device != q.device for x in (o, do, lse)):
+        raise ValueError("flash_attention_bwd inputs must share one device")
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
+        g = h // kvh
+        kk = k.repeat_interleave(g, dim=2) if g > 1 else k
+        vv = v.repeat_interleave(g, dim=2) if g > 1 else v
+        dq, dk, dv = flash_attention_bwd_ref(
+            _heads_flat(q, t), _heads_flat(kk, s), _heads_flat(vv, s), _heads_flat(o, t), _heads_flat(do, t),
+            lse.reshape(b * h, t), causal=causal,
+        )
+        # per query head -> per kv head: the sum over each group
+        fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(dim=2).transpose(1, 2).contiguous().to(q.dtype)
+        return _heads_back(dq, b, h, t), fold(dk.float()), fold(dv.float())
+    tensors = (q, k, v, o, do, lse)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("flash_attention_bwd takes contiguous tensors")
+    if any(x.data_ptr() % 16 for x in tensors[:5]):
+        raise ValueError("flash_attention_bwd reads 16-byte vectors; an input is misaligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or s == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    fn = _bwd_launcher()
+    dev = q.get_device()
+    args = (*(x.data_ptr() for x in tensors), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype],
+            b, t, s, h, kvh, hd, 1 if causal else 0, _SCALE[hd])
+    if dev == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    with _count_lock:
+        bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal or full attention through the kernels both ways: the forward
+    launch writes the row logsumexp, the backward is
+    :func:`flash_attention_bwd`.  ``FlashAttentionFn.apply(q, k, v,
+    causal)``; shapes off the short path raise ``NotImplementedError``
+    before anything runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse, causal=ctx.causal)
+        return dq, dk, dv, None

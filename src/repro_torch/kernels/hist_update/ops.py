@@ -24,6 +24,7 @@ entry alone; comparisons that call the plain versions do not count.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -38,6 +39,9 @@ from repro_torch.kernels.hist_update.ref import (
 __all__ = ["hist_update", "hist_update_rows", "error_bound", "error_bound_rows", "launches", "rows_launches"]
 
 launches = 0
+# the sharded executor's dispatch threads launch concurrently: the
+# read-modify-write of a count is guarded
+_count_lock = threading.Lock()
 rows_launches = 0
 
 _fns = {}
@@ -118,7 +122,8 @@ def _launch(name, argtypes, tensors, scalars, n_segments, device):
                  max_bits.data_ptr(), acc.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hist_update launch ({name}) failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 
@@ -155,7 +160,8 @@ def hist_update_rows(xb, node, gh, n_nodes: int, n_bins: int):
     if n == 0 or s == 0:
         return torch.zeros((n_nodes, f, n_bins, 2), dtype=torch.float32, device=xb.device)
     out = _launch("hist_update_rows_launch", _ROWS_ARGS, (xb, node, gh), (n, f, n_bins), s, xb.device)
-    rows_launches += 1
+    with _count_lock:
+        rows_launches += 1
     return out.reshape(n_nodes, f, n_bins, 2)
 
 

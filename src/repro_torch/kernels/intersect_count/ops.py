@@ -35,6 +35,7 @@ reached the card); comparisons that call the plain version do not count.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -44,6 +45,9 @@ from repro_torch.kernels.intersect_count.ref import intersect_count_ref
 __all__ = ["intersect_count", "plan", "kernel_plan", "launches", "MAX_TILE_SUM", "PATHS"]
 
 launches = 0
+# the sharded executor's dispatch threads launch concurrently: the
+# read-modify-write of a count is guarded
+_count_lock = threading.Lock()
 # the widest tiles the kernel takes: the block path stages a fixed row's
 # keys (8 bytes a slot, padded to a power of two) in shared memory
 MAX_TILE_SUM = 6144
@@ -193,5 +197,6 @@ def intersect_count(
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"intersect_count launch failed on the {plan(b, da, db)!r} path: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

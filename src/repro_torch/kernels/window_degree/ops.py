@@ -17,6 +17,7 @@ reached the card); comparisons that call the plain version do not count.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,9 @@ __all__ = ["window_degree", "PAD_T", "launches"]
 PAD_T = -(2**31)
 
 launches = 0
+# the sharded executor's dispatch threads launch concurrently: the
+# read-modify-write of a count is guarded
+_count_lock = threading.Lock()
 
 _fn = None
 
@@ -74,5 +78,6 @@ def window_degree(t, lo, hi):
         err = fn(t.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), b, d, stream)
     if err != 0:
         raise RuntimeError(f"window_degree launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -1,18 +1,21 @@
-"""FraudGT-style graph-transformer baseline (paper §8.5, Table 4/Fig 12):
-the serving half, on the card.
+"""FraudGT-style graph-transformer baseline (paper §8.5, Table 4/Fig 12),
+on the card.
 
 Each transaction edge is classified by a small transformer over its
 *local temporal context*: the edge itself plus the nearest-in-time
 transactions of its two endpoints, embedded by bucketized (amount, Δt,
 role) features.  This is the port of the JAX package's
 ``repro.ml.fraudgt``: :meth:`FraudGT.tokenize` gives the reference's
-tokens bit for bit, and :meth:`FraudGT.predict_proba` runs the
-transformer (:mod:`repro_torch.models.layers`) on the card, every block's
-attention through the hand-written CUDA ``flash_attention``.
+tokens bit for bit, :meth:`FraudGT.fit` trains it by the reference's
+rules (weighted BCE, AdamW, seeded permutations) and
+:meth:`FraudGT.predict_proba` scores with it.  The transformer
+(:mod:`repro_torch.models.layers`) runs on the card, every block's
+attention through the hand-written CUDA ``flash_attention``, and in
+training through its hand-written short-path backward as well.
 
-Training is not ported yet (ROADMAP A10): :meth:`FraudGT.fit` raises.
-Weights come from the seeded init (:meth:`FraudGT.init_params`) or from a
-trained JAX model (:func:`repro_torch.convert.fraudgt_from_reference`).
+Weights come from the seeded init (:meth:`FraudGT.init_params`), from
+:meth:`FraudGT.fit`, or from a JAX model
+(:func:`repro_torch.convert.fraudgt_from_reference`).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch import nn
 
 from repro_torch.configs.registry import get_config
 from repro_torch.device import DeviceLike, h2d, resolve_device, to_host
+from repro_torch.distributed.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.graph.csr import TemporalGraph
 from repro_torch.models import layers as L
 
@@ -79,7 +83,10 @@ class _Net(nn.Module):
         self.bias = L._param(p["bias"], device)
 
     def forward(self, am, dt, ro):
-        x = F.embedding(am, self.emb_amount) + F.embedding(dt, self.emb_dt) + F.embedding(ro, self.emb_role)
+        # index_select, not F.embedding: its gradient is an index_add_,
+        # where embedding's backward on the card syncs the host
+        emb = lambda w, i: w.index_select(0, i.reshape(-1)).reshape(*i.shape, w.shape[1])
+        x = emb(self.emb_amount, am) + emb(self.emb_dt, dt) + emb(self.emb_role, ro)
         for blk in self.blocks:
             x = blk(x)
         return x.mean(dim=1) @ self.head + self.bias
@@ -185,6 +192,8 @@ class FraudGT:
         self.amount_edges: Optional[np.ndarray] = None
         self._index: Optional[_ContextIndex] = None
         self.seconds: dict = {}  # of the last predict_proba: tokenize, forward
+        self.fit_seconds: dict = {}  # of the last fit: tokenize, train; its steps
+        self.losses: Optional[torch.Tensor] = None  # each step's loss, on the device
 
     # ------------------------------------------------------------------
     def init_params(self) -> "FraudGT":
@@ -303,12 +312,55 @@ class FraudGT:
                 out[s : s + CHUNK] = self.net(*(x[s : s + CHUNK] for x in toks))
         return out
 
-    def fit(self, g: TemporalGraph, labels: np.ndarray, train_ids: np.ndarray):
-        raise NotImplementedError(
-            "FraudGT.fit is not ported yet (ROADMAP A10: AdamW and a backward "
-            "through the flash_attention kernel); carry a trained JAX model "
-            "across with repro_torch.convert.fraudgt_from_reference"
-        )
+    def fit(self, g: TemporalGraph, labels: np.ndarray, train_ids: np.ndarray) -> "FraudGT":
+        """Train on the edges ``train_ids`` by the reference's rules: the
+        positive class weighted by ``p.pos_weight`` or by negatives over
+        positives, the weighted BCE ``softplus(logit) - y * logit``
+        averaged over a batch, ``p.epochs`` passes in the orders of
+        ``np.random.default_rng(0)`` permutations with the trailing
+        partial batch dropped, and AdamW (``lr=p.lr``,
+        ``weight_decay=0.01``) over every weight.
+
+        The tokens and labels go to the device once, and each batch is
+        indexed there; a step makes no host sync (each step's loss stays
+        on the device, in ``self.losses``).  The weights are updated in
+        place."""
+        if self.net is None:
+            self.init_params()
+        p = self.p
+        t0 = time.perf_counter()
+        pos = float(labels[train_ids].sum())
+        pw = p.pos_weight or (len(train_ids) - pos) / max(pos, 1.0)
+        am, dt, ro = self.tokenize(g, train_ids)
+        y = labels[train_ids].astype(np.float32)
+        t1 = time.perf_counter()
+        dev = self.device
+        toks = [h2d(np.asarray(a, dtype=np.int32), dev) for a in (am, dt, ro)]
+        y_dev = h2d(y, dev)
+        params = dict(self.net.named_parameters())
+        names = list(params)
+        weights = [params[k] for k in names]
+        opt = adamw_init(params)
+        ocfg = AdamWConfig(lr=p.lr, weight_decay=0.01)
+        rng = np.random.default_rng(0)
+        n = len(train_ids)
+        losses = []
+        for _ in range(p.epochs):
+            order = h2d(rng.permutation(n), dev)
+            for s in range(0, n - p.batch + 1, p.batch):
+                idx = order[s : s + p.batch]
+                yb = y_dev.index_select(0, idx)
+                logit = self.net(*(x.index_select(0, idx) for x in toks))
+                w = torch.where(yb > 0.5, pw, 1.0)
+                loss = torch.mean(w * (F.softplus(logit) - yb * logit))  # BCE with logits
+                grads = torch.autograd.grad(loss, weights)
+                new, opt, _ = adamw_update(params, dict(zip(names, grads)), opt, ocfg)
+                with torch.no_grad():
+                    torch._foreach_copy_(weights, [new[k] for k in names])
+                losses.append(loss.detach())
+        self.losses = torch.stack(losses) if losses else torch.zeros(0, device=dev)
+        self.fit_seconds = {"tokenize": t1 - t0, "train": time.perf_counter() - t1, "steps": len(losses)}
+        return self
 
     def predict_proba(self, g: TemporalGraph, eids: np.ndarray) -> np.ndarray:
         """(B,) float32 probabilities; the one host copy is at the end."""

@@ -11,7 +11,12 @@ and :class:`MLP` hold the same dicts as ``nn.Module`` parameters.
 Attention has two backends: ``"kernel"`` runs the hand-written CUDA
 ``flash_attention`` (the plain version on the CPU), ``"torch"`` is the
 counterpart of the reference's XLA ``_sdpa`` (the whole score matrix,
-explicit ops).  Neither chunks the queries above the reference's
+explicit ops).  Under autograd (grad enabled and an input that requires
+it) the kernel backend goes through
+:class:`~repro_torch.kernels.flash_attention.ops.FlashAttentionFn`, whose
+backward is the hand-written short-path backward kernel; the torch
+backend is differentiated by autograd, as the reference's fit
+differentiates ``_sdpa``.  Neither chunks the queries above the reference's
 ``Q_CHUNK`` (1024): the kernel never forms the score matrix, and the
 torch backend forms it whole.  Sliding-window attention, decode against a KV
 cache and MoE are not ported (ROADMAP A12).
@@ -158,7 +163,10 @@ def attn_apply(p, x, cfg: ModelConfig, positions=None, backend: str = "kernel"):
         positions = torch.arange(t, dtype=torch.int32, device=x.device)[None, :].expand(b, t)
     q, k, v = _qkv(p, x, cfg, positions)
     if backend == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=True)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            out = fa_ops.FlashAttentionFn.apply(q, k, v, True)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=True)
     else:
         j = torch.arange(t, device=x.device)
         out = _sdpa(q.reshape(b, t, kv, h // kv, hd), k, v, j[None, :] <= j[:, None])

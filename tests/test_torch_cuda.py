@@ -3,9 +3,11 @@ hist_update's two entries, window_degree, flash_attention) against their
 plain PyTorch versions (hist_update also bit for bit against its plain
 fixed-point replay, at every cluster size), a portfolio mine on the card
 against the same mine on the CPU, a GBDT fit on the card against the same
-fit on the CPU, FraudGT's logits on the card against the CPU port's, and
+fit on the CPU, FraudGT's logits on the card against the CPU port's,
 witness extraction and evidence-carrying alerts on the card against the
-CPU port's.
+CPU port's, the short-path attention backward against its plain version,
+a sharded mine on the card against the compiled mine, and a FraudGT fit
+on the card that makes no host sync.
 Every test skips itself where there is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -33,7 +35,7 @@ from repro_torch.kernels.hist_update import ops as hu_ops
 from repro_torch.kernels.hist_update.ref import row_keys
 from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degree_ref
 from repro_torch.kernels.window_degree import ops as wd_ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
@@ -488,3 +490,134 @@ def test_evidence_service_on_card_equals_cpu(cuda):
         n_evidence += sum(len(ev) for ev in got.evidence)
     assert ic_ops.launches > 0 and n_evidence > 0
     assert on_card.stats == on_cpu.stats and on_card.stats["host_syncs"] > on_card.tick
+
+
+# (B, T, S, H, K, hd, causal, dtype): every short shape of the forward's
+# cases above, FraudGT's training shape (B = 256), the whole rows of one
+# element at exactly the block's shared-memory limit (T = S = 32, H = 12,
+# K = 1, hd 64), whole kv groups taken in chunks (bf16, H = K = 4,
+# hd 128) and one group taken in parts whose dK and dV sums carry over
+# (bf16, H = 16, K = 1, hd 64)
+BWD_CASES = [
+    (1024, 17, 17, 8, 8, 16, True, "float32"),
+    (1000, 20, 12, 8, 2, 16, True, "float32"),
+    (1001, 17, 17, 8, 2, 32, False, "bfloat16"),
+    (5003, 17, 17, 8, 8, 16, True, "float32"),
+    (37, 32, 32, 2, 2, 128, True, "float32"),
+    (9, 32, 32, 2, 1, 64, False, "bfloat16"),
+    (3, 1, 1, 8, 8, 16, True, "float32"),
+    (256, 17, 17, 8, 8, 16, True, "float32"),
+    (2, 32, 32, 12, 1, 64, True, "float32"),
+    (5, 32, 32, 4, 4, 128, True, "bfloat16"),
+    (3, 32, 32, 16, 1, 64, True, "bfloat16"),
+]
+
+
+def _bwd_case(b, t, s, h, kvh, hd, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [
+        torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dt).to(device)
+        for shape in ((b, t, h, hd), (b, s, kvh, hd), (b, s, kvh, hd), (b, t, h, hd))
+    ]
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal,dtype", BWD_CASES)
+def test_flash_attention_bwd_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype):
+    """The backward kernel against its plain version on the same inputs
+    (the forward kernel's o and lse), within 1e-5 in float32 (2e-2
+    relative and absolute in bfloat16, the forward's bound: one rounding
+    of the output), and bit-identical across two launches (no atomics)."""
+    q, k, v, do = _bwd_case(b, t, s, h, kvh, hd, dtype, b + t + s + hd, cuda)
+    before = (fa_ops.launches, fa_ops.lse_launches, fa_ops.bwd_launches)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert (fa_ops.launches, fa_ops.lse_launches, fa_ops.bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    # the plain version in float32 on the same (upcast) values, dk and dv
+    # summed over each group before the one rounding to the output type
+    g = h // kvh
+    flat = lambda x, n: x.float().transpose(1, 2).reshape(-1, n, hd)
+    want = flash_attention_bwd_ref(
+        flat(q, t), flat(k.repeat_interleave(g, 2), s), flat(v.repeat_interleave(g, 2), s), flat(o, t),
+        flat(do, t), lse.reshape(-1, t), causal=causal)
+    fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
+    want = (want[0].reshape(b, h, t, hd).transpose(1, 2), fold(want[1]), fold(want[2]))
+    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (0.0, 1e-5)
+    for name, x, y, z in zip("qkv", got, again, want):
+        assert x.dtype == q.dtype and torch.equal(x, y), name
+        torch.testing.assert_close(x.float(), z, rtol=rtol, atol=atol, msg=name)
+    assert fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype) >= 1
+
+
+def test_flash_attention_bwd_off_the_short_path_raises(cuda):
+    q = torch.zeros(1, 40, 2, 16, device=cuda)
+    assert fa_ops.bwd_chunk_heads(1, 40, 40, 2, 2, 16, torch.float32) == 0
+    with pytest.raises(NotImplementedError, match="A13"):
+        fa_ops.flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 40, device=cuda))
+
+
+def _small_graph(seed=11, n_nodes=18, n_edges=140, t_max=256):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % n_nodes
+    return build_temporal_graph(src, dst, rng.integers(0, t_max, n_edges), n_nodes=n_nodes)
+
+
+@pytest.mark.parametrize("n_parts,mode", [(1, "collective"), (3, "host")])
+def test_sharded_mine_on_card_equals_compiled(cuda, n_parts, mode):
+    """One card: partitions time-share it (host gather) or map onto it one
+    to one (the device-side sum), one host sync either way, counts equal
+    to the compiled mine, the per-shard stats summing to the totals."""
+    g = _small_graph()
+    session = MiningSession(g, window=96).register(*feature_pattern_set("full"))
+    base = session.mine()
+    seeds = np.array([5, 5, 7, 11, 2, 9, 0, 130], dtype=np.int32)
+    base_seeds = session.mine(seeds=seeds)
+    before = ic_ops.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = session.mine(backend="sharded", n_parts=n_parts)
+        dup = session.mine(seeds=seeds, backend="sharded", n_parts=n_parts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ic_ops.launches > before
+    np.testing.assert_array_equal(res.counts, base.counts)
+    np.testing.assert_array_equal(dup.counts, base_seeds.counts)
+    for r in (res, dup):
+        assert r.gather_mode == mode and r.stats["host_syncs"] == 1
+        assert set(r.shard_devices) == {"cuda:0"}
+        for key in ("kernel_calls", "padded_elements", "bytes_h2d"):
+            assert r.stats[key] == sum(st[key] for st in r.shard_stats), key
+
+
+def test_fraudgt_fit_on_card_makes_no_host_sync(cuda):
+    """A fit on the card under set_sync_debug_mode("error"): every step's
+    attention runs through the forward (with lse) and backward kernels,
+    and the losses, read after, are finite."""
+    rng = np.random.default_rng(3)
+    n = 1200
+    src = rng.integers(0, 60, n).astype(np.int32)
+    dst = rng.integers(0, 60, n).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % 60
+    g = build_temporal_graph(src, dst, rng.integers(0, 4096, n), rng.lognormal(5, 1, n), n_nodes=60)
+    labels = (rng.random(n) < 0.1).astype(np.float32)
+    p = FraudGTParams(d_model=64, n_layers=2, n_heads=4, batch=64, epochs=2)
+    ft = FraudGT(p, seed=2)
+    ids = np.arange(1000)
+    before = (fa_ops.lse_launches, fa_ops.bwd_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ft.fit(g, labels, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = p.epochs * (len(ids) // p.batch)
+    assert ft.fit_seconds["steps"] == steps
+    assert (fa_ops.lse_launches - before[0], fa_ops.bwd_launches - before[1]) == (
+        p.n_layers * steps, p.n_layers * steps)
+    losses = ft.losses.cpu().numpy()
+    assert losses.shape == (steps,) and np.isfinite(losses).all()
+    proba = ft.predict_proba(g, np.arange(1000, n))
+    assert np.isfinite(proba).all() and proba.std() > 0

@@ -6,7 +6,12 @@ longer has), so its oracle ``flash_attention_ref``, with the JAX
 wrapper's repeat of the K/V heads, stands for it.  Also: causal
 attention over fewer keys than queries, the launch count, what the
 wrapper refuses, and the path (``ops.plan``) each shape takes on the
-card."""
+card.  The backward of the short path: its plain version
+(``flash_attention_bwd_ref``, explicit math) against torch autograd of the
+plain forward and against ``jax.vjp`` of the reference's XLA attention
+(``repro.models.layers._sdpa``, what the JAX fit differentiates), and
+``FlashAttentionFn`` against both."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +19,7 @@ import torch
 from tests.hypothesis_compat import given, settings, st
 
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro.models.layers import _sdpa as jax_sdpa
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -166,7 +172,7 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
     """The flash_attention source includes its path headers; the library's
     name changes when a header does, so an edited header rebuilds."""
     assert [p.name for p in build.sources("flash_attention")] == [
-        "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_wgmma.cuh"]
+        "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_short_bwd.cuh", "flash_wgmma.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")
@@ -175,3 +181,78 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
     before = build.library_path("k")
     (tmp_path / "b.cuh").write_text("int b = 2;\n")
     assert build.library_path("k") != before
+
+
+# (B, T, S, H, K, hd, causal): FraudGT's training shape at a few edges,
+# GQA, T > S (causal rows i >= S see all S keys), one key, hd 64, and a
+# grid of heads that is not a power of two
+BWD_SHAPES = [
+    (4, 17, 17, 8, 8, 16, True),
+    (3, 17, 17, 8, 2, 32, False),
+    (2, 20, 12, 8, 2, 16, True),
+    (2, 32, 32, 2, 1, 64, False),
+    (3, 1, 1, 8, 8, 16, True),
+    (2, 5, 7, 6, 3, 16, False),
+]
+
+
+def _bwd_inputs(b, t, s, h, kvh, hd, seed):
+    q, k, v = _inputs(b, t, s, h, kvh, hd, seed)
+    do = np.random.default_rng(seed + 1).normal(size=(b, t, h, hd)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_grads(q, k, v, do, causal):
+    """jax.vjp of the reference's XLA attention at the cotangent do."""
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    j, i = np.arange(s)[None, :], np.arange(t)[:, None]
+    mask = jnp.asarray(j <= i if causal else np.ones((t, s), bool))
+
+    def f(q, k, v):
+        return jax_sdpa(q.reshape(b, t, kvh, h // kvh, hd), k, v, mask).reshape(b, t, h, hd)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES)
+def test_bwd_plain_equals_autograd_and_jax(b, t, s, h, kvh, hd, causal):
+    q, k, v, do = _bwd_inputs(b, t, s, h, kvh, hd, seed=b + t + s + hd)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    assert lse.shape == (b, h, t) and lse.dtype == torch.float32
+    out.backward(torch.from_numpy(do))  # autograd through the plain forward
+    before = fa_ops.bwd_launches
+    plain = fa_ops.flash_attention_bwd(
+        *(torch.from_numpy(x) for x in (q, k, v)), out.detach(), torch.from_numpy(do), lse.detach(), causal=causal
+    )
+    assert fa_ops.bwd_launches == before  # the CPU takes the plain version
+    want = _jax_grads(q, k, v, do, causal)
+    for name, got, auto, ref in zip("qkv", plain, (tq.grad, tk.grad, tv.grad), want):
+        assert got.shape == auto.shape == ref.shape, name
+        np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=0, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES[:3])
+def test_flash_attention_fn_gradients(b, t, s, h, kvh, hd, causal):
+    q, k, v, do = _bwd_inputs(b, t, s, h, kvh, hd, seed=7)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fa_ops.FlashAttentionFn.apply(*leaves, causal)
+    np.testing.assert_allclose(out.detach().numpy(), _jax(q, k, v, causal, jnp.float32), rtol=2e-5, atol=2e-5)
+    out.backward(torch.from_numpy(do))
+    for name, leaf, ref in zip("qkv", leaves, _jax_grads(q, k, v, do, causal)):
+        np.testing.assert_allclose(leaf.grad.numpy(), ref, rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_bwd_off_the_short_path_raises():
+    """No backward kernel for T or S > 32: the wrapper and the autograd
+    Function raise, on the CPU as on the card, and run no plain version."""
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(1, 40, 40, 2, 2, 16, seed=3))
+    with pytest.raises(NotImplementedError, match="A13"):
+        flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(NotImplementedError, match="A13"):
+        fa_ops.flash_attention_bwd(q, k, v, q, do, torch.zeros(1, 2, 40), causal=True)
+    with pytest.raises(NotImplementedError, match="A13"):
+        fa_ops.FlashAttentionFn.apply(q.requires_grad_(), k, v, True)

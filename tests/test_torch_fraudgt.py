@@ -110,7 +110,11 @@ def test_seeded_init_and_fit_raises(hi_small):
     ref._init()
     want = sorted(tuple(x.shape) for x in jax.tree_util.tree_leaves(ref.params))
     assert sorted(tuple(x.shape) for x in a.net.parameters()) == want
-    with pytest.raises(NotImplementedError, match="A10"):
-        a.fit(g, np.zeros(g.n_edges), eids)
+    # fit is ported (A10): 40 edges make no full batch of 256, so no step
+    # runs and the seeded weights stay
+    before = [x.detach().clone() for x in a.net.parameters()]
+    a.fit(g, np.zeros(g.n_edges), eids)
+    assert a.fit_seconds["steps"] == 0
+    assert all(torch.equal(x, y) for x, y in zip(before, a.net.parameters()))
     with pytest.raises(ValueError, match="no weights"):
         fraudgt_from_reference(JaxFraudGT(JaxParams(d_model=32, n_layers=1, n_heads=2)), device="cpu")

@@ -111,8 +111,14 @@ def test_pipeline_matches_jax(datasets, jax_full_features, feature_set):
 
 def test_pipeline_backends_and_device(datasets, monkeypatch):
     port = datasets[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A8"):
-        run_aml_pipeline(port, "fan", backend="sharded", device="cpu")
+    # the sharded backend (ported with ROADMAP A8) mines the same columns
+    # and so fits the same trees as the compiled one
+    params = GBDTParams(n_trees=TREES)
+    sharded = run_aml_pipeline(port, "fan", params=params, backend="sharded", device="cpu")
+    compiled = run_aml_pipeline(port, "fan", params=params, device="cpu")
+    np.testing.assert_array_equal(sharded.mining.counts, compiled.mining.counts)
+    assert sharded.mining.backend == "sharded" and sharded.mining.stats["host_syncs"] == 1
+    assert sharded.f1 == compiled.f1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_aml_pipeline(port, "xgb_only")

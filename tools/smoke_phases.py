@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Run some of ``chip_smoke.py``'s later phases alone on one CUDA card, at
+the full size or with their cuts lifted.
+
+    python3 tools/smoke_phases.py --phases bwd,sharded,fit
+    python3 tools/smoke_phases.py --phases fit --fit-rows 0   # every training edge
+
+Builds the kernels, prints the card line, and runs, in order:
+
+- ``bwd``: phase 2's short-path backward cases (``FA_BWD_CASES``) against
+  their plain version, timed beside their bound and SDPA's backward;
+- ``sharded``: phase 3's cold mine of the 9 ``"full"`` patterns over
+  HI-Small (``--scale``, 282 by default), then phase 15 (the sharded
+  mines against its rows, ``repro_torch.launch.mine`` once);
+- ``fit``: phase 16 (FraudGT trained for one epoch on the first
+  ``--fit-rows`` training edges, 0 for all of them; threshold, F1, the
+  profile of a few steps), then the backward kernel at the fit's first
+  launch.
+
+Every check of the phases holds as in ``chip_smoke.py``.  Prints each
+phase's wall and writes the phases' records to ``--out`` (default
+``build/smoke_phases.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="bwd,sharded,fit")
+    ap.add_argument("--scale", type=float, default=282.0)
+    ap.add_argument("--fit-rows", type=int, default=None, help="training edges of the fit (0: all)")
+    ap.add_argument("--out", default=str(ROOT / "build" / "smoke_phases.json"))
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("smoke_phases.py: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.api import MiningSession
+    from repro_torch.core.patterns import feature_pattern_set
+    from repro_torch.data.synth_aml import generate_aml_dataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    if args.fit_rows is not None:
+        cs.FGT_FIT_ROWS = args.fit_rows or None
+    with concurrent.futures.ThreadPoolExecutor(len(cs.KERNELS)) as pool:
+        list(pool.map(build.load, cs.KERNELS))
+    report = {"card": cs.card_line(), "walls_s": {}}
+    print(report["card"], flush=True)
+
+    def zero():
+        ic_ops.launches = fa_ops.launches = fa_ops.lse_launches = fa_ops.bwd_launches = 0
+
+    def read():
+        return {"intersect_count": ic_ops.launches, "flash_attention": fa_ops.launches,
+                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        report["walls_s"][name] = time.perf_counter() - t0
+        print(f"{name}: {report['walls_s'][name]:.1f} s", flush=True)
+        return out
+
+    if "bwd" in phases:
+        timed("bwd", lambda: cs.phase_flash_attention_bwd(torch.device("cuda"), report))
+    ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale)
+    if "sharded" in phases:
+        session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
+        counts = timed("cold_mine", lambda: session.mine().counts)
+        timed("sharded", lambda: cs.phase_sharded(session, ds.graph, counts, report, zero, read))
+    if "fit" in phases:
+        _, (q, k, v, o, do, lse, causal) = timed("fit", lambda: cs.phase_fraudgt_fit(ds, report, zero, read))
+        report["flash_attention_bwd_path_shape"] = cs.fa_bwd_row(q, k, v, do, causal, 50, o=o, lse=lse)
+        print("kernel timing: flash_attention_bwd on the FraudGT training path "
+              + json.dumps(report["flash_attention_bwd_path_shape"]), flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1, default=str))
+    print(report["card"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
