@@ -36,7 +36,8 @@ Phases, in order; any failure exits non-zero:
    GQA, and long bfloat16 shapes on the wgmma path (causal and not, hd 64
    and 128, ragged tiles); each row logs the path ``ops.plan`` picked,
    which must be the ``.cu`` entry's, and both the short and the wgmma
-   path must be reached; the short path's backward (``flash_attention_bwd``,
+   path must be reached (the wgmma path also at qwen2-1.5b's prefill
+   launch, 12 query heads over 2 kv heads); the short path's backward (``flash_attention_bwd``,
    on the forward kernel's output and logsumexp) within 1e-5 (float32) or
    2e-2 relative and absolute (bfloat16) of its plain version and
    bit-identical across two launches, at FraudGT's training and inference
@@ -93,9 +94,10 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-16 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-17 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
-   of phase 16's first backward launch, after phase 16):
+   of phase 16's first backward launch, after phase 16; the LM's
+   ``flash_attention`` keys after phase 17):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
    three random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
@@ -166,7 +168,7 @@ Phases, in order; any failure exits non-zero:
    ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
    --pattern scatter_gather --parts 4 --scale 28`` once, in process.
 16. FraudGT training — ``FraudGT(FraudGTParams(epochs=1)).fit`` (d_model
-   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 1,048,576
+   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 655,360
    edges of the HI-Small training split under
    ``set_sync_debug_mode("error")``: the forward launches with the
    logsumexp and the backward launches each equal n_layers * steps, every
@@ -174,6 +176,33 @@ Phases, in order; any failure exits non-zero:
    (``benchmarks/bench_fraudgt.py``), the 1,027,527 test edges scored:
    probabilities not constant, F1 > 0, printed beside phase 5's.  Then 32
    steps of a second fit under ``torch.profiler``.
+17. LM — the LM scaffold's serving path at qwen2-1.5b's published width
+   (28 layers, d_model 1,536, 12 query and 2 kv heads of 128, vocab
+   151,936, float32 weights drawn on the card with the data seed, bf16
+   activations): (a) ``forward`` over 4 x 2,048 tokens, the counts zeroed
+   just before and read just after: exactly 28 ``flash_attention``
+   launches, on the path ``ops.plan`` and the ``.cu`` name ``"wgmma"``,
+   finite logits; the prefill's wall, tokens/s, peak memory, its device
+   profile, and the ``"torch"`` backend's max |diff| and argmax agreement
+   beside it; both backends' bf16 logits against the float32 forward of
+   the first sequence, the kernel's mean |diff| within 1.25 x the torch
+   backend's; the first launch then checked (per row, relative to the
+   row's scale) and timed (events,
+   ``torch.profiler``, plain, SDPA, bound), the kernels line's
+   ``lm_*`` keys; (b) in float32, ``forward`` over 1,024 tokens on both
+   attention backends within 1e-3, and decode against forward over
+   2 x 12 tokens within 2e-3; (c) ``repro_torch.launch.decode_lm.generate``
+   serving 4 requests (prompt 16, 32 new tokens, cache 49) twice with
+   identical tokens, then once at each realistic cache (4 requests at
+   32,768 slots, 32 at 4,096): wall, tokens/s, ms a step, and 8 decode
+   steps timed and under ``torch.profiler`` (device busy share); (d) every registry architecture's smoke config in
+   float32 on the card: forward logits and ``loss_fn`` equal to the CPU
+   port's within 1e-4, ``flash_attention`` launched for every attention
+   block, decode equal to forward within 2e-3 for the five architectures
+   of ``tests/test_models.py::test_decode_matches_forward``, and the
+   mixtral ring buffer past its window on the ``"torch"`` backend; (e)
+   ``python -m repro_torch.launch.decode_lm --arch qwen2-1.5b --batch 4
+   --prompt-len 16 --gen 32`` in process, whose tokens equal (c)'s.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -243,7 +272,8 @@ L2_FLUSH_BYTES = 256 << 20
 # 0-7 in phase_flash_attention and put after them), causal T > S with S
 # unaligned, FraudGT's shape (the short path), the short path with GQA in
 # bf16, and the wgmma path: a long bf16 shape causal and not, at hd 64,
-# and with ragged tiles (1,000 rows and keys)
+# with ragged tiles (1,000 rows and keys), and qwen2-1.5b's prefill launch
+# (phase 17: 12 query heads over 2 kv heads, a group of 6)
 FA_TEST_CASES = 11  # the first 11 are tests/test_flash_attention.py's
 FA_CASES = (
     *((2, t, t, 4, 4, 32, c, "float32") for t in (64, 128, 256) for c in (True, False)),
@@ -258,6 +288,7 @@ FA_CASES = (
     (1, 4096, 4096, 32, 8, 128, False, "bfloat16"),
     (1, 4096, 4096, 32, 8, 64, True, "bfloat16"),
     (2, 1000, 1000, 8, 2, 128, True, "bfloat16"),
+    (4, 2048, 2048, 12, 2, 128, True, "bfloat16"),
 )
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the short-path backward (B, T, S, H, K, hd, causal, dtype): FraudGT's
@@ -352,12 +383,42 @@ SHARD_CLI_ARGS = ("--pattern", "scatter_gather", "--parts", "4", "--scale", "28"
 # training edges), then scored on the test split.  One epoch over all
 # 4,110,125 training edges takes 236-255 s of steps (63-68 steps/s, host
 # bound) on an NVIDIA H100 at 700 W and the threshold 48-58 s more
-# (tools/smoke_phases.py --fit-rows 0), so the rows are
-# cut to a quarter (PERF.md section 4 lists both cuts); FGT_PROFILE_STEPS
-# steps of a second fit run under torch.profiler
+# (tools/smoke_phases.py --fit-rows 0), so the rows are cut to 655,360
+# (1,048,576 until phase 17 came: the 1,536 steps dropped save about
+# 40 s, what phase 17 takes, 15-37 s on an NVIDIA H100 at 700 W; PERF.md
+# section 4 lists the cuts); FGT_PROFILE_STEPS steps of a second fit run
+# under torch.profiler
 FGT_EPOCHS = 1
-FGT_FIT_ROWS = 1 << 20
+FGT_FIT_ROWS = 5 << 17
 FGT_PROFILE_STEPS = 32
+# phase 17: the LM scaffold at qwen2-1.5b's published width (28 layers,
+# d_model 1,536, bf16 activations over float32 weights drawn with SEED):
+# a prefill of LM_PREFILL (batch, tokens) through flash_attention, timed
+# LM_PREFILL_REPS times; float32 checks at LM_F32_T tokens (both attention
+# backends) and LM_DECODE (batch, tokens) of decode against forward;
+# generate serving LM_SERVE (requests, prompt, new tokens) twice and
+# once at each of LM_SERVE_CACHES, each followed by a few decode steps
+# under torch.profiler; every architecture's smoke
+# config in float32 at LM_SMOKE (batch, tokens) on the card against the
+# CPU port; repro_torch.launch.decode_lm's command line with LM_CLI_ARGS
+LM_ARCH = "qwen2-1.5b"
+LM_PREFILL = (4, 2048)
+LM_PREFILL_REPS = 3
+LM_F32_T = 1024
+LM_DECODE = (2, 12)
+LM_SERVE = (4, 16, 32)
+# (requests, cache slots) of the timed serving cells: decode_32k's 32,768
+# slots at 4 of its 128 sequences (all 128 would need 120 GB of bf16 KV at
+# qwen2's width, more than the card's 80 GB), and 32 sequences at 4,096
+# slots; each holds 3.76 GB of KV
+LM_SERVE_CACHES = ((4, 32768), (32, 4096))
+# the kernel backend's bf16 logits may be at most this many times further
+# from the float32 logits (mean |diff|) than the torch backend's are
+LM_BF16_ERR_RATIO = 1.25
+LM_PROFILE_STEPS = 8
+LM_SMOKE = (2, 16)
+LM_DECODE_ARCHS = ("qwen2-1.5b", "mixtral-8x7b", "zamba2-2.7b", "xlstm-125m", "chameleon-34b")
+LM_CLI_ARGS = ("--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16", "--gen", "32")
 
 
 def log(msg: str) -> None:
@@ -939,7 +1000,9 @@ def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None
 
 def fa_row(q, k, v, causal, reps) -> dict:
     """flash_attention against its plain version (max |diff|, within the
-    dtype's tolerance), the path it took (``ops.plan``, which must equal
+    dtype's tolerance; in bfloat16 also each output row's max |diff|
+    within that tolerance of the row's largest |value|, since late causal
+    rows average thousands of values and are small), the path it took (``ops.plan``, which must equal
     the ``.cu`` entry's choice), and kernel / plain / library times with
     the bound: ``ms`` under CUDA events over wrapper calls, ``kernel_ms``
     the kernel's own mean device time under ``torch.profiler`` (over the
@@ -956,16 +1019,23 @@ def fa_row(q, k, v, causal, reps) -> dict:
     if fa_ops.kernel_plan(b, t, s, h, kvh, hd, q.dtype, causal) != path:
         raise AssertionError(f"ops.plan and the .cu entry choose different paths at {tuple(q.shape)}")
     got = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
-    err = float((got.float() - fa_plain(q, k, v, causal).float()).abs().max())
-    if not err <= FA_TOL[dtype]:
+    ref = fa_plain(q, k, v, causal).float()
+    diff = (got.float() - ref).abs().amax(-1)  # (B, T, H): per output row
+    scale = ref.abs().amax(-1)
+    err = float(diff.max())
+    row_rel = float((diff / scale.clamp_min(torch.finfo(torch.float32).tiny)).max())
+    ref_abs = {"ref_mean_abs": float(ref.abs().mean()), "ref_max_abs": float(scale.max()),
+               "ref_row_max_abs_min": float(scale.min()), "max_row_rel_err": row_rel}
+    del got, ref, diff, scale
+    if not err <= FA_TOL[dtype] or (dtype == "bfloat16" and not row_rel <= FA_TOL[dtype]):
         raise AssertionError(f"flash_attention differs from its plain version at {tuple(q.shape)}, "
-                             f"{tuple(k.shape)}, causal={causal}: {err}")
+                             f"{tuple(k.shape)}, causal={causal}: {err} ({ref_abs})")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bound, by = fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
     run = lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
     kernel_ms, seen = kernel_device_ms(run, reps)
     return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "plan": path, "max_abs_err": err,
+            "plan": path, "max_abs_err": err, **ref_abs,
             "ms": cuda_ms(run, reps),
             "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
             "plain_ms": cuda_ms(lambda: fa_plain(q, k, v, causal), max(3, reps // 10)),
@@ -1085,26 +1155,17 @@ def phase_flash_attention_bwd(device, report):
     return worst
 
 
-def profile_forward(ft, toks) -> dict:
-    """FraudGT's forward over ``toks`` timed alone and then under
-    ``torch.profiler``: device kernel time, the device's busy share of
-    the wall (one stream, so kernels do not overlap), the
-    ``flash_attention`` kernel's share and the top kernels by device time
-    (``"profiled": false`` and only the plain wall when the profiler
-    recorded no device kernel)."""
+def device_profile(fn, top: int = 12) -> dict:
+    """``fn`` under ``torch.profiler``: its device kernel time against the
+    profiled wall (one stream, so kernels do not overlap: the busy share),
+    the ``flash_attention`` kernel's share and the top kernels by device
+    time; ``{"profiled": False}`` when the profiler recorded no device
+    kernel."""
     import collections
 
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ft.logits(*toks)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events, wall_profiled = profiled_device_events(lambda: ft.logits(*toks))
+    events, wall_profiled = profiled_device_events(fn)
     if not events:
-        log("FraudGT forward profile not measured: the profiler recorded no device kernel")
-        return {"edges": int(len(toks[0])), "wall_s": wall, "profiled": False}
+        return {"profiled": False}
     kern = collections.defaultdict(lambda: [0.0, 0])
     for name, us in events:
         kern[name][0] += us / 1e6  # us -> s
@@ -1112,12 +1173,8 @@ def profile_forward(ft, toks) -> dict:
     busy = sum(v[0] for v in kern.values())
     # every path's kernel is named flash_fwd_kernel* (short, wgmma, or the CUDA-core one)
     flash = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
-    if not flash:
-        raise AssertionError("the profiled FraudGT forward shows no flash_fwd_kernel launch")
     return {
-        "edges": int(len(toks[0])),
         "profiled": True,
-        "wall_s": wall,
         "wall_profiled_s": wall_profiled,
         "device_kernel_s": busy,
         "device_busy_share": busy / wall_profiled if wall_profiled else None,
@@ -1125,8 +1182,27 @@ def profile_forward(ft, toks) -> dict:
         "flash_attention_kernel_s": flash,
         "flash_attention_share_of_device": flash / busy if busy else None,
         "top_kernels": [{"name": k[:100], "s": v[0], "count": v[1]}
-                        for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]],
+                        for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:top]],
     }
+
+
+def profile_forward(ft, toks) -> dict:
+    """FraudGT's forward over ``toks`` timed alone and then under
+    ``torch.profiler`` (:func:`device_profile`; ``"profiled": false`` and
+    only the plain wall when the profiler recorded no device kernel)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ft.logits(*toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(lambda: ft.logits(*toks))
+    if not prof["profiled"]:
+        log("FraudGT forward profile not measured: the profiler recorded no device kernel")
+    elif not prof["flash_attention_kernel_s"]:
+        raise AssertionError("the profiled FraudGT forward shows no flash_fwd_kernel launch")
+    return {"edges": int(len(toks[0])), "wall_s": wall, **prof}
 
 
 def phase_fraudgt(ds, device, report, zero_launches, read_launches):
@@ -1992,6 +2068,284 @@ def profile_fit(ft, g, labels, ids, steps) -> dict:
                             for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]]}
 
 
+def lm_smoke_batch(cfg, b: int, t: int, seed: int) -> dict:
+    """A smoke batch drawn with numpy: tokens and labels, or the audio
+    stub's frame embeddings and per-codebook labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if cfg.precomputed_embeddings:
+        return {"embeds": rng.normal(size=(b, t, cfg.d_model)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab, (b, t, cfg.n_codebooks)).astype(np.int32)}
+    return {"tokens": rng.integers(0, cfg.vocab, (b, t)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (b, t)).astype(np.int32)}
+
+
+def decode_all(params, cfg, toks, cache_len: int, device):
+    """Decode ``toks`` (B, T) one token a step from an empty cache: the
+    (B, T, V) logits of the steps."""
+    import torch
+    from repro_torch.models import model as M
+
+    cache = M.cache_init(cfg, toks.shape[0], cache_len, device=device)
+    return torch.stack([M.decode_step(params, cache, {"tokens": toks[:, i : i + 1]}, cfg)[0][:, 0]
+                        for i in range(toks.shape[1])], dim=1)
+
+
+def lm_serve(cfg, params, nreq: int, cache_len: int, calls: int, device):
+    """``decode_lm.generate`` serving ``nreq`` requests of LM_SERVE's prompt
+    and new tokens from a ``cache_len``-slot cache, ``calls`` times, then
+    LM_PROFILE_STEPS decode steps on a fresh cache of that length timed and
+    under ``torch.profiler`` (decode attention reads every slot, live or
+    not, so a step costs the same at any position).  ``step_bound_ms``:
+    the float32 weights and the bf16 KV cache read once, over the card's
+    memory rate.  Returns the cell and the calls' tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.device import h2d
+    from repro_torch.launch import decode_lm
+    from repro_torch.models import model as M
+
+    _, plen, ngen = LM_SERVE
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (nreq, plen)).astype(np.int32)  # as decode_lm.main
+    served, walls = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        served.append(decode_lm.generate(cfg, params, prompt, ngen, cache_len=cache_len))
+        walls.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        cache = M.cache_init(cfg, nreq, cache_len, device=device)
+        kv_bytes = sum(a.numel() * a.element_size() for a in M.tree_leaves(cache))
+        step = decode_lm.make_serve_step(cfg)
+        cur = h2d(prompt[:, :1], device)
+        step(params, cache, {"tokens": cur})
+        torch.cuda.synchronize()
+
+        def steps():
+            for _ in range(LM_PROFILE_STEPS):
+                step(params, cache, {"tokens": cur})
+
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / LM_PROFILE_STEPS
+        step_prof = device_profile(steps)
+        del cache
+    w_bytes = sum(a.numel() * a.element_size() for a in M.tree_leaves(params))
+    cell = {"requests": nreq, "prompt": plen, "new_tokens": ngen, "cache_len": cache_len, "kv_cache_bytes": kv_bytes,
+            "walls_s": walls, "tokens_per_s": nreq * ngen / min(walls),
+            "ms_per_step": 1e3 * min(walls) / (plen + ngen), "identical": all(np.array_equal(served[0], x) for x in served),
+            "step_ms_steady": 1e3 * step_s, "step_bound_ms": (w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3,
+            "step_profile_steps": LM_PROFILE_STEPS, "step_profile": step_prof,
+            "first_tokens": served[0][0, : plen + 8].tolist()}
+    return cell, served
+
+
+def phase_lm(report, zero_launches, read_launches):
+    """Phase 17: the LM scaffold's serving path on the card, at qwen2-1.5b's
+    published width with seeded weights, then every architecture's smoke
+    config.  Returns the prefill's launch counts and the arguments of its
+    first flash_attention launch."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+    from repro_torch.device import h2d
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import decode_lm
+    from repro_torch.models import model as M
+
+    device = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32, as the CPU
+    cfg = get_config(LM_ARCH)
+    out = {"arch": LM_ARCH, "n_params": M.n_params(cfg), "dtype": cfg.dtype}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_bytes"] = sum(a.numel() * a.element_size() for a in M.tree_leaves(params))
+
+    # (a) the prefill at full width, bf16, every layer's attention through the kernel
+    b, t = LM_PREFILL
+    toks = h2d(np.random.default_rng(SEED).integers(0, cfg.vocab, (b, t)).astype(np.int32), device)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    path = fa_ops.plan(b, t, t, h, kvh, hd, torch.bfloat16, True)
+    if path != "wgmma" or fa_ops.kernel_plan(b, t, t, h, kvh, hd, torch.bfloat16, True) != path:
+        raise AssertionError(f"qwen2's prefill launch is planned on the {path!r} path, not the wgmma path")
+    fa_fn = fa_ops.flash_attention
+    fa_args = {}
+
+    def capture_fa(q, k, v, **kw):
+        fa_args.setdefault("args", (q, k, v, kw.get("causal", True)))
+        return fa_fn(q, k, v, **kw)
+
+    batch = {"tokens": toks}
+    walls = []
+    with torch.inference_mode():
+        M.forward(params, batch, cfg)  # warm up: cuBLAS handles, the kernel's first launch
+        torch.cuda.synchronize()
+        fa_ops.flash_attention = capture_fa
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            logits, aux = M.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = read_launches()
+        finally:
+            fa_ops.flash_attention = fa_fn
+        peak = torch.cuda.max_memory_allocated()
+        for _ in range(LM_PREFILL_REPS - 1):
+            t0 = time.perf_counter()
+            M.forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finite = bool(torch.isfinite(logits).all())
+        logits_t, _ = M.forward(params, batch, cfg, attn_backend="torch")
+        diff = max(float((logits[i].float() - logits_t[i].float()).abs().max()) for i in range(b))
+        agree = float((logits.argmax(-1) == logits_t.argmax(-1)).float().mean())
+        # both bf16 backends against the float32 forward of the first sequence
+        l32, _ = M.forward(params, {"tokens": toks[:1]}, dataclasses.replace(cfg, dtype="float32"))
+        err_k = (logits[0].float() - l32[0]).abs()
+        err_t = (logits_t[0].float() - l32[0]).abs()
+        vs32 = {"logits32_max_abs": float(l32.abs().max()), "logits32_mean_abs": float(l32.abs().mean()),
+                "kernel_vs_float32_max_abs": float(err_k.max()), "kernel_vs_float32_mean_abs": float(err_k.mean()),
+                "torch_vs_float32_max_abs": float(err_t.max()), "torch_vs_float32_mean_abs": float(err_t.mean())}
+        shape = tuple(logits.shape)
+        del logits, logits_t, l32, err_k, err_t
+        prof = device_profile(lambda: M.forward(params, batch, cfg))
+    prefill = {"batch": b, "tokens": t, "walls_s": walls, "wall_s": min(walls), "tokens_per_s": b * t / min(walls),
+               "peak_mem_bytes": int(peak), "launches": launches, "expected_flash_launches": cfg.n_layers,
+               "plan": path, "logits_shape": shape, "logits_finite": finite, "aux": float(aux),
+               "kernel_vs_torch_max_abs": diff, "kernel_vs_torch_argmax_agree": agree, **vs32, "profile": prof}
+    out["prefill"] = prefill
+    log("LM prefill: " + json.dumps(prefill))
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"the prefill launched flash_attention {launches['flash_attention']} times, "
+                             f"not {cfg.n_layers}")
+    if not finite or shape != (b, t, cfg.vocab):
+        raise AssertionError(f"the prefill's logits of shape {shape} are not all finite")
+    if not vs32["kernel_vs_float32_mean_abs"] <= LM_BF16_ERR_RATIO * vs32["torch_vs_float32_mean_abs"]:
+        raise AssertionError(f"the kernel backend's bf16 logits are further from float32 than "
+                             f"{LM_BF16_ERR_RATIO} x the torch backend's: {vs32}")
+
+    # (b) float32 at full width: both attention backends, decode against forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        one = {"tokens": toks[:1, :LM_F32_T]}
+        lk, _ = M.forward(params, one, cfg32)
+        lt, _ = M.forward(params, one, cfg32, attn_backend="torch")
+        f32_diff = float((lk - lt).abs().max())
+        f32_ok = bool(torch.allclose(lk, lt, rtol=1e-3, atol=1e-3))
+        del lk, lt
+        db, dtn = LM_DECODE
+        full, _ = M.forward(params, {"tokens": toks[:db, :dtn]}, cfg32)
+        dec = decode_all(params, cfg32, toks[:db, :dtn], dtn, device)
+        dec_diff = float((dec - full).abs().max())
+        dec_ok = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
+        del full, dec
+    f32 = {"tokens": LM_F32_T, "plan": fa_ops.plan(1, LM_F32_T, LM_F32_T, h, kvh, hd, torch.float32, True),
+           "kernel_vs_torch_max_abs": f32_diff, "decode_shape": list(LM_DECODE), "decode_vs_forward_max_abs": dec_diff}
+    out["float32"] = f32
+    log("LM float32 checks: " + json.dumps(f32))
+    if not f32_ok:
+        raise AssertionError(f"the float32 backends differ by more than 1e-3 at full width: {f32_diff}")
+    if not dec_ok:
+        raise AssertionError(f"decode differs from forward by more than 2e-3 at full width: {dec_diff}")
+
+    # (c) serving: generate twice at LM_SERVE's small cache (identical
+    # tokens), then once at each of LM_SERVE_CACHES, each cell followed by a
+    # few decode steps under the profiler
+    nreq, plen, ngen = LM_SERVE
+    zero_launches()
+    serve, served = lm_serve(cfg, params, nreq, plen + ngen + 1, 2, device)
+    serve["launches"] = read_launches()
+    out["serve"] = serve
+    log("LM serving: " + json.dumps(serve))
+    if not serve["identical"] or served[0].shape != (nreq, plen + ngen):
+        raise AssertionError("two generate calls on the same prompt gave different tokens")
+    out["serve_long"] = []
+    for reqs, slots in LM_SERVE_CACHES:
+        cell, toks_long = lm_serve(cfg, params, reqs, slots, 1, device)
+        out["serve_long"].append(cell)
+        log("LM serving at a long cache: " + json.dumps(cell))
+        if toks_long[0].shape != (reqs, plen + ngen):
+            raise AssertionError(f"generate at {reqs} x {slots} slots gave tokens of shape {toks_long[0].shape}")
+        del toks_long
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) every architecture's smoke config, float32, the card against the CPU port
+    smoke = {}
+    sb, st = LM_SMOKE
+    for name in sorted(ARCHS):
+        c = dataclasses.replace(smoke_config(name), dtype="float32")
+        p_cpu = M.init_params(c, SEED, device="cpu")
+        p_dev = M.tree_map(lambda a: a.to(device), p_cpu)
+        bt = lm_smoke_batch(c, sb, st, SEED)
+        on = lambda d: {k: torch.from_numpy(v).to(d) for k, v in bt.items()}
+        zero_launches()
+        with torch.inference_mode():
+            lg_d, aux_d = M.forward(p_dev, on(device), c)
+            loss_d = M.loss_fn(p_dev, on(device), c)
+            fa = read_launches()["flash_attention"]
+            lg_c, aux_c = M.forward(p_cpu, on("cpu"), c)
+            loss_c = M.loss_fn(p_cpu, on("cpu"), c)
+        row = {"logits_max_abs": float((lg_d.cpu() - lg_c).abs().max()), "aux_abs": abs(float(aux_d) - float(aux_c)),
+               "loss_card": float(loss_d), "loss_cpu": float(loss_c), "flash_launches": fa}
+        if not (torch.allclose(lg_d.cpu(), lg_c, rtol=1e-4, atol=1e-4) and row["aux_abs"] <= 1e-4
+                and abs(row["loss_card"] - row["loss_cpu"]) <= 1e-4 * abs(row["loss_cpu"])):
+            raise AssertionError(f"{name}: the card's forward or loss differs from the CPU port's: {row}")
+        n_attn = sum(bt_ in ("attn", "moe_attn", "shared_attn") for bt_ in c.unit) * c.n_units
+        if fa != 2 * n_attn:  # forward and loss each run every attention block once
+            raise AssertionError(f"{name}: flash_attention launched {fa} times, not {2 * n_attn}")
+        if name in LM_DECODE_ARCHS:
+            if c.moe is not None:  # room in the experts: no drop in either dispatch
+                c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=16.0))
+            toks_s = torch.from_numpy(bt["tokens"][:, :12]).to(device)
+            with torch.inference_mode():
+                full, _ = M.forward(p_dev, {"tokens": toks_s}, c)
+                row["decode_vs_forward_max_abs"] = float((decode_all(p_dev, c, toks_s, 12, device) - full).abs().max())
+            if not row["decode_vs_forward_max_abs"] <= 2e-3:
+                raise AssertionError(f"{name}: decode differs from forward on the card: {row}")
+        smoke[name] = row
+    # tests/test_models.py::test_sliding_window_decode_ring_buffer, on the torch backend
+    c = dataclasses.replace(smoke_config("mixtral-8x7b"), dtype="float32", attn_window=8)
+    c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=16.0))
+    p_dev = M.init_params(c, SEED, device=device)
+    toks_s = torch.from_numpy(lm_smoke_batch(c, 1, 20, SEED)["tokens"]).to(device)
+    with torch.inference_mode():
+        full, _ = M.forward(p_dev, {"tokens": toks_s}, c, attn_backend="torch")
+        ring = float((decode_all(p_dev, c, toks_s, c.attn_window, device) - full).abs().max())
+    smoke["mixtral-8x7b ring buffer (window 8, T 20, torch backend)"] = {"decode_vs_forward_max_abs": ring}
+    out["smoke"] = smoke
+    log("LM smoke configs on the card: " + json.dumps(smoke))
+    if not ring <= 2e-3:
+        raise AssertionError(f"the ring-buffer decode differs from the windowed forward: {ring}")
+
+    # (e) the launcher's command line, in process: the weights and prompt of (c)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_toks = decode_lm.main(list(LM_CLI_ARGS))
+    cli = {"argv": list(LM_CLI_ARGS), "wall_s": time.perf_counter() - t0, "output": buf.getvalue().strip(),
+           "tokens_equal_serving": bool(np.array_equal(cli_toks, served[0]))}
+    out["cli"] = cli
+    log("LM launcher (repro_torch.launch.decode_lm): " + json.dumps(cli))
+    if "generated (4, 48) in" not in cli["output"] or not cli["tokens_equal_serving"]:
+        raise AssertionError(f"repro_torch.launch.decode_lm did not serve the tokens of (c): {cli}")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    report["lm"] = out
+    return launches, fa_args["args"]
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -2427,6 +2781,23 @@ def main() -> int:
         "max_abs_err_cases": fa_bwd_err,
         "library": "the backward of F.scaled_dot_product_attention at the same shape",
         "shape": {k: bwd_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
+    })
+    log(f"card: {card}")
+
+    # ---- 17. the LM scaffold's serving path: qwen2-1.5b at full width --
+    t0 = time.perf_counter()
+    lm_launches, lm_args = phase_lm(report, zero_launches, read_launches)
+    report["lm"]["phase_s"] = time.perf_counter() - t0
+    q, k, v, causal = lm_args
+    lm_main = fa_row(q, k, v, causal, 20)
+    log("kernel timing: flash_attention on the LM prefill path " + json.dumps(lm_main))
+    report["flash_attention_lm_shape"] = lm_main
+    fa_entry = next(e for e in kernels if e["name"] == "flash_attention")
+    fa_entry.update({
+        "launches_lm": lm_launches["flash_attention"],
+        **{f"lm_{key}": lm_main[key] for key in ("max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "plan")},
+        "lm_shape": {key: lm_main[key] for key in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
     log(f"card: {card}")
 

@@ -2,8 +2,9 @@
 
 All 10 architectures from the assignment (exact published configs), plus
 the paper-side FraudGT-style graph transformer and reduced smoke variants.
-A copy of the JAX package's framework-free ``repro.configs.registry``;
-the port runs only ``fraudgt-small`` (:mod:`repro_torch.ml.fraudgt`).
+A copy of the JAX package's framework-free ``repro.configs.registry``.
+The port's LM (:mod:`repro_torch.models`) runs every architecture here,
+and ``fraudgt-small``'s widths are FraudGT's (:mod:`repro_torch.ml.fraudgt`).
 """
 from __future__ import annotations
 

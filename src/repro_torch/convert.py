@@ -16,18 +16,29 @@ read a ``repro`` object by class and field name — they never import
   buckets;
 * :func:`fraudgt_params_numpy` — the way back: the port's FraudGT
   weights (after ``fit``, say) as numpy in the reference's ``params``
-  layout, for comparing trained weights.
+  layout, for comparing trained weights;
+* :func:`lm_params_from_reference` — an LM parameter tree of
+  ``repro.models.model.init_params`` (JAX or numpy leaves) becomes the
+  port's tensors on a device, checked leaf by leaf against
+  :func:`repro_torch.models.model.param_specs`; :func:`lm_params_numpy`
+  is the way back;
+* :func:`lm_cache_from_reference` — a decode cache of
+  ``repro.models.model.cache_init`` (or one that ``decode_step``
+  returned) becomes the port's tensors, dtypes kept.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import spec as S
+from repro_torch.device import resolve_device
 from repro_torch.graph.csr import TemporalGraph
 from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams
+from repro_torch.models.model import param_specs, tree_map
 
 __all__ = [
     "graph_from_reference",
@@ -35,6 +46,9 @@ __all__ = [
     "gbdt_from_reference",
     "fraudgt_from_reference",
     "fraudgt_params_numpy",
+    "lm_params_from_reference",
+    "lm_params_numpy",
+    "lm_cache_from_reference",
 ]
 
 # classes rebuilt field by field, looked up by the reference's class name
@@ -156,3 +170,48 @@ def fraudgt_params_numpy(ft: FraudGT) -> dict:
         "head": arr(net.head),
         "bias": arr(net.bias),
     }
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A leaf as a torch tensor on ``device`` with its dtype; bfloat16
+    (numpy's ``ml_dtypes`` type) goes across as its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_reference(params, cfg, device=None) -> dict:
+    """The port's LM weights on ``device`` (the CUDA card by default):
+    every leaf of the reference's tree as float32, in the same layout
+    (units stacked on the leading axis).  Raises where the tree's keys or
+    shapes differ from the port's for ``cfg``."""
+    dev = resolve_device(device)
+    specs = param_specs(cfg)
+    if _keys(params) != _keys(specs):
+        raise ValueError(f"the reference tree's keys differ from the port's for {cfg.name}")
+
+    def leaf(spec, a):
+        a = np.asarray(a, dtype=np.float32)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"a leaf of shape {a.shape} where {cfg.name} has {tuple(spec.shape)}")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return tree_map(leaf, specs, params)
+
+
+def _keys(tree):
+    return {k: _keys(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def lm_params_numpy(params) -> dict:
+    """The port's LM weights as float32 numpy in the reference's layout."""
+    return tree_map(lambda a: a.detach().float().cpu().numpy(), params)
+
+
+def lm_cache_from_reference(cache, device=None) -> dict:
+    """A reference decode cache as the port's tensors on ``device`` (the
+    CUDA card by default), dtypes kept (int32 ``pos``, float32 states,
+    the activations' dtype for keys, values and conv states)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), dict(cache))

@@ -1,3 +1,3 @@
 """Launchers of the port: the triage server (``serve``), the partitioned
-and sharded mining launcher (``mine``) and the shard device list
-(``mesh``)."""
+and sharded mining launcher (``mine``), the shard device list (``mesh``)
+and the LM serving launcher (``decode_lm``)."""

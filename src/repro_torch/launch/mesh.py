@@ -19,7 +19,8 @@ sharded mining executor (:mod:`repro_torch.core.shard`) uses:
   ...).
 
 The training meshes of the LM scaffold (``make_production_mesh``,
-``make_local_mesh``) come with ROADMAP item A12 and raise until then.
+``make_local_mesh``) come with the LM's training, ROADMAP item A12b, and
+raise until then.
 """
 from __future__ import annotations
 
@@ -74,11 +75,11 @@ def make_shard_mesh(devices: Sequence) -> List[torch.device]:
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "the LM scaffold's training meshes are not ported yet (ROADMAP A12)"
+        "the LM scaffold's training meshes are not ported yet (ROADMAP A12b)"
     )
 
 
 def make_local_mesh(data: int = 1, model: int = 1):
     raise NotImplementedError(
-        "the LM scaffold's training meshes are not ported yet (ROADMAP A12)"
+        "the LM scaffold's training meshes are not ported yet (ROADMAP A12b)"
     )

@@ -6,8 +6,10 @@ against the same mine on the CPU, a GBDT fit on the card against the same
 fit on the CPU, FraudGT's logits on the card against the CPU port's,
 witness extraction and evidence-carrying alerts on the card against the
 CPU port's, the short-path attention backward against its plain version,
-a sharded mine on the card against the compiled mine, and a FraudGT fit
-on the card that makes no host sync.
+a sharded mine on the card against the compiled mine, a FraudGT fit
+on the card that makes no host sync, and the LM scaffold: one smoke
+forward and decode per block type on the card against the CPU port, and
+qwen2-1.5b's widths at two layers through the wgmma path.
 Every test skips itself where there is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -39,6 +41,8 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.models import model as LMM
 
 pytestmark = pytest.mark.cuda
 
@@ -295,6 +299,10 @@ def test_fit_on_card_equals_cpu(cuda):
         (1, 300, 200, 8, 2, 128, True, "bfloat16"),
         (3, 33, 33, 4, 2, 64, True, "bfloat16"),
         (2, 32, 32, 16, 16, 128, True, "bfloat16"),
+        # wgmma path at qwen2-1.5b's heads: 12 query heads over 2 kv heads
+        # (a group of 6), its prefill launch and ragged tiles
+        (1, 2048, 2048, 12, 2, 128, True, "bfloat16"),
+        (2, 1000, 1000, 12, 2, 128, False, "bfloat16"),
     ],
 )
 def test_flash_attention_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype):
@@ -621,3 +629,68 @@ def test_fraudgt_fit_on_card_makes_no_host_sync(cuda):
     assert losses.shape == (steps,) and np.isfinite(losses).all()
     proba = ft.predict_proba(g, np.arange(1000, n))
     assert np.isfinite(proba).all() and proba.std() > 0
+
+
+@pytest.mark.parametrize(
+    "name",  # a smoke config per block type: attn (qkv bias), moe_attn, mamba2 + shared_attn,
+    # mlstm + slstm, the audio stub, qk-norm
+    ["qwen2-1.5b", "mixtral-8x7b", "zamba2-2.7b", "xlstm-125m", "musicgen-medium", "chameleon-34b"],
+)
+def test_lm_smoke_on_card_equals_cpu(cuda, name):
+    """Forward logits, aux and loss in float32 within 1e-4 of the CPU port
+    with the same weights, every attention block through the kernel; and
+    (token models) decode steps within 1e-4 of the CPU's."""
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+    p = LMM.init_params(cfg, 0, device="cpu")
+    pd = LMM.tree_map(lambda a: a.to(cuda), p)
+    rng = np.random.default_rng(7)
+    b, t = 2, 16
+    if cfg.precomputed_embeddings:
+        batch = {"embeds": torch.from_numpy(rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (b, t, cfg.n_codebooks)))}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, t))),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (b, t)))}
+    on = {k: v.to(cuda) for k, v in batch.items()}
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    before = fa_ops.launches
+    with torch.inference_mode():
+        lg, aux = LMM.forward(pd, on, cfg)
+        loss = LMM.loss_fn(pd, on, cfg)
+        assert fa_ops.launches == before + 2 * n_attn
+        lg_c, aux_c = LMM.forward(p, batch, cfg)
+        loss_c = LMM.loss_fn(p, batch, cfg)
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=1e-4, atol=1e-4)
+    assert abs(float(aux) - float(aux_c)) <= 1e-4 and abs(float(loss) - float(loss_c)) <= 1e-4 * float(loss_c)
+    if cfg.precomputed_embeddings:
+        return
+    with torch.inference_mode():
+        caches = [LMM.cache_init(cfg, b, 6, device=d) for d in (cuda, "cpu")]
+        for i in range(6):
+            got, _ = LMM.decode_step(pd, caches[0], {"tokens": on["tokens"][:, i : i + 1]}, cfg)
+            want, _ = LMM.decode_step(p, caches[1], {"tokens": batch["tokens"][:, i : i + 1]}, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_prefill_at_qwen2_widths_runs_the_wgmma_path(cuda):
+    """qwen2-1.5b's widths (d_model 1,536, 12/2 heads of 128, vocab 151,936)
+    at two layers, bf16, T = 256: one wgmma-path launch a layer, finite
+    logits, close to the torch backend."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    p = LMM.init_params(cfg, 0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab, (2, 256))).to(cuda)
+    assert fa_ops.plan(2, 256, 256, 12, 2, 128, torch.bfloat16, True) == "wgmma"
+    before = fa_ops.launches
+    with torch.inference_mode():
+        lg, _ = LMM.forward(p, {"tokens": toks}, cfg)
+        assert fa_ops.launches == before + cfg.n_layers
+        lt, _ = LMM.forward(p, {"tokens": toks}, cfg, attn_backend="torch")
+    assert lg.dtype == torch.bfloat16 and lg.shape == (2, 256, cfg.vocab) and bool(torch.isfinite(lg).all())
+    # bf16 logits (an ulp is 2^-7 near 1) after two layers rounded apart:
+    # close, and mostly the same next token
+    assert float((lg.float() - lt.float()).abs().max()) < 0.5
+    assert float((lg.argmax(-1) == lt.argmax(-1)).float().mean()) > 0.5

@@ -109,13 +109,21 @@ def test_mlp_apply():
 
 
 def test_unported_raise():
+    """What is left unported names its ROADMAP item: a sliding window that
+    masks something has no kernel (A15; the torch backend takes it, and a
+    window the sequence fits in runs the kernel), and the LM's meshes come
+    with its training (A12b)."""
     _, cfg = _cfgs(attn_window=8)
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="A12"):
-        L.attn_apply(L.attn_init(torch.Generator(), cfg), x, cfg)
-    with pytest.raises(NotImplementedError, match="A12"):
-        L.attn_decode({}, x, cfg, {})
-    with pytest.raises(NotImplementedError, match="A12"):
-        L.moe_init(torch.Generator(), cfg)
+    p = L.attn_init(torch.Generator(), cfg)
+    x = torch.zeros((1, 9, 64))
+    with pytest.raises(NotImplementedError, match="A15"):
+        L.attn_apply(p, x, cfg)
+    assert L.attn_apply(p, x, cfg, backend="torch").shape == x.shape
+    assert L.attn_apply(p, x[:, :8], cfg).shape == (1, 8, 64)
+    from repro_torch.launch import mesh
+
+    for make in (mesh.make_production_mesh, mesh.make_local_mesh):
+        with pytest.raises(NotImplementedError, match="A12b"):
+            make()
     with pytest.raises(ValueError, match="backend"):
         L.attn_apply({}, x, _cfgs()[1], backend="xla")

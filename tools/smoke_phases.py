@@ -4,9 +4,12 @@ the full size or with their cuts lifted.
 
     python3 tools/smoke_phases.py --phases bwd,sharded,fit
     python3 tools/smoke_phases.py --phases fit --fit-rows 0   # every training edge
+    python3 tools/smoke_phases.py --phases flash,lm           # the LM path alone
 
 Builds the kernels, prints the card line, and runs, in order:
 
+- ``flash``: phase 2's ``flash_attention`` cases (``FA_CASES``, with
+  qwen2-1.5b's prefill launch) against their plain version, timed;
 - ``bwd``: phase 2's short-path backward cases (``FA_BWD_CASES``) against
   their plain version, timed beside their bound and SDPA's backward;
 - ``sharded``: phase 3's cold mine of the 9 ``"full"`` patterns over
@@ -15,7 +18,10 @@ Builds the kernels, prints the card line, and runs, in order:
 - ``fit``: phase 16 (FraudGT trained for one epoch on the first
   ``--fit-rows`` training edges, 0 for all of them; threshold, F1, the
   profile of a few steps), then the backward kernel at the fit's first
-  launch.
+  launch;
+- ``lm``: phase 17 (the LM scaffold at qwen2-1.5b's full width: prefill,
+  float32 checks, serving, every smoke config against the CPU port, the
+  launcher), then ``flash_attention`` at the prefill's first launch.
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -77,9 +83,16 @@ def main() -> int:
         print(f"{name}: {report['walls_s'][name]:.1f} s", flush=True)
         return out
 
+    if "flash" in phases:
+        timed("flash", lambda: cs.phase_flash_attention(torch.device("cuda"), report))
     if "bwd" in phases:
         timed("bwd", lambda: cs.phase_flash_attention_bwd(torch.device("cuda"), report))
-    ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale)
+    if "lm" in phases:
+        _, (q, k, v, causal) = timed("lm", lambda: cs.phase_lm(report, zero, read))
+        report["flash_attention_lm_shape"] = cs.fa_row(q, k, v, causal, 20)
+        print("kernel timing: flash_attention on the LM prefill path "
+              + json.dumps(report["flash_attention_lm_shape"]), flush=True)
+    ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
         counts = timed("cold_mine", lambda: session.mine().counts)
