@@ -42,8 +42,15 @@ Phases, in order; any failure exits non-zero:
    2e-2 relative and absolute (bfloat16) of its plain version and
    bit-identical across two launches, at FraudGT's training and inference
    shapes, GQA with T > S, the short cases of ``tests/test_torch_cuda.py``
-   and a block at the shared-memory limit, timed beside the backward of
-   ``scaled_dot_product_attention``.  Each shape is timed with CUDA events beside its
+   and a block at the shared-memory limit; the long backward
+   (``csrc/flash_long_bwd.cuh``) the same way (float32 within 1e-5
+   absolute plus 1e-5 relative) at qwen2-1.5b's training launch (B 4,
+   T = S = 4,096, 12 over 2 heads of 128, bf16, causal), full attention in
+   bf16 at hd 64, ragged tiles, causal T > S, float32 at hd 16 and 128
+   with GQA, bf16 at hd 32 and a single key; every row logs the backward
+   path ``ops.bwd_plan`` picked (which must be the ``.cu`` entry's), and
+   all three (short, mma, simt) must be reached; each timed beside the
+   backward of ``scaled_dot_product_attention``.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
    function, that call; every kernel but ``hist_update`` also under
    ``torch.profiler`` (``kernel_ms``, the kernel without the wrapper's
@@ -94,10 +101,11 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-17 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-18 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
    of phase 16's first backward launch, after phase 16; the LM's
-   ``flash_attention`` keys after phase 17):
+   ``flash_attention`` keys after phase 17; the long backward's entry, at
+   a launch of phase 18's cell, after phase 18):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
    three random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
@@ -135,7 +143,7 @@ Phases, in order; any failure exits non-zero:
    ``session.mine(<the 9 "full" patterns>, seeds, witnesses=2)`` over
    65,536 seeds of the phase-3 graph under ``set_sync_debug_mode("error")``
    (cycle4 and scatter_gather over a prefix, ``WIT_SEEDS_CUT``): one host
-   sync per unique plan, counts equal phase 3's rows, the first 4,096
+   sync per unique plan, counts equal phase 3's rows, the first 1,024
    seeds' witnesses (scatter_gather's first 16) equal the CPU port's bit
    for bit; each
    pattern's count-only and witness-mode wall and their ratio, and peak
@@ -168,7 +176,7 @@ Phases, in order; any failure exits non-zero:
    ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
    --pattern scatter_gather --parts 4 --scale 28`` once, in process.
 16. FraudGT training — ``FraudGT(FraudGTParams(epochs=1)).fit`` (d_model
-   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 655,360
+   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 393,216
    edges of the HI-Small training split under
    ``set_sync_debug_mode("error")``: the forward launches with the
    logsumexp and the backward launches each equal n_layers * steps, every
@@ -203,6 +211,27 @@ Phases, in order; any failure exits non-zero:
    mixtral ring buffer past its window on the ``"torch"`` backend; (e)
    ``python -m repro_torch.launch.decode_lm --arch qwen2-1.5b --batch 4
    --prompt-len 16 --gen 32`` in process, whose tokens equal (c)'s.
+18. LM training — ``repro_torch.launch.train`` at qwen2-1.5b's published
+   width: (a) the cell, 4 x 4,096 tokens a step (``train_4k``'s sequence,
+   its batch of 256 cut to 4), bf16 activations over float32 weights,
+   gradients and AdamW moments, remat on, the kernel attention backend:
+   2 warm-up steps, 6 timed under ``set_sync_debug_mode("error")`` with
+   the counts zeroed before and read after each (exactly 28 long
+   backward launches and 56 forward launches with the logsumexp a step:
+   remat runs each unit's forward again), 2 more under ``torch.profiler``;
+   finite loss and gradient norm at every step; s/step, tokens/s, peak
+   memory, the device's busy share, the attention backward's device ms a
+   step and the model FLOPs' share of the bf16 peak; at the first step the
+   ``"torch"`` backend's loss within 1e-2 relative and gradient norm
+   within 2 %; (b) float32 over one sequence of 1,024 tokens at full width:
+   ``loss_fn``'s gradient on ``"kernel"`` (simt forward, the long
+   backward's simt route) within 1e-3 of each leaf's largest |g| of
+   ``"torch"``'s; (c) every registry architecture's smoke config in
+   float32: 4 steps of ``train_loop`` on the card and on the CPU port from
+   one step-0 checkpoint, losses within 1e-4 relative and parameters
+   within 5e-4, and the step-0 gradient where they differ most, on the
+   CPU and twice on the card; (d) ``python -m repro_torch.launch.train --arch
+   qwen2-1.5b --smoke --steps 4`` in process.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -311,6 +340,24 @@ FA_BWD_CASES = (
     (3, 32, 32, 16, 1, 64, True, "bfloat16"),
 )
 FA_BWD_TOL = 1e-5
+# the long backward (csrc/flash_long_bwd.cuh; B, T, S, H, K, hd, causal,
+# dtype): qwen2-1.5b's training launch (phase 18), full attention in bf16
+# at hd 64, ragged tiles (1,000 rows and keys), causal T > S, float32 at
+# hd 16 and 128 with GQA (its simt route; the second is phase 18's float32
+# check's launch), bf16 at hd 32 (simt) and a single key.  bf16 within
+# 2e-2 relative and absolute; float32 within FA_BWD_TOL absolute plus
+# FA_BWD_TOL relative (its sums run over up to 1,024 rows in another
+# order than the plain version's, and grow with them)
+FA_LONG_BWD_CASES = (
+    (4, 4096, 4096, 12, 2, 128, True, "bfloat16"),
+    (2, 2048, 2048, 8, 8, 64, False, "bfloat16"),
+    (2, 1000, 1000, 8, 2, 128, True, "bfloat16"),
+    (2, 1024, 384, 8, 2, 128, True, "bfloat16"),
+    (1, 512, 512, 8, 2, 16, True, "float32"),
+    (1, 1024, 1024, 12, 2, 128, True, "float32"),
+    (2, 1024, 1024, 8, 2, 32, True, "bfloat16"),
+    (4, 64, 1, 4, 4, 64, True, "bfloat16"),
+)
 # phase 9: the oracle's random graphs (nodes, edges, t_max) and their
 # seeds, sized so GFPReference takes under a minute for the 12 full_deep
 # patterns on every edge of the three; the Fig. 10 protocol's seeds
@@ -337,12 +384,16 @@ RESILIENCE_CHECKPOINT_EVERY = 5
 # phase 13: witnesses.  (a) the oracle's graphs, WIT_ORACLE_SEEDS seeds at
 # k = WIT_ORACLE_K; (b) the session's witness mode over WIT_SEEDS seeds of
 # the phase-3 graph at k = WIT_K, the first WIT_CPU_SEEDS of them also on
-# the CPU port
+# the CPU port (4,096 until phase 18 came, which with its backward cases
+# takes about 40 s; the CPU port's witness mines took 89.6 s at 4,096,
+# 56.2 s at 1,024 and 89.6 s at 2,048 in three runs on NVIDIA H100
+# machines at 700 W, the host's speed varying between them; PERF.md
+# section 4 lists the cuts)
 WIT_ORACLE_SEEDS = 512
 WIT_ORACLE_K = 3
 WIT_SEEDS = 1 << 16
 WIT_K = 2
-WIT_CPU_SEEDS = 4096
+WIT_CPU_SEEDS = 2048
 # bulk-only witness schedules cannot decompose hub rows into branches as a
 # counting mine does, so hub seeds sweep whole rows: at this size up to
 # 8,192 offset combinations a launch for cycle4 (253 s over 65,536 seeds
@@ -419,6 +470,31 @@ LM_PROFILE_STEPS = 8
 LM_SMOKE = (2, 16)
 LM_DECODE_ARCHS = ("qwen2-1.5b", "mixtral-8x7b", "zamba2-2.7b", "xlstm-125m", "chameleon-34b")
 LM_CLI_ARGS = ("--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16", "--gen", "32")
+# phase 18: LM training at qwen2-1.5b's published width, train_4k's
+# sequence of 4,096 (src/repro/configs/base.py:90) with the batch cut from
+# 256 to TRAIN_CELL[0]; TRAIN_WARM steps, then TRAIN_STEPS timed under
+# set_sync_debug_mode("error"), TRAIN_PROFILE_STEPS more under
+# torch.profiler; every smoke config trained TRAIN_SMOKE_STEPS steps on the
+# card and on the CPU port from one checkpoint, at TRAIN_SMOKE_SEQ tokens
+# (at the window where an architecture has one below it: the kernel has
+# none, ROADMAP A15); the launcher with TRAIN_CLI_ARGS in process
+TRAIN_CELL = (4, 4096)
+TRAIN_WARM = 2
+TRAIN_STEPS = 6
+TRAIN_PROFILE_STEPS = 2
+TRAIN_F32_T = 1024  # the float32 gradient check's tokens (one sequence)
+TRAIN_SMOKE_STEPS = 4
+TRAIN_SMOKE_SEQ = 64
+# the smoke trainings' bounds, card against CPU: losses within 1e-4
+# relative; parameters within half of one AdamW step at lr 1e-3.  AdamW
+# divides each update by sqrt(v) + 1e-8, so where a gradient element is
+# zero in exact arithmetic its rounding sets the update: at mixtral's
+# worst element (attn/wo) the step-0 gradient is -6.8e-9 on the CPU and
+# 3.5e-8 on the card, 6e-8 of the leaf's largest |g|, the card's the same
+# in two runs (smoke_grad_reading; PERF.md section 6)
+TRAIN_SMOKE_LOSS_RTOL = 1e-4
+TRAIN_SMOKE_PARAM_ATOL = 5e-4
+TRAIN_CLI_ARGS = ("--arch", LM_ARCH, "--smoke", "--steps", "4")
 
 
 def log(msg: str) -> None:
@@ -971,11 +1047,12 @@ def profiled_device_events(fn, tries: int = PROFILE_TRIES):
     return [], wall
 
 
-def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None):
+def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None, per_call: int = 1):
     """Mean device time of the launches of kernels named ``match`` that
-    ``fn`` makes (one a call), under ``torch.profiler`` (the wrapper's host
-    work left out), and how many of the ``reps`` launches the profiler
-    recorded: the mean is over those it recorded.  (None, 0) when the
+    ``fn`` makes (``per_call`` of them a call, summed into the call's
+    time), under ``torch.profiler`` (the wrapper's host work left out), and
+    how many of the ``reps`` calls the profiler recorded: the mean is over
+    those it recorded.  (None, 0) when the
     profiler recorded no device kernel at all; a profile that recorded
     kernels but none named ``match`` fails.  ``before``, if given, runs
     ahead of each call (its kernels are not named ``match``)."""
@@ -995,7 +1072,7 @@ def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None
     if not us:
         raise AssertionError(f"the profiler saw {len(events)} device kernels and none named {match!r}: "
                              f"{sorted({name for name, _ in events})[:8]}")
-    return sum(us) / 1e3 / len(us), len(us)
+    return sum(us) / 1e3 / (len(us) / per_call), len(us) // per_call
 
 
 def fa_row(q, k, v, causal, reps) -> dict:
@@ -1090,14 +1167,19 @@ def fa_bwd_plain(q, k, v, o, do, lse, causal):
     return dq.reshape(b, h, t, hd).transpose(1, 2), fold(dk), fold(dv)
 
 
-def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None) -> dict:
-    """The short-path backward kernel against its plain version on the same
+def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0) -> dict:
+    """The backward kernel (short or long path, ``ops.bwd_plan``'s, which
+    must equal the ``.cu`` entry's) against its plain version on the same
     inputs (the forward kernel's o and lse unless given): max |diff| over
-    dQ, dK, dV, within FA_BWD_TOL in float32 and 2e-2 relative and
-    absolute in bf16; two launches bit-identical; and kernel / plain /
-    library times with the bound (``ms`` by CUDA events over wrapper calls,
-    ``kernel_ms`` under ``torch.profiler``).  The library call is the
-    backward of one ``F.scaled_dot_product_attention`` at the same shape
+    dQ, dK, dV, within FA_BWD_TOL (plus ``rtol32`` relative) in float32 and
+    2e-2 relative and absolute in bf16 (on the long path also the max
+    |diff| within 2e-2 of the outputs' largest |value|, ``max_rel_err``); two
+    launches bit-identical; and
+    kernel / plain / library times with the bound (``ms`` by CUDA events
+    over wrapper calls, ``kernel_ms`` under ``torch.profiler``: the sum of
+    the call's kernels, one on the short path, three on the long one).
+    The library call is the backward of one
+    ``F.scaled_dot_product_attention`` at the same shape
     (``torch.autograd.grad`` of its output at dO)."""
     import torch
     import torch.nn.functional as F
@@ -1106,26 +1188,41 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None) -> dict:
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    path = fa_ops.bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal)
+    if fa_ops.kernel_bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal) != path:
+        raise AssertionError(f"ops.bwd_plan and the .cu entry choose different backward paths at {tuple(q.shape)}")
     if o is None:
-        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True)
     run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     got, again = run(), run()
     want = fa_bwd_plain(q, k, v, o, do, lse, causal)
     err = max(float((x.float() - z).abs().max()) for x, z in zip(got, want))
-    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (0.0, FA_BWD_TOL)
+    # the max |diff| over the largest |value| of dQ, dK and dV together: on
+    # a training launch dO is the mean loss's gradient (about 1e-8), where
+    # the absolute bound alone would pass anything; one common scale, since
+    # an output can be zero in exact arithmetic (a single key: dS = 0) and
+    # hold only rounding there
+    scale = max(float(z.abs().max()) for z in want)
+    rel = max(float((x.float() - z).abs().max()) for x, z in zip(got, want)) / max(scale, 1e-30)
+    if dtype == "bfloat16" and path != "short" and not rel <= 2e-2:
+        raise AssertionError(f"flash_attention_bwd differs from its plain version by {rel} of an output's scale "
+                             f"at {tuple(q.shape)}, {tuple(k.shape)}, causal={causal}")
+    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (rtol32, FA_BWD_TOL)
     for name, x, y, z in zip("qkv", got, again, want):
         if not torch.equal(x, y):
             raise AssertionError(f"two launches of flash_attention_bwd differ in d{name} at {tuple(q.shape)}")
         if not bool(((x.float() - z).abs() <= atol + rtol * z.abs()).all()):
             raise AssertionError(f"flash_attention_bwd differs from its plain version in d{name} at "
                                  f"{tuple(q.shape)}, {tuple(k.shape)}, causal={causal}: {err}")
+    del got, again, want
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
     do_t = do.transpose(1, 2)
     bound, by = fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
-    kernel_ms, seen = kernel_device_ms(run, reps, match="flash_bwd_kernel")
+    kernel_ms, seen = kernel_device_ms(run, reps, match="flash_bwd_kernel", per_call=1 if path == "short" else 3)
     return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
+            "bwd_plan": path, "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
+            "max_rel_err": rel,
             "ms": cuda_ms(run, reps), "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
             "plain_ms": cuda_ms(lambda: fa_bwd_plain(q, k, v, o, do, lse, causal), max(3, reps // 10)),
             "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True),
@@ -1134,24 +1231,37 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None) -> dict:
 
 
 def phase_flash_attention_bwd(device, report):
-    """The short-path backward kernel against its plain version at every
-    case of FA_BWD_CASES, timed beside its bound and SDPA's backward."""
+    """The backward kernels against their plain version: the short path at
+    every case of FA_BWD_CASES, the long backward at every case of
+    FA_LONG_BWD_CASES (both of its routes must be reached), timed beside
+    their bound and SDPA's backward.  Returns the worst float32 |diff| of
+    each path."""
     import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     rows = []
-    for b, t, s, h, kvh, hd, causal, dtype in FA_BWD_CASES:
-        dt = getattr(torch, dtype)
-        q, do = (torch.randn((b, t, h, hd), generator=gen, device=device).to(dt) for _ in range(2))
-        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
-        row = fa_bwd_row(q, k, v, do, causal, 20)
-        rows.append(row)
-        log("kernel timing: flash_attention_bwd " + json.dumps(row))
+    for long, cases in ((False, FA_BWD_CASES), (True, FA_LONG_BWD_CASES)):
+        for b, t, s, h, kvh, hd, causal, dtype in cases:
+            dt = getattr(torch, dtype)
+            q, do = (torch.randn((b, t, h, hd), generator=gen, device=device).to(dt) for _ in range(2))
+            k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
+            row = fa_bwd_row(q, k, v, do, causal, 20, rtol32=FA_BWD_TOL if long else 0.0)
+            if (row["bwd_plan"] != "short") != long:
+                raise AssertionError(f"the backward case {(b, t, s, h, kvh, hd)} took the {row['bwd_plan']!r} path")
+            rows.append(row)
+            log("kernel timing: flash_attention_bwd " + json.dumps(row))
+            del q, do, k, v
+            torch.cuda.empty_cache()
     report["flash_attention_bwd_shapes"] = rows
-    worst = max(r["max_abs_err"] for r in rows if r["dtype"] == "float32")
-    log(f"kernel: flash_attention_bwd within {FA_BWD_TOL} (float32) of its plain version on {len(rows)} cases "
-        f"(max |diff| {worst})")
+    reached = {r["bwd_plan"] for r in rows}
+    if reached != set(fa_ops.BWD_PATHS):
+        raise AssertionError(f"the backward cases reached only the paths {sorted(reached)}")
+    worst = {p: max((r["max_abs_err"] for r in rows if r["dtype"] == "float32" and (r["bwd_plan"] == "short") == (p == "short")),
+                    default=0.0) for p in ("short", "long")}
+    log(f"kernel: flash_attention_bwd within {FA_BWD_TOL} (float32; the long path also {FA_BWD_TOL} relative) "
+        f"of its plain version on {len(rows)} cases (max |diff| {worst})")
     return worst
 
 
@@ -1173,6 +1283,8 @@ def device_profile(fn, top: int = 12) -> dict:
     busy = sum(v[0] for v in kern.values())
     # every path's kernel is named flash_fwd_kernel* (short, wgmma, or the CUDA-core one)
     flash = sum(v[0] for k, v in kern.items() if "flash_fwd_kernel" in k)
+    # every backward kernel is named flash_bwd_kernel* (the short one; the long one's row-dot, dQ and dK/dV passes)
+    bwd = {k[:100]: v[0] for k, v in kern.items() if "flash_bwd_kernel" in k}
     return {
         "profiled": True,
         "wall_profiled_s": wall_profiled,
@@ -1181,6 +1293,8 @@ def device_profile(fn, top: int = 12) -> dict:
         "kernel_launches": sum(v[1] for v in kern.values()),
         "flash_attention_kernel_s": flash,
         "flash_attention_share_of_device": flash / busy if busy else None,
+        "flash_attention_bwd_kernel_s": sum(bwd.values()),
+        "flash_attention_bwd_kernels_s": bwd,
         "top_kernels": [{"name": k[:100], "s": v[0], "count": v[1]}
                         for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:top]],
     }
@@ -2346,6 +2460,296 @@ def phase_lm(report, zero_launches, read_launches):
     return launches, fa_args["args"]
 
 
+def train_flops(cfg, n_params: int, b: int, t: int) -> float:
+    """A training step's model FLOPs: 6 N per token for the weights (the
+    tied embedding counted once, as the head's product), and the causal
+    attention's two products three times over (forward, and twice that
+    backward) at 2 flops a multiply-add: 3 * 4 * hd * T (T + 1) / 2 per
+    head and sequence a layer."""
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    return 6.0 * n_params * b * t + 12.0 * cfg.head_dim * (t * (t + 1) / 2) * cfg.n_heads * b * n_attn
+
+
+def tree_rel_check(got, want, rel: float) -> float:
+    """The largest |diff| of a leaf over that leaf's largest |value|; fails
+    above ``rel``."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max()) / scale if scale else float((a - b).abs().max())
+        worst = max(worst, d)
+    if not worst <= rel:
+        raise AssertionError(f"gradients differ by {worst} of a leaf's largest |g| (limit {rel})")
+    return worst
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """The leaves' key paths, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def loss_and_grads(params, batch, cfg, backend):
+    """``loss_fn`` (remat on) and its gradient leaves, in ``tree_leaves``
+    order, a None (an unused leaf) as zeros."""
+    import torch
+    from repro_torch.models import model as M
+
+    leaves = M.tree_leaves(params)
+    req = [a.detach().requires_grad_() for a in leaves]
+    it = iter(req)
+    loss = M.loss_fn(M.tree_map(lambda _: next(it), params), batch, cfg, remat=True, attn_backend=backend)
+    got = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, got)]
+
+
+def smoke_grad_reading(smoke, device) -> dict:
+    """What lies behind the smoke trainings' parameter bound: for the
+    architecture whose card and CPU parameters differ most, its step-0
+    gradient of that leaf (the same weights and batch) on the CPU and twice
+    on the card, at the element where the parameters differ most and over
+    the leaf."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    name = max(smoke, key=lambda n: smoke[n]["param_max_abs_diff"])
+    row = smoke[name]
+    c = dataclasses.replace(smoke_config(name), dtype="float32")
+    p_cpu = M.init_params(c, SEED, device="cpu")
+    i = _leaf_paths(p_cpu).index(row["param_worst_leaf"])
+    at = row["param_worst_at"]
+    p_dev = M.tree_map(lambda a: a.to(device), p_cpu)
+    g_c = loss_and_grads(p_cpu, T.synthetic_batch(c, 2, row["seq"], 0, "cpu"), c, "kernel")[1][i].flatten()
+    batch = T.synthetic_batch(c, 2, row["seq"], 0, device)
+    g_d1 = loss_and_grads(p_dev, batch, c, "kernel")[1][i].flatten().cpu()
+    g_d2 = loss_and_grads(p_dev, batch, c, "kernel")[1][i].flatten().cpu()
+    scale = float(g_c.abs().max())
+    return {"arch": name, "leaf": row["param_worst_leaf"], "at": at, "param_abs_diff": row["param_max_abs_diff"],
+            "grad_cpu_at": float(g_c[at]), "grad_card_at": float(g_d1[at]), "grad_card_again_at": float(g_d2[at]),
+            "grad_leaf_max_abs": scale, "grad_at_over_leaf_max": abs(float(g_c[at])) / scale if scale else None,
+            "grad_card_vs_cpu_leaf_max_abs": float((g_d1 - g_c).abs().max()),
+            "grad_card_vs_card_leaf_max_abs": float((g_d1 - g_d2).abs().max()),
+            "grad_leaf_elements_below_1e-8": int((g_c.abs() < 1e-8).sum()), "grad_leaf_elements": g_c.numel()}
+
+
+def phase_train(report, zero_launches, read_launches):
+    """Phase 18: the LM's training loop on the card.  (a) qwen2-1.5b at its
+    published width, 4 x 4,096 tokens a step, bf16 activations over float32
+    weights, remat on, the kernel attention backend: TRAIN_WARM steps, then
+    TRAIN_STEPS timed under set_sync_debug_mode("error") with the launch
+    counts read after each (exactly 28 backward launches, all on the long
+    backward, and 2 x 28 forward launches with the logsumexp: each unit's
+    forward runs again in its recompute), then TRAIN_PROFILE_STEPS under
+    torch.profiler; at the first step the "torch" backend's loss and
+    gradient norm beside the kernel's; (b) float32 at full width over
+    TRAIN_F32_T tokens: the kernel backend's gradient against the torch
+    backend's; (c) every smoke config trained on the card against the CPU
+    port; (d) the launcher in process.  Returns the step's launch counts and
+    the arguments of a backward launch of the cell."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS, get_config, smoke_config
+    from repro_torch.device import allowed_sync
+    from repro_torch.distributed.checkpoint import save_checkpoint
+    from repro_torch.distributed.optimizer import AdamWConfig, _global_norm, adamw_init
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    device = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32, as the CPU
+    cfg = get_config(LM_ARCH)
+    b, t = TRAIN_CELL
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    path = fa_ops.bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True)
+    if path != "mma" or fa_ops.kernel_bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True) != path:
+        raise AssertionError(f"qwen2's training launch is planned on the {path!r} backward path, not 'mma'")
+    n_params = M.n_params(cfg)
+    out = {"arch": LM_ARCH, "n_params": n_params, "dtype": cfg.dtype, "batch": b, "tokens": t, "remat": True,
+           "attn_backend": "kernel", "bwd_plan": path}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    step_fn = T.make_train_step(cfg, AdamWConfig(lr=1e-3))
+    batches = [T.synthetic_batch(cfg, b, t, i, device) for i in range(TRAIN_WARM + TRAIN_STEPS + TRAIN_PROFILE_STEPS)]
+
+    # (a) the cell: the torch backend's loss and gradient norm at the first step's weights
+    loss_t, g_t = loss_and_grads(params, batches[0], cfg, "torch")
+    gn_t = _global_norm(g_t)
+    del g_t
+    torch.cuda.empty_cache()
+    bwd_fn = fa_ops.flash_attention_bwd
+    bwd_args = {}
+
+    def capture_bwd(q, k, v, o, do, lse, causal=True):
+        bwd_args.setdefault("args", (q, k, v, o, do, lse, causal))
+        return bwd_fn(q, k, v, o, do, lse, causal=causal)
+
+    losses, norms, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARM):
+        fa_ops.flash_attention_bwd = capture_bwd if i == 1 else bwd_fn
+        try:
+            zero_launches()
+            params, opt, loss, gn = step_fn(params, opt, batches[i])
+            warm_launches = read_launches()
+        finally:
+            fa_ops.flash_attention_bwd = bwd_fn
+        losses.append(loss)
+        norms.append(gn)
+    torch.cuda.synchronize()
+    per_step = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for i in range(TRAIN_WARM, TRAIN_WARM + TRAIN_STEPS):
+            zero_launches()
+            params, opt, loss, gn = step_fn(params, opt, batches[i])
+            per_step.append(read_launches())
+            losses.append(loss)
+            norms.append(gn)
+        with allowed_sync():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    peak = torch.cuda.max_memory_allocated()
+
+    def steps():
+        nonlocal params, opt
+        for i in range(TRAIN_WARM + TRAIN_STEPS, len(batches)):
+            params, opt, loss, gn = step_fn(params, opt, batches[i])
+            losses.append(loss)
+            norms.append(gn)
+
+    prof = device_profile(steps)
+    losses_h = [float(x) for x in losses]
+    norms_h = [float(x) for x in norms]
+    step_s = wall / TRAIN_STEPS
+    flops = train_flops(cfg, n_params, b, t)
+    want = {"flash_attention": 2 * n_attn, "flash_attention_lse": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "flash_attention_bwd_long": n_attn}
+    cell = {"warm_steps": TRAIN_WARM, "timed_steps": TRAIN_STEPS, "wall_s": wall, "s_per_step": step_s,
+            "steps_per_s": 1.0 / step_s, "tokens_per_s": b * t / step_s, "peak_mem_bytes": int(peak),
+            "model_flops_per_step": flops, "bf16_peak_share": flops / step_s / PEAK_BF16_FLOPS,
+            "losses": losses_h, "grad_norms": norms_h, "launches_per_step": per_step, "launches_warm": warm_launches,
+            "expected_launches_per_step": want, "sync_debug": "error",
+            "torch_backend_first_step": {"loss": float(loss_t), "grad_norm": float(gn_t),
+                                         "loss_rel_diff": abs(float(loss_t) - losses_h[0]) / abs(float(loss_t)),
+                                         "grad_norm_rel_diff": abs(float(gn_t) - norms_h[0]) / float(gn_t)}}
+    if prof.get("profiled"):
+        cell["profile"] = prof
+        cell["attn_bwd_device_ms_per_step"] = prof["flash_attention_bwd_kernel_s"] / TRAIN_PROFILE_STEPS * 1e3
+        cell["attn_bwd_device_ms_per_step_by_kernel"] = {
+            k_: s_ / TRAIN_PROFILE_STEPS * 1e3 for k_, s_ in prof["flash_attention_bwd_kernels_s"].items()}
+        cell["device_busy_share"] = prof["device_busy_share"]
+    else:
+        cell["profile"] = prof
+        cell["attn_bwd_device_ms_per_step"] = None  # not measured
+    out["cell"] = cell
+    log("LM training cell: " + json.dumps({k_: v for k_, v in cell.items() if k_ != "profile"}))
+    log("LM training profile: " + json.dumps(prof))
+    if not (np.isfinite(losses_h).all() and np.isfinite(norms_h).all()):
+        raise AssertionError(f"a step's loss or gradient norm is not finite: {losses_h}, {norms_h}")
+    for i, got in enumerate(per_step):
+        if any(got[k_] != v for k_, v in want.items()):
+            raise AssertionError(f"timed step {i} launched {got}, not {want}")
+    ft = cell["torch_backend_first_step"]
+    if not (ft["loss_rel_diff"] <= 1e-2 and ft["grad_norm_rel_diff"] <= 2e-2):
+        raise AssertionError(f"the backends' first step differs: {ft}")
+    del opt, batches, losses, norms
+    torch.cuda.empty_cache()
+
+    # (b) float32 at full width: the kernel backend's gradient against the torch backend's
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    one = T.synthetic_batch(cfg32, 1, TRAIN_F32_T, 0, device)
+    loss_k, g_k = loss_and_grads(params, one, cfg32, "kernel")
+    loss_t, g_t = loss_and_grads(params, one, cfg32, "torch")
+    worst = tree_rel_check(g_k, g_t, 1e-3)
+    f32 = {"tokens": TRAIN_F32_T, "bwd_plan": fa_ops.bwd_plan(1, TRAIN_F32_T, TRAIN_F32_T, h, kvh, hd, torch.float32,
+                                                               True),
+           "loss_kernel": float(loss_k), "loss_torch": float(loss_t), "grad_max_rel_diff": worst}
+    out["float32"] = f32
+    log("LM training float32 check: " + json.dumps(f32))
+    del params, g_k, g_t
+    torch.cuda.empty_cache()
+
+    # (c) every smoke config: train_loop on the card against the CPU port, from one step-0 checkpoint
+    smoke, bad = {}, []
+    root = ROOT / "build" / "train_smoke"
+    for name in sorted(ARCHS):
+        c = dataclasses.replace(smoke_config(name), dtype="float32")
+        seq = min(TRAIN_SMOKE_SEQ, c.attn_window or TRAIN_SMOKE_SEQ)
+        p_cpu = M.init_params(c, SEED, device="cpu")
+        as_np = lambda tree: M.tree_map(lambda a: a.numpy(), tree)
+        shutil.rmtree(root, ignore_errors=True)
+        save_checkpoint(str(root / "card"), 0, (as_np(p_cpu), as_np(adamw_init(p_cpu))))
+        shutil.copytree(root / "card", root / "cpu")
+        zero_launches()
+        t0 = time.perf_counter()
+        pd, ld = T.train_loop(c, TRAIN_SMOKE_STEPS, 2, seq, ckpt_dir=str(root / "card"), verbose=False)
+        card_s = time.perf_counter() - t0
+        launched = read_launches()
+        pc, lc = T.train_loop(c, TRAIN_SMOKE_STEPS, 2, seq, ckpt_dir=str(root / "cpu"), verbose=False, device="cpu")
+        names = _leaf_paths(pd)  # both trees come back from adamw_update with their keys sorted
+        dabs = [(a.cpu() - z).abs() for a, z in zip(M.tree_leaves(pd), M.tree_leaves(pc))]
+        diffs = [float(d.max()) for d in dabs]
+        worst = max(range(len(diffs)), key=diffs.__getitem__)
+        at = int(dabs[worst].argmax())
+        del dabs
+        lrel = max(abs(x - y) / abs(y) for x, y in zip(ld, lc))
+        na = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in c.unit) * c.n_units
+        row = {"seq": seq, "losses_card": ld, "losses_cpu": lc, "loss_max_rel_diff": lrel,
+               "param_max_abs_diff": diffs[worst], "param_worst_leaf": names[worst], "param_worst_at": at,
+               "card_s": card_s,
+               "flash_attention_bwd": launched["flash_attention_bwd"], "expected_bwd": TRAIN_SMOKE_STEPS * na}
+        smoke[name] = row
+        if not (lrel <= TRAIN_SMOKE_LOSS_RTOL and diffs[worst] <= TRAIN_SMOKE_PARAM_ATOL):
+            bad.append(f"{name}: the card's training differs from the CPU port's")
+        if launched["flash_attention_bwd"] != TRAIN_SMOKE_STEPS * na:
+            bad.append(f"{name}: flash_attention_bwd launched {launched['flash_attention_bwd']} times")
+    shutil.rmtree(root, ignore_errors=True)
+    out["smoke"] = smoke
+    log("LM training, smoke configs on the card against the CPU port: " + json.dumps(smoke))
+    out["smoke_grad_reading"] = smoke_grad_reading(smoke, device)
+    log("LM training, the step-0 gradient where the smoke parameters differ most: "
+        + json.dumps(out["smoke_grad_reading"]))
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+    # (d) the launcher's command line, in process
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_losses = T.main(list(TRAIN_CLI_ARGS))
+    cli = {"argv": list(TRAIN_CLI_ARGS), "wall_s": time.perf_counter() - t0, "output": buf.getvalue().strip()[-400:],
+           "losses": cli_losses}
+    out["cli"] = cli
+    log("LM training launcher (repro_torch.launch.train): " + json.dumps(cli))
+    if "final loss:" not in buf.getvalue() or not np.isfinite(cli_losses).all():
+        raise AssertionError(f"repro_torch.launch.train did not train: {cli}")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    report["train"] = out
+    return per_step[0], bwd_args["args"]
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -2391,15 +2795,17 @@ def main() -> int:
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
-        fa_ops.lse_launches = fa_ops.bwd_launches = 0
+        fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read_launches():
         # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone;
-        # "flash_attention" every forward launch, "flash_attention_lse" those that wrote the logsumexp
+        # "flash_attention" every forward launch, "flash_attention_lse" those that wrote the logsumexp,
+        # "flash_attention_bwd" every backward launch, "flash_attention_bwd_long" those on the long backward
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches,
                 "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches,
-                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches}
+                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
+                "flash_attention_bwd_long": fa_ops.long_bwd_launches}
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2778,7 +3184,7 @@ def main() -> int:
         "launches": fit_launches["flash_attention_bwd"],
         **{k: bwd_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                     "kernel_ms")},
-        "max_abs_err_cases": fa_bwd_err,
+        "max_abs_err_cases": fa_bwd_err["short"],
         "library": "the backward of F.scaled_dot_product_attention at the same shape",
         "shape": {k: bwd_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
@@ -2799,6 +3205,33 @@ def main() -> int:
                                                  "bound_ms", "bound_by", "plan")},
         "lm_shape": {key: lm_main[key] for key in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
+    log(f"card: {card}")
+
+    # ---- 18. the LM's training loop: qwen2-1.5b at full width -----------
+    t0 = time.perf_counter()
+    train_launches, train_args = phase_train(report, zero_launches, read_launches)
+    report["train"]["phase_s"] = time.perf_counter() - t0
+    q, k, v, o, do, lse, causal = train_args
+    bwd_long = fa_bwd_row(q, k, v, do, causal, 20, o=o, lse=lse, rtol32=FA_BWD_TOL)
+    del q, k, v, o, do, lse, train_args
+    log("kernel timing: flash_attention_bwd on the LM training path " + json.dumps(bwd_long))
+    report["flash_attention_bwd_train_shape"] = bwd_long
+    kernels.append({
+        "name": "flash_attention_bwd_long",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_long_bwd.cuh",
+        # not a TPU kernel: the JAX train step differentiates XLA's attention
+        "replaces": "src/repro/models/layers.py:108",
+        "launches": train_launches["flash_attention_bwd_long"],
+        **{k_: bwd_long[k_] for k_ in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "kernel_ms", "bwd_plan")},
+        "max_abs_err_cases": fa_bwd_err["long"],
+        "launches_per": "one training step of the phase-18 cell",
+        "library": "the backward of F.scaled_dot_product_attention at the same shape",
+        "shape": {k_: bwd_long[k_] for k_ in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
+    })
+    fa_entry.update({"launches_train": train_launches["flash_attention"],
+                     "launches_train_lse": train_launches["flash_attention_lse"]})
     log(f"card: {card}")
 
     report["kernels"] = kernels

@@ -36,10 +36,13 @@
 // A refused launch (shared memory, occupancy, tensor-map encoding)
 // returns its error and nothing runs; no path falls back to another.
 //
-// Training: on path A the launch can also write the rows' logsumexp, and
-// flash_attention_bwd_launch (flash_short_bwd.cuh) computes dQ, dK, dV
-// from it.  Only path A's shapes have a backward; a backward, or a
-// logsumexp, asked of another path's shape is refused.
+// Training: on every path the launch can also write the rows' float32
+// logsumexp of the scaled, masked scores (B, H, T), and
+// flash_attention_bwd_launch computes dQ, dK, dV from it: for path A's
+// shapes with flash_short_bwd.cuh, for every other shape with
+// flash_long_bwd.cuh (its "mma" route for bf16 at hd 64 or 128, its
+// "simt" route otherwise; `bwd_plan`).  A forward-only call passes no
+// logsumexp pointer and writes none.
 //
 // Path C.  A lane group of G = hd / 8 lanes holds one query row: each
 // lane keeps 8 of its dims of q and of the accumulator in registers, and
@@ -50,13 +53,16 @@
 // pack several (b, h) problems into one block; long ones give each block
 // one problem's tile of R rows.  Causal blocks stop at the last key their
 // last row can see.  Its products run on the CUDA cores, so at long
-// sequences it sits far above the operations bound.
+// sequences it sits far above the operations bound.  With a logsumexp
+// pointer, lane 0 of each row's group writes m + log(l) (q was scaled
+// first, so m is in the scores' own units).
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or the refusal) so that the wrapper can raise.
 
 #include "flash_common.cuh"
 #include "flash_short.cuh"
+#include "flash_long_bwd.cuh"
 #include "flash_short_bwd.cuh"
 #include "flash_wgmma.cuh"
 
@@ -73,6 +79,7 @@ constexpr int kBK = 32;   // keys per shared-memory tile
 constexpr int kSmemBudget = 48 * 1024;
 
 enum Path { kShort = 0, kWgmma = 1, kSimt = 2 };
+enum BwdPath { kBwdShort = 0, kBwdMma = 1, kBwdSimt = 2 };
 
 // dtype: 0 = float32, 1 = bfloat16
 int plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
@@ -83,12 +90,19 @@ int plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
   return kSimt;
 }
 
+// the backward's path: the short kernel for path A's shapes, else the long
+// kernels' tensor-core route for bf16 at hd 64 or 128, else their simt route
+int bwd_plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
+  if (plan(b, t, s, h, kvh, hd, dtype, causal) == kShort) return kBwdShort;
+  return dtype == 1 && (hd == 64 || hd == 128) ? kBwdMma : kBwdSimt;
+}
+
 // grid: n_groups * q_tiles blocks; block x covers problems
 // [bh0, bh0 + pb) and, in each, the query rows [tile * rpp, tile * rpp + rpp)
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int n_bh,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int n_bh,
                  int t_len, int s_len, int n_heads, int group, int kv_heads,
                  int causal, float scale, int pb, int rpp, int q_tiles) {
   constexpr int G = HD / kDPL;  // lanes per query row (2..16)
@@ -190,11 +204,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) out[e] = acc[e] * inv;
     Io<T>::store8(o + q_off, out);
+    if (lse != nullptr && sub == 0) lse[(size_t)(bh0 + p) * t_len + t] = m + logf(l);
   }
 }
 
 template <typename T, int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int t,
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t,
            int s, int h, int kvh, int causal, float scale, cudaStream_t st) {
   constexpr int G = HD / kDPL;
   constexpr int R = kThreads / G;  // query rows per block
@@ -209,7 +224,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int
   const long long blocks = (long long)((n_bh + pb - 1) / pb) * q_tiles;
   const size_t smem = 2 * (size_t)pb * kBK * HD * sizeof(float);
   flash_fwd_kernel<T, HD><<<(unsigned)blocks, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, n_bh, t, s, h, h / kvh,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, n_bh, t, s, h, h / kvh,
       kvh, causal, scale, pb, rpp, q_tiles);
   return (int)cudaGetLastError();
 }
@@ -219,9 +234,9 @@ int launch_path(int path, const void* q, const void* k, const void* v, void* o, 
                 int h, int kvh, int causal, float scale, cudaStream_t st) {
   if (path == kShort) return flash::launch_short<T, HD>(q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
   if constexpr (std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128)) {
-    if (path == kWgmma) return flash::launch_wgmma<HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+    if (path == kWgmma) return flash::launch_wgmma<HD>(q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
   }
-  return launch_simt<T, HD>(q, k, v, o, b, t, s, h, kvh, causal, scale, st);
+  return launch_simt<T, HD>(q, k, v, o, lse, b, t, s, h, kvh, causal, scale, st);
 }
 
 template <typename T>
@@ -236,15 +251,24 @@ int launch_hd(int path, const void* q, const void* k, const void* v, void* o, fl
   }
 }
 
+template <typename T, int HD>
+int launch_bwd_path(int path, const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const float* lse, void* dq, void* dk, void* dv, float* dsum, int b, int t, int s, int h, int kvh,
+                    int causal, float scale, cudaStream_t st) {
+  if (path == kBwdShort)
+    return flash::launch_short_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+  return flash::launch_long_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
+}
+
 template <typename T>
-int launch_bwd_hd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-                  void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh, int hd, int causal,
-                  float scale, cudaStream_t st) {
+int launch_bwd_hd(int path, const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const float* lse, void* dq, void* dk, void* dv, float* dsum, int b, int t, int s, int h, int kvh,
+                  int hd, int causal, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return flash::launch_short_bwd<T, 16>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
-    case 32: return flash::launch_short_bwd<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
-    case 64: return flash::launch_short_bwd<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
-    case 128: return flash::launch_short_bwd<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+    case 16: return launch_bwd_path<T, 16>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
+    case 32: return launch_bwd_path<T, 32>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
+    case 64: return launch_bwd_path<T, 64>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
+    case 128: return launch_bwd_path<T, 128>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -263,8 +287,8 @@ extern "C" int flash_attention_plan(int b, int t, int s, int h, int kvh, int hd,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  lse, when
-// not null, receives the rows' float32 logsumexp in (B, H, T); only the
-// short path writes it, so another path's shape is refused with it.
+// not null, receives the rows' float32 logsumexp in (B, H, T), on every
+// path.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int dtype, int b, int t, int s, int h,
@@ -273,7 +297,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (!valid(b, t, s, h, kvh, hd, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int path = plan(b, t, s, h, kvh, hd, dtype, causal);
-  if (lse != nullptr && path != kShort) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_hd<float>(path, q, k, v, o, lse, b, t, s, h, kvh, hd, causal, scale, st);
   return launch_hd<__nv_bfloat16>(path, q, k, v, o, lse, b, t, s, h, kvh, hd, causal, scale, st);
 }
@@ -286,16 +309,26 @@ extern "C" int flash_attention_bwd_chunk(int b, int t, int s, int h, int kvh, in
   return flash::bwd_chunk_heads(t, s, h, kvh, hd);
 }
 
-// the backward of a short-path forward: dq (B, T, H, hd), dk and dv
-// (B, S, K, hd) in the inputs' dtype, from q, k, v, the forward's o and
-// lse, and the output gradient dout
+// the backward's path at this shape: 0 short, 1 mma, 2 simt; -1 if the
+// shape is refused
+extern "C" int flash_attention_bwd_plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
+  return valid(b, t, s, h, kvh, hd, dtype) ? bwd_plan(b, t, s, h, kvh, hd, dtype, causal) : -1;
+}
+
+// the backward of the forward at any shape it takes: dq (B, T, H, hd), dk
+// and dv (B, S, K, hd) in the inputs' dtype, from q, k, v, the forward's o
+// and lse, and the output gradient dout.  dsum is a float32 (B, H, T)
+// scratch for the long paths (unused, and may be null, on the short one).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                           const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                                          int dtype, int b, int t, int s, int h, int kvh, int hd, int causal,
-                                          float scale, void* stream) {
-  if (!valid(b, t, s, h, kvh, hd, dtype) || plan(b, t, s, h, kvh, hd, dtype, causal) != kShort)
-    return (int)cudaErrorInvalidValue;
+                                          float* dsum, int dtype, int b, int t, int s, int h, int kvh, int hd,
+                                          int causal, float scale, void* stream) {
+  if (!valid(b, t, s, h, kvh, hd, dtype)) return (int)cudaErrorInvalidValue;
+  const int path = bwd_plan(b, t, s, h, kvh, hd, dtype, causal);
+  if (path != kBwdShort && dsum == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bwd_hd<float>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, hd, causal, scale, st);
-  return launch_bwd_hd<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, hd, causal, scale, st);
+  if (dtype == 0)
+    return launch_bwd_hd<float>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, hd, causal, scale, st);
+  return launch_bwd_hd<__nv_bfloat16>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, hd, causal,
+                                      scale, st);
 }

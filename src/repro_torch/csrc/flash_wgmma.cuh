@@ -30,6 +30,11 @@
 // applied to the float32 scores rather than to q (scaling the bf16 q in
 // place would round it again); the two agree to float32 rounding.  Blocks
 // start with the heaviest query tiles, so that the causal tail is short.
+// With a logsumexp pointer the epilogue also writes each row's float32
+// logsumexp of the scaled, masked scores: (m + log2(l)) * ln 2, from the
+// base-2 running max m and the float32 sum l (lane 0 of each quad).  That
+// is a separate instance (kLse), so a forward-only launch runs the same
+// code as before the logsumexp existed.
 #pragma once
 
 #include <cuda.h>
@@ -118,10 +123,11 @@ struct WgSmem {
   static constexpr int kBytes = kBarOff + 64 + 1024;   // barriers, and room to align the base to 1024
 };
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int t_len,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int t_len,
                        int s_len, int n_heads, int group, int causal, float scale_log2, int n_mtiles, int n_bh) {
   using L = WgSmem<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -272,6 +278,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    if constexpr (kLse) {
+      const int row = row0 + 8 * r;
+      if (quad == 0 && row < t_len)
+        lse[((size_t)b * n_heads + h) * t_len + row] = (m_r[r] + log2f(l_r[r])) * 0.6931471805599453f;
+    }
     l_r[r] = 1.f / fmaxf(l_r[r], 1e-30f);
   }
 #pragma unroll
@@ -329,20 +340,20 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int b, int len, int head
 constexpr int kErrTensorMap = 10001;  // returned when a tensor map cannot be encoded
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int t, int s, int h, int kvh,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s, int h, int kvh,
                  int causal, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, b, t, h, HD, kBM) || !make_map(&tk, k, b, s, kvh, HD, kBN) ||
       !make_map(&tv, v, b, s, kvh, HD, kBN)) {
     return kErrTensorMap;
   }
-  auto kern = flash_fwd_kernel_wgmma<HD>;
+  auto kern = lse != nullptr ? flash_fwd_kernel_wgmma<HD, true> : flash_fwd_kernel_wgmma<HD, false>;
   const int smem = WgSmem<HD>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_mtiles = (t + kBM - 1) / kBM;
   const long long blocks = (long long)n_mtiles * b * h;
-  kern<<<(unsigned)blocks, kWgThreads, smem, st>>>(tq, tk, tv, (__nv_bfloat16*)o, t, s, h, h / kvh, causal,
+  kern<<<(unsigned)blocks, kWgThreads, smem, st>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, t, s, h, h / kvh, causal,
                                                    scale * kLog2e, n_mtiles, b * h);
   return (int)cudaGetLastError();
 }

@@ -25,18 +25,24 @@ FraudGT's shape), ``"wgmma"`` (bf16 at hd 64 or 128: TMA tiles and the
 tensor cores) or ``"simt"`` (the rest, on the CUDA cores).  A launch the
 card refuses raises; no path stands in for another.
 
-Training (the gradient of the short path): ``flash_attention(...,
-return_lse=True)`` also returns each row's float32 logsumexp (B, H, T),
-and :func:`flash_attention_bwd` launches the hand-written backward
-(``csrc/flash_short_bwd.cuh``) on it; :class:`FlashAttentionFn` joins the
-two for autograd.  Only the short path's shapes (T, S <= 32) have a
-backward: any other shape raises ``NotImplementedError`` on either device
-(ROADMAP A13), and nothing stands in for the missing kernel.
+Training: ``flash_attention(..., return_lse=True)`` also returns each
+row's float32 logsumexp (B, H, T) of the scaled, masked scores, on every
+path, and :func:`flash_attention_bwd` launches the hand-written backward
+on it, at every shape the forward takes; :class:`FlashAttentionFn` joins
+the two for autograd.  The backward's path is :func:`bwd_plan`'s (the
+``.cu`` entry makes the same choice, ``flash_attention_bwd_plan``
+reports it): ``"short"`` for the forward's short-path shapes
+(``csrc/flash_short_bwd.cuh``), else the long backward
+(``csrc/flash_long_bwd.cuh``: a row-dot pass, a dQ pass and a dK/dV pass,
+no atomics) on its ``"mma"`` route (bf16 at hd 64 or 128, ``mma.sync``
+on the tensor cores) or its ``"simt"`` route (the rest, CUDA cores).  On
+the CPU both take the plain version.
 
 ``launches`` counts forward launches in this process (one per call that
 reached the card), ``lse_launches`` those of them that wrote the
-logsumexp, and ``bwd_launches`` the backward's launches; comparisons that
-call the plain versions do not count.
+logsumexp, ``bwd_launches`` the backward's launches (one a call, on
+either path) and ``long_bwd_launches`` those of them on the long
+backward; comparisons that call the plain versions do not count.
 """
 from __future__ import annotations
 
@@ -55,18 +61,23 @@ __all__ = [
     "FlashAttentionFn",
     "plan",
     "kernel_plan",
+    "bwd_plan",
+    "kernel_bwd_plan",
     "bwd_chunk_heads",
     "launches",
     "lse_launches",
     "bwd_launches",
+    "long_bwd_launches",
     "HEAD_DIMS",
     "DTYPES",
     "PATHS",
+    "BWD_PATHS",
 ]
 
 launches = 0
 lse_launches = 0
 bwd_launches = 0
+long_bwd_launches = 0
 # the sharded executor's dispatch threads launch concurrently: the
 # read-modify-write of a count is guarded
 _count_lock = threading.Lock()
@@ -75,6 +86,7 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the launch's dtype code
 _SCALE = {hd: 1.0 / math.sqrt(hd) for hd in HEAD_DIMS}
 PATHS = ("short", "wgmma", "simt")  # in the order of the .cu entry's path codes
+BWD_PATHS = ("short", "mma", "simt")  # the backward's, in the order of its path codes
 # the short path's limits, as in csrc/flash_short.cuh
 SHORT_MAX_LEN = 32
 SHORT_HEADER = 128  # bytes of barriers before the slabs
@@ -101,6 +113,16 @@ def plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, 
     return "simt"
 
 
+def bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
+    """The path a CUDA backward launch at this shape takes: ``"short"``
+    where the forward's :func:`plan` is ``"short"``, else the long
+    backward's ``"mma"`` route for bf16 at hd 64 or 128, else its
+    ``"simt"`` route.  A pure function of the shape."""
+    if plan(b, t, s, h, kvh, hd, dtype, causal) == "short":
+        return "short"
+    return "mma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -119,10 +141,12 @@ def _bwd_launcher():
     if _bwd_fn is None:
         lib = build.load("flash_attention")
         fn = lib.flash_attention_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_chunk.argtypes = [ctypes.c_int] * 7
         lib.flash_attention_bwd_chunk.restype = ctypes.c_int
+        lib.flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 8
+        lib.flash_attention_bwd_plan.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
@@ -135,16 +159,6 @@ def bwd_chunk_heads(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: to
     return build.load("flash_attention").flash_attention_bwd_chunk(b, t, s, h, kvh, hd, DTYPES[dtype])
 
 
-def _need_short(b, t, s, h, kvh, hd, dtype, causal, what: str) -> None:
-    path = plan(b, t, s, h, kvh, hd, dtype, causal)
-    if path != "short":
-        raise NotImplementedError(
-            f"flash_attention has no {what} at (B, T, S, H, K, hd) = {(b, t, s, h, kvh, hd)}, "
-            f"a {path!r}-path shape: only the short path (T, S <= {SHORT_MAX_LEN}) has a "
-            "hand-written backward (ROADMAP A13)"
-        )
-
-
 def kernel_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
     """The path the built ``.cu`` entry picks for this shape (needs the
     library, so the card's toolkit): it must equal :func:`plan`."""
@@ -153,6 +167,16 @@ def kernel_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.
     if code < 0:
         raise ValueError(f"flash_attention refuses the shape {(b, t, s, h, kvh, hd, dtype)}")
     return PATHS[code]
+
+
+def kernel_bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
+    """The backward path the built ``.cu`` entry picks for this shape
+    (needs the card's toolkit): it must equal :func:`bwd_plan`."""
+    _bwd_launcher()
+    code = build.load("flash_attention").flash_attention_bwd_plan(b, t, s, h, kvh, hd, DTYPES[dtype], int(causal))
+    if code < 0:
+        raise ValueError(f"flash_attention_bwd refuses the shape {(b, t, s, h, kvh, hd, dtype)}")
+    return BWD_PATHS[code]
 
 
 def _check(q, k, v, causal, block_q, block_k):
@@ -209,11 +233,9 @@ def flash_attention(
 
     ``return_lse`` returns ``(out, lse)`` with the rows' float32
     logsumexp (B, H, T) of the scaled, masked scores, which
-    :func:`flash_attention_bwd` takes; only short-path shapes have it."""
+    :func:`flash_attention_bwd` takes; every path writes it."""
     global launches, lse_launches
     b, t, h, hd, s, kvh = _check(q, k, v, causal, block_q, block_k)
-    if return_lse:
-        _need_short(b, t, s, h, kvh, hd, q.dtype, causal, "backward (nor the logsumexp that feeds it)")
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
@@ -259,15 +281,17 @@ def flash_attention(
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
-    """The gradients of :func:`flash_attention` at a short-path shape: from
+    """The gradients of :func:`flash_attention` at any shape it takes: from
     q (B, T, H, hd), k and v (B, S, K, hd), the forward's output o and
     logsumexp lse (B, H, T), and the output gradient do (B, T, H, hd) ->
     (dq, dk, dv) in q's dtype, dk and dv summed over each GQA group.  On
-    the card one launch of the hand-written backward; on the CPU its plain
-    version.  Another shape raises ``NotImplementedError`` (ROADMAP A13)."""
-    global bwd_launches
-    b, t, h, hd, s, kvh = _check(q, k, v, causal, 128, 128)
-    _need_short(b, t, s, h, kvh, hd, q.dtype, causal, "backward")
+    the card one call of the hand-written backward on :func:`bwd_plan`'s
+    path (the long path allocates its float32 (B, H, T) row-dot scratch
+    here); on the CPU its plain version."""
+    global bwd_launches, long_bwd_launches
+    # no block arguments: the JAX wrapper's refusal of a full-attention S
+    # off its blocks is the forward's (a block_k >= S takes every S)
+    b, t, h, hd, s, kvh = _check(q, k, v, causal, 128, 1 << 30)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o and do must be q's shape {tuple(q.shape)} and dtype {q.dtype}")
     if lse.shape != (b, h, t) or lse.dtype != torch.float32:
@@ -297,7 +321,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         return dq.zero_(), dk.zero_(), dv.zero_()
     fn = _bwd_launcher()
     dev = q.get_device()
-    args = (*(x.data_ptr() for x in tensors), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype],
+    path = bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal)
+    dsum = None if path == "short" else torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    args = (*(x.data_ptr() for x in tensors), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if dsum is None else dsum.data_ptr(), DTYPES[q.dtype],
             b, t, s, h, kvh, hd, 1 if causal else 0, _SCALE[hd])
     if dev == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
@@ -305,18 +332,19 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         with torch.cuda.device(dev):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd launch failed on the {path!r} path: CUDA error {err}")
     with _count_lock:
         bwd_launches += 1
+        if path != "short":
+            long_bwd_launches += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Causal or full attention through the kernels both ways: the forward
     launch writes the row logsumexp, the backward is
-    :func:`flash_attention_bwd`.  ``FlashAttentionFn.apply(q, k, v,
-    causal)``; shapes off the short path raise ``NotImplementedError``
-    before anything runs."""
+    :func:`flash_attention_bwd`, at every shape the forward takes.
+    ``FlashAttentionFn.apply(q, k, v, causal)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):

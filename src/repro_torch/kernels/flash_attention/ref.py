@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the flash_attention kernel and of its
-short-path backward.
+backward (both the short and the long paths').
 
 The CPU tests run them, the wrapper takes them for tensors on the CPU,
 and ``chip_smoke.py`` holds the CUDA kernels to them on the card.  The

@@ -19,9 +19,10 @@ explicit ops, queries in chunks of ``Q_CHUNK`` above it, as the reference
 scans them).  Under autograd (grad enabled and an input that requires
 it) the kernel backend goes through
 :class:`~repro_torch.kernels.flash_attention.ops.FlashAttentionFn`, whose
-backward is the hand-written short-path backward kernel (other shapes
-raise, ROADMAP A13); the torch backend is differentiated by autograd, as
-the reference's fit differentiates ``_sdpa``.  The kernel never forms the
+backward is the hand-written backward kernel at every shape (the short
+path's for T, S <= 32, the long backward otherwise); the torch backend is
+differentiated by autograd, as the reference's train step differentiates
+``_sdpa``.  The kernel never forms the
 score matrix, so it needs no query chunks.  It has no window: a sliding
 window that masks something (T > ``attn_window``) raises on the kernel
 backend (ROADMAP A15); at T <= window the mask is the causal one and the

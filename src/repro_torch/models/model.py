@@ -143,7 +143,9 @@ def _take_rows(table, ids):
     n = table.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
-    return table[ids]
+    # index_select, not indexing or F.embedding: its gradient is an
+    # index_add_, which does not sync the host on the card
+    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
 
 
 def _embed(params, batch, cfg: ModelConfig):
@@ -164,8 +166,12 @@ def _stack_apply(params, x, cfg: ModelConfig, remat: bool = False, attn_backend:
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # each stacked leaf split once: under autograd its gradient is then one
+    # stack of the units' gradients, where a view a[i] per unit would add
+    # n_units zero-padded copies of the whole stacked leaf
+    units = tree_map(lambda a: a.unbind(0), params["units"])
     for i in range(cfg.n_units):
-        unit_p = _unit(params["units"], i)
+        unit_p = tree_map(lambda parts: parts[i], units)
         if remat and torch.is_grad_enabled():
             x, aux = checkpoint(unit_fn, x, aux, unit_p, use_reentrant=False)
         else:

@@ -5,11 +5,13 @@ fixed-point replay, at every cluster size), a portfolio mine on the card
 against the same mine on the CPU, a GBDT fit on the card against the same
 fit on the CPU, FraudGT's logits on the card against the CPU port's,
 witness extraction and evidence-carrying alerts on the card against the
-CPU port's, the short-path attention backward against its plain version,
+CPU port's, the attention backward (short and long paths) against its
+plain version,
 a sharded mine on the card against the compiled mine, a FraudGT fit
 on the card that makes no host sync, and the LM scaffold: one smoke
 forward and decode per block type on the card against the CPU port, and
-qwen2-1.5b's widths at two layers through the wgmma path.
+qwen2-1.5b's widths at two layers through the wgmma path, and a short
+train of the qwen2-1.5b smoke config on the card against the CPU port.
 Every test skips itself where there is no card.  The file imports neither jax nor ``repro``, so it also runs
 on a machine without them:
 
@@ -560,10 +562,91 @@ def test_flash_attention_bwd_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dt
 
 
 def test_flash_attention_bwd_off_the_short_path_raises(cuda):
+    """The shape that raised before the long backward existed (T = S = 40)
+    now runs it: the simt route, as the .cu entry plans it, no short-path
+    chunk, and zero gradients from a zero output gradient."""
     q = torch.zeros(1, 40, 2, 16, device=cuda)
     assert fa_ops.bwd_chunk_heads(1, 40, 40, 2, 2, 16, torch.float32) == 0
-    with pytest.raises(NotImplementedError, match="A13"):
-        fa_ops.flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 40, device=cuda))
+    assert fa_ops.bwd_plan(1, 40, 40, 2, 2, 16, torch.float32, True) == "simt"
+    assert fa_ops.kernel_bwd_plan(1, 40, 40, 2, 2, 16, torch.float32, True) == "simt"
+    before = (fa_ops.bwd_launches, fa_ops.long_bwd_launches)
+    got = fa_ops.flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 2, 40, device=cuda))
+    assert (fa_ops.bwd_launches, fa_ops.long_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(x.shape == q.shape and not bool(x.any()) for x in got)
+
+
+# the long backward (T or S above 32): qwen2-1.5b's layer at 512 rows,
+# full bf16 at hd 64, ragged tiles (1,000), causal T > S and T < S, float32
+# at hd 16 and 128 with GQA (simt), bf16 at hd 32 (simt), one key; each
+# (B, T, S, H, K, hd, causal, dtype) with the path bwd_plan names
+LONG_BWD_CASES = [
+    (1, 512, 512, 12, 2, 128, True, "bfloat16", "mma"),
+    (2, 256, 256, 4, 4, 64, False, "bfloat16", "mma"),
+    (1, 1000, 1000, 4, 2, 128, True, "bfloat16", "mma"),
+    (2, 200, 90, 4, 2, 64, True, "bfloat16", "mma"),
+    (1, 90, 200, 4, 1, 128, True, "bfloat16", "mma"),
+    (2, 300, 300, 8, 2, 16, True, "float32", "simt"),
+    (1, 200, 200, 6, 2, 128, True, "float32", "simt"),
+    (2, 150, 150, 4, 2, 32, False, "bfloat16", "simt"),
+    (3, 70, 1, 4, 4, 64, True, "bfloat16", "mma"),
+]
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal,dtype,path", LONG_BWD_CASES)
+def test_flash_attention_long_bwd_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype, path):
+    """The long backward against its plain version on the forward kernel's
+    o and lse (the forward's lse first against the plain logsumexp), within
+    1e-5 in float32 and 2e-2 relative and absolute in bf16, bit-identical
+    across two launches; ``bwd_plan`` equals the .cu entry's choice."""
+    q, k, v, do = _bwd_case(b, t, s, h, kvh, hd, dtype, b + t + s + hd, cuda)
+    assert fa_ops.bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal) == path
+    assert fa_ops.kernel_bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal) == path
+    before = (fa_ops.lse_launches, fa_ops.bwd_launches, fa_ops.long_bwd_launches)
+    o, lse = flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert (fa_ops.lse_launches, fa_ops.bwd_launches, fa_ops.long_bwd_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+    g = h // kvh
+    flat = lambda x, n: x.float().transpose(1, 2).reshape(-1, n, hd)
+    kk, vv = flat(k.repeat_interleave(g, 2), s), flat(v.repeat_interleave(g, 2), s)
+    _, want_lse = fa_ops.flash_attention_ref(flat(q, t), kk, vv, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse.reshape(-1, t), want_lse, rtol=0, atol=1e-4 if dtype == "bfloat16" else 1e-5)
+    want = flash_attention_bwd_ref(flat(q, t), kk, vv, flat(o, t), flat(do, t), lse.reshape(-1, t), causal=causal)
+    fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
+    want = (want[0].reshape(b, h, t, hd).transpose(1, 2), fold(want[1]), fold(want[2]))
+    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (0.0, 1e-5)
+    for name, x, y, z in zip("qkv", got, again, want):
+        assert x.dtype == q.dtype and torch.equal(x, y), name
+        torch.testing.assert_close(x.float(), z, rtol=rtol, atol=atol, msg=name)
+
+
+def test_lm_train_on_card_equals_cpu(cuda, tmp_path):
+    """Four steps of ``launch.train.train_loop`` on the qwen2-1.5b smoke
+    config in float32 at T = 64 (the long backward's simt route), on the
+    card and on the CPU port, from one step-0 checkpoint: losses within
+    1e-4 relative, parameters within 1e-4 (the embedding gradient's
+    atomics sum in another order on the card)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.distributed.checkpoint import save_checkpoint
+    from repro_torch.distributed.optimizer import adamw_init
+    from repro_torch.launch import train as T
+
+    cfg = dataclasses.replace(smoke_config("qwen2-1.5b"), dtype="float32")
+    p = LMM.init_params(cfg, 0, device="cpu")
+    as_np = lambda tree: LMM.tree_map(lambda a: a.numpy(), tree)
+    save_checkpoint(str(tmp_path / "card"), 0, (as_np(p), as_np(adamw_init(p))))
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    before = (fa_ops.launches, fa_ops.long_bwd_launches)
+    pd, ld = T.train_loop(cfg, 4, 2, 64, ckpt_dir=str(tmp_path / "card"), verbose=False)
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    assert fa_ops.long_bwd_launches == before[1] + 4 * n_attn
+    pc, lc = T.train_loop(cfg, 4, 2, 64, ckpt_dir=str(tmp_path / "cpu"), verbose=False, device="cpu")
+    np.testing.assert_allclose(ld, lc, rtol=1e-4)
+    for a, c in zip(LMM.tree_leaves(pd), LMM.tree_leaves(pc)):
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4)
 
 
 def _small_graph(seed=11, n_nodes=18, n_edges=140, t_max=256):

@@ -6,7 +6,7 @@ longer has), so its oracle ``flash_attention_ref``, with the JAX
 wrapper's repeat of the K/V heads, stands for it.  Also: causal
 attention over fewer keys than queries, the launch count, what the
 wrapper refuses, and the path (``ops.plan``) each shape takes on the
-card.  The backward of the short path: its plain version
+card.  The backward (short and long paths): its plain version
 (``flash_attention_bwd_ref``, explicit math) against torch autograd of the
 plain forward and against ``jax.vjp`` of the reference's XLA attention
 (``repro.models.layers._sdpa``, what the JAX fit differentiates), and
@@ -172,7 +172,8 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
     """The flash_attention source includes its path headers; the library's
     name changes when a header does, so an edited header rebuilds."""
     assert [p.name for p in build.sources("flash_attention")] == [
-        "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_short_bwd.cuh", "flash_wgmma.cuh"]
+        "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_long_bwd.cuh", "flash_short_bwd.cuh",
+        "flash_wgmma.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")
@@ -185,7 +186,9 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
 
 # (B, T, S, H, K, hd, causal): FraudGT's training shape at a few edges,
 # GQA, T > S (causal rows i >= S see all S keys), one key, hd 64, and a
-# grid of heads that is not a power of two
+# grid of heads that is not a power of two; then the long backward's
+# shapes (T or S above 32): causal and full, ragged tiles, T > S and
+# T < S, GQA, hd 16 to 128
 BWD_SHAPES = [
     (4, 17, 17, 8, 8, 16, True),
     (3, 17, 17, 8, 2, 32, False),
@@ -193,6 +196,14 @@ BWD_SHAPES = [
     (2, 32, 32, 2, 1, 64, False),
     (3, 1, 1, 8, 8, 16, True),
     (2, 5, 7, 6, 3, 16, False),
+]
+LONG_BWD_SHAPES = [
+    (1, 100, 100, 4, 2, 16, True),
+    (2, 70, 70, 2, 2, 32, False),
+    (2, 80, 50, 4, 2, 16, True),
+    (1, 40, 90, 6, 2, 64, True),
+    (1, 65, 1, 2, 1, 128, True),
+    (1, 33, 48, 4, 1, 32, False),
 ]
 
 
@@ -216,7 +227,7 @@ def _jax_grads(q, k, v, do, causal):
     return [np.asarray(x) for x in vjp(jnp.asarray(do))]
 
 
-@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES)
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES + LONG_BWD_SHAPES)
 def test_bwd_plain_equals_autograd_and_jax(b, t, s, h, kvh, hd, causal):
     q, k, v, do = _bwd_inputs(b, t, s, h, kvh, hd, seed=b + t + s + hd)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
@@ -235,7 +246,7 @@ def test_bwd_plain_equals_autograd_and_jax(b, t, s, h, kvh, hd, causal):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES[:3])
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,causal", BWD_SHAPES[:3] + LONG_BWD_SHAPES[:3])
 def test_flash_attention_fn_gradients(b, t, s, h, kvh, hd, causal):
     q, k, v, do = _bwd_inputs(b, t, s, h, kvh, hd, seed=7)
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
@@ -247,12 +258,45 @@ def test_flash_attention_fn_gradients(b, t, s, h, kvh, hd, causal):
 
 
 def test_bwd_off_the_short_path_raises():
-    """No backward kernel for T or S > 32: the wrapper and the autograd
-    Function raise, on the CPU as on the card, and run no plain version."""
+    """T, S > 32 is the long backward's shape: the logsumexp, the wrapper's
+    backward and the autograd Function run (the plain version on the CPU,
+    no launch) and equal torch autograd of the plain forward within 1e-5.
+    (Before the long backward existed, this shape raised.)"""
     q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(1, 40, 40, 2, 2, 16, seed=3))
-    with pytest.raises(NotImplementedError, match="A13"):
-        flash_attention(q, k, v, return_lse=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        fa_ops.flash_attention_bwd(q, k, v, q, do, torch.zeros(1, 2, 40), causal=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        fa_ops.FlashAttentionFn.apply(q.requires_grad_(), k, v, True)
+    assert fa_ops.bwd_plan(1, 40, 40, 2, 2, 16, torch.float32, True) == "simt"
+    before = (fa_ops.launches, fa_ops.lse_launches, fa_ops.bwd_launches, fa_ops.long_bwd_launches)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    want_lse = torch.logsumexp(torch.where(torch.ones(40, 40, dtype=torch.bool).tril(),
+                                           torch.einsum("bthd,bshd->bhts", q, k) / 4.0, -1e30), dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    grads = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa_ops.FlashAttentionFn.apply(*leaves, True).backward(do)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = fa_ops.flash_attention_ref(*(x.transpose(1, 2).reshape(2, -1, 16) for x in (tq, tk, tv)), causal=True)
+    ref.backward(do.transpose(1, 2).reshape(2, 40, 16))
+    for name, got, fn, auto in zip("qkv", grads, leaves, (tq, tk, tv)):
+        torch.testing.assert_close(got, auto.grad, rtol=0, atol=1e-5, msg=name)
+        torch.testing.assert_close(fn.grad, auto.grad, rtol=0, atol=1e-5, msg=name)
+    assert (fa_ops.launches, fa_ops.lse_launches, fa_ops.bwd_launches, fa_ops.long_bwd_launches) == before
+
+
+@pytest.mark.parametrize(
+    "t,s,h,kvh,hd,dtype,path",
+    [
+        (17, 17, 8, 8, 16, F32, "short"),
+        (32, 32, 4, 4, 128, BF16, "short"),
+        (32, 32, 4, 4, 128, F32, "simt"),  # a short shape whose slabs do not fit
+        (32, 32, 16, 16, 128, BF16, "mma"),
+        (33, 33, 2, 2, 64, BF16, "mma"),
+        (33, 33, 2, 2, 32, BF16, "simt"),
+        (4096, 4096, 12, 2, 128, BF16, "mma"),  # qwen2-1.5b's training launch
+        (4096, 4096, 12, 2, 128, F32, "simt"),
+        (1000, 1000, 8, 2, 16, BF16, "simt"),
+        (40, 1, 4, 4, 64, BF16, "mma"),
+    ],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plan_at_path_boundaries(t, s, h, kvh, hd, dtype, path, causal):
+    for b in (1, 4, 5003):  # the batch size never changes the path
+        assert fa_ops.bwd_plan(b, t, s, h, kvh, hd, dtype, causal) == path

@@ -381,6 +381,27 @@ def test_loss_gradient_with_remat(name, backend):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "chameleon-34b", "moonshot-v1-16b-a3b"])
+def test_kernel_backend_gradient_at_a_long_sequence(name):
+    """At T = 64 (past the short path) ``FlashAttentionFn`` runs the long
+    backward's plain version on the CPU: ``loss_fn``'s gradient on the
+    kernel backend equals the torch backend's within 1e-5 of each leaf's
+    largest |g| (plus 1e-7)."""
+    cfg_j, cfg = _cfgs(name)
+    _, p = _weights(cfg_j, cfg, seed=3)
+    batch = _torch(_batch(cfg, 2, 64, 5))
+    assert fa_ops.plan(2, 64, 64, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.float32, True) != "short"
+    grads = []
+    for backend in L.BACKENDS:
+        leaves = [a.clone().requires_grad_() for a in M.tree_leaves(p)]
+        it = iter(leaves)
+        loss = M.loss_fn(M.tree_map(lambda _: next(it), p), batch, cfg, attn_backend=backend)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads.append([torch.zeros_like(a) if g is None else g for a, g in zip(leaves, got)])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-7
+
+
 def test_lm_module_and_entry_points():
     """``LM`` holds the tree as parameters and runs the functional core;
     ``build_model`` is ``LM``; the entry points default to the card."""

@@ -50,9 +50,12 @@ SHAPES = {
     "long": (1, 4096, 4096, 32, 8, 128, True, "bfloat16"),
     "long_full": (1, 4096, 4096, 32, 8, 128, False, "bfloat16"),
     "long_hd64": (1, 4096, 4096, 32, 8, 64, True, "bfloat16"),
+    "lm_prefill": (4, 2048, 2048, 12, 2, 128, True, "bfloat16"),  # qwen2-1.5b's prefill launch
+    "lm_train": (4, 4096, 4096, 12, 2, 128, True, "bfloat16"),  # qwen2-1.5b's training launch
 }
 REPS = {"fraudgt": 200, "short_bf16": 200, "fraudgt_path": 200, "fraudgt_path_copies": 200,
-        "fraudgt_path_randn": 200, "long": 20, "long_full": 20, "long_hd64": 20}
+        "fraudgt_path_randn": 200, "long": 20, "long_full": 20, "long_hd64": 20,
+        "lm_prefill": 20, "lm_train": 20}
 
 
 def bound_ms(b, t, s, h, kvh, hd, causal, dtype):

@@ -5,13 +5,15 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases bwd,sharded,fit
     python3 tools/smoke_phases.py --phases fit --fit-rows 0   # every training edge
     python3 tools/smoke_phases.py --phases flash,lm           # the LM path alone
+    python3 tools/smoke_phases.py --phases bwd,train          # the LM's training alone
 
 Builds the kernels, prints the card line, and runs, in order:
 
 - ``flash``: phase 2's ``flash_attention`` cases (``FA_CASES``, with
   qwen2-1.5b's prefill launch) against their plain version, timed;
-- ``bwd``: phase 2's short-path backward cases (``FA_BWD_CASES``) against
-  their plain version, timed beside their bound and SDPA's backward;
+- ``bwd``: phase 2's backward cases (the short path's ``FA_BWD_CASES``
+  and the long backward's ``FA_LONG_BWD_CASES``) against their plain
+  version, timed beside their bound and SDPA's backward;
 - ``sharded``: phase 3's cold mine of the 9 ``"full"`` patterns over
   HI-Small (``--scale``, 282 by default), then phase 15 (the sharded
   mines against its rows, ``repro_torch.launch.mine`` once);
@@ -21,7 +23,12 @@ Builds the kernels, prints the card line, and runs, in order:
   launch;
 - ``lm``: phase 17 (the LM scaffold at qwen2-1.5b's full width: prefill,
   float32 checks, serving, every smoke config against the CPU port, the
-  launcher), then ``flash_attention`` at the prefill's first launch.
+  launcher), then ``flash_attention`` at the prefill's first launch;
+- ``train``: phase 18 (the LM's training loop: qwen2-1.5b at full width,
+  4 x 4,096 tokens a step, timed, profiled and its launches counted; the
+  float32 and bf16 cross-backend checks; every smoke config trained on
+  the card against the CPU port; the launcher), then the long backward at
+  a launch of the cell.
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -71,10 +78,12 @@ def main() -> int:
 
     def zero():
         ic_ops.launches = fa_ops.launches = fa_ops.lse_launches = fa_ops.bwd_launches = 0
+        fa_ops.long_bwd_launches = 0
 
     def read():
         return {"intersect_count": ic_ops.launches, "flash_attention": fa_ops.launches,
-                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches}
+                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
+                "flash_attention_bwd_long": fa_ops.long_bwd_launches}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -92,6 +101,13 @@ def main() -> int:
         report["flash_attention_lm_shape"] = cs.fa_row(q, k, v, causal, 20)
         print("kernel timing: flash_attention on the LM prefill path "
               + json.dumps(report["flash_attention_lm_shape"]), flush=True)
+    if "train" in phases:
+        _, (q, k, v, o, do, lse, causal) = timed("train", lambda: cs.phase_train(report, zero, read))
+        report["flash_attention_bwd_train_shape"] = cs.fa_bwd_row(q, k, v, do, causal, 20, o=o, lse=lse,
+                                                                  rtol32=cs.FA_BWD_TOL)
+        del q, k, v, o, do, lse
+        print("kernel timing: flash_attention_bwd on the LM training path "
+              + json.dumps(report["flash_attention_bwd_train_shape"]), flush=True)
     ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
