@@ -47,9 +47,11 @@ Phases, in order; any failure exits non-zero:
    absolute plus 1e-5 relative) at qwen2-1.5b's training launch (B 4,
    T = S = 4,096, 12 over 2 heads of 128, bf16, causal), full attention in
    bf16 at hd 64, ragged tiles, causal T > S, float32 at hd 16 and 128
-   with GQA, bf16 at hd 32 and a single key; every row logs the backward
-   path ``ops.bwd_plan`` picked (which must be the ``.cu`` entry's), and
-   all three (short, mma, simt) must be reached; each timed beside the
+   with GQA, bf16 at hd 32, a single key and the wgmma route's tile edges
+   (T = S = 127, 129, 257 at hd 64 and 128, a group of 8); every row logs
+   the backward path ``ops.bwd_plan`` picked (which must be the ``.cu``
+   entry's), all three (short, wgmma, simt) must be reached, and the
+   ``.cu``'s tile loops must equal ``ops.bwd_tiles``; each timed beside the
    backward of ``scaled_dot_product_attention``.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
    function, that call; every kernel but ``hist_update`` also under
@@ -57,30 +59,31 @@ Phases, in order; any failure exits non-zero:
    host work; null, "not measured", when three profiled runs record no
    device kernel at all).
 3. main path — synthetic HI-Small (``--scale 282``: about 451K accounts and
-   5.1M transactions, the size of the published IBM HI-Small) mined with
-   ``MiningSession(g, window=4096)`` over the 9-pattern ``"full"``
-   portfolio, every edge a seed, cold then warm, under
+   5.1M transactions, the size of the published IBM HI-Small) through
+   ``run_aml_pipeline(ds, "full", session=MiningSession(g, window=4096))``:
+   the 9-pattern ``"full"`` portfolio mined cold, every edge a seed, the
+   features, the default 60-tree GBDT, F1 on the last 20 % by time, under
    ``torch.cuda.set_sync_debug_mode("error")`` so that any hidden host
    sync fails the run.  The kernels' launch counts are zeroed just before
-   and read just after; each must be > 0, and a compiled portfolio mine
-   must sync exactly ``1 + n_compiled`` times.
+   and read just after: ``intersect_count`` must be > 0 and ``hist_update``
+   n_trees * (max_depth + 1) = 420, n_trees * max_depth = 360 of them
+   through the ``rows`` entry (one per level) and the rest the leaf sums;
+   a compiled portfolio mine must sync exactly ``1 + n_compiled`` times,
+   and F1 must be > 0.  Then the warm re-mine: 16,384 seeds mined twice on
+   the same session (every edge until cut for the time limit), the second
+   from the cached schedules, both equal to the main path's rows.  The
+   first launch of each shape of the fit is kept for phase 8.
 4. cross-checks — the same mine with ``kernel_backend="torch"`` over
-   1,048,576 seeds drawn with the data seed gives bit-identical rows
-   (every edge before phases 9-12 existed; cut to keep the script near
-   10 minutes), and 4,096 seeds mined by the port on the CPU equal the
+   65,536 seeds drawn with the data seed gives bit-identical rows
+   (every edge before phases 9-12 existed, then 1,048,576; cut for the
+   time limit), and 4,096 seeds mined by the port on the CPU equal the
    card's rows for them.
-5. detection path — ``run_aml_pipeline(ds, "full")`` (mine, features,
-   the default 60-tree GBDT, F1 on the last 20% by time) under
-   ``set_sync_debug_mode("error")``, then ``"xgb_only"``, at the same
-   size.  The launch counts are zeroed before each and read after; each
-   fit must launch ``hist_update`` n_trees * (max_depth + 1) = 420 times,
-   n_trees * max_depth = 360 of them through the ``rows`` entry (one per
-   level) and the rest the leaf sums, and the pipeline's mined columns
-   must equal phase 3's count matrix.  The first launch of each shape of
-   the ``"full"`` fit is kept for phase 8.
+5. detection path without mined features — ``run_aml_pipeline(ds,
+   "xgb_only")`` at the same size, its ``hist_update`` launches counted
+   and held as phase 3's.
 6. detection cross-checks — two 10-tree fits on the card over the first
    1,048,576 training rows give bit-identical trees and probabilities,
-   and a 10-tree fit on the card over 262,144 rows splits as the CPU
+   and a 10-tree fit on the card over 131,072 rows splits as the CPU
    port's does, or differs first at a near tie of the two gains.
 7. FraudGT inference — ``FraudGT(FraudGTParams(), seed=0).predict_proba``
    over the test split (the last 20 % by time) under
@@ -108,12 +111,12 @@ Phases, in order; any failure exits non-zero:
    a launch of phase 18's cell, after phase 18):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
-   three random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
+   two random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
    paper's Fig. 10 protocol (``benchmarks/bench_scaling.py``):
    ``scatter_gather`` on Trovares-10K/100K/1M, 2,000 seeds on the card,
    the first 400 through the oracle, exact; a ``fig10:`` line gives the
    compiled and GFP edges/s and their ratio, beside the card line.
-10. partitioned — ``mine(backend="partitioned", n_parts=4)`` over 262,144
+10. partitioned — ``mine(backend="partitioned", n_parts=4)`` over 65,536
    seeds of the phase-3 graph equals phase 3's rows for them.
 11. streaming — the phase-3 session's ``service(pipeline=True,
    retain="auto")`` over HI-Small in time order: a first tick of 65,536
@@ -123,7 +126,7 @@ Phases, in order; any failure exits non-zero:
    after), no degraded tick, no new launch shape in the last quarter of
    the ticks, ``schedule_hits > 0``, counts equal to a card mine of the
    streamed prefix built in arrival order, and a sequential service over
-   the first 16 ticks giving the same alerts and counts.  Printed:
+   the first 8 ticks giving the same alerts and counts.  Printed:
    txns/s, tick p50/p99, stage p50s, dirty fraction, live edges, peak
    memory; ``intersect_count``'s kernels entry gains the streaming path's
    launches and its largest launch's shape, times and bound.
@@ -135,7 +138,7 @@ Phases, in order; any failure exits non-zero:
    ``intersect_count`` on the service's own ``"kernel"`` backend (counts
    zeroed before each, read after; the kernels entry gains
    ``launches_resilience`` and ``launches_recovery``).
-13. witnesses — (a) on phase 9's three random graphs, every library
+13. witnesses — (a) on phase 9's two random graphs, every library
    pattern with a witness layout (the refused ones are listed), 512 seeds
    at k = 3, under both kernel backends: the card's witnesses equal the
    port's ``GFPReference.mine_witnesses`` tuple for tuple, one host sync
@@ -144,7 +147,7 @@ Phases, in order; any failure exits non-zero:
    65,536 seeds of the phase-3 graph under ``set_sync_debug_mode("error")``
    (cycle4 and scatter_gather over a prefix, ``WIT_SEEDS_CUT``): one host
    sync per unique plan, counts equal phase 3's rows, the first 1,024
-   seeds' witnesses (scatter_gather's first 16) equal the CPU port's bit
+   seeds' witnesses (scatter_gather's first 4) equal the CPU port's bit
    for bit; each
    pattern's count-only and witness-mode wall and their ratio, and peak
    memory, are printed; (c) every strictly time-ordered 3-cycle the data
@@ -153,8 +156,8 @@ Phases, in order; any failure exits non-zero:
 14. triage — the port's ``TriageServer`` over ``DetectionService(
    DEFAULT_PORTFOLIO, window=4096, witnesses=2)`` on the card (the
    service of ``src/repro/launch/serve.py``), fed HI-Small in time order
-   through ``make_feed``: one warm submit of 262,144 transactions, then
-   32 submits of 64 through 4 submitters (``load_test``), an audit log
+   through ``make_feed``: one warm submit of 65,536 transactions, then
+   16 submits of 64 through 4 submitters (``load_test``), an audit log
    under ``build/``, under ``set_sync_debug_mode("error")``.  Asserted: no
    ``SubmitError`` and no degraded tick, ``intersect_count`` launched
    (``launches_triage``), host syncs == ticks + witness mines, every alert
@@ -167,22 +170,22 @@ Phases, in order; any failure exits non-zero:
    alerts, evidence hops, suppressed duplicates, the share of tick time
    in ``tick:witness`` and the other tick spans, peak memory.
 15. sharded — the phase-3 session's ``mine(backend="sharded")`` under
-   ``set_sync_debug_mode("error")``: 4 partitions over every edge (on one
-   card they time-share it: the host gather), then 1 partition over
-   1,048,576 seeds drawn with the data seed (the device-side sum); each
+   ``set_sync_debug_mode("error")`` over 65,536 seeds drawn with the
+   data seed: in 4 partitions (on one card they time-share it: the host
+   gather), then in 1 (the device-side sum); each
    equals phase 3's rows, syncs once, launches ``intersect_count`` (counts
    zeroed before, read after) and has per-shard stats that sum to its
    totals.  Printed: walls, the dispatch window, the overlap ratio,
    ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
    --pattern scatter_gather --parts 4 --scale 28`` once, in process.
 16. FraudGT training — ``FraudGT(FraudGTParams(epochs=1)).fit`` (d_model
-   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 393,216
+   128, 3 blocks, 8 heads, T = 17, batch 256) over the first 131,072
    edges of the HI-Small training split under
    ``set_sync_debug_mode("error")``: the forward launches with the
    logsumexp and the backward launches each equal n_layers * steps, every
    loss finite; the threshold picked on the trained edges
    (``benchmarks/bench_fraudgt.py``), the 1,027,527 test edges scored:
-   probabilities not constant, F1 > 0, printed beside phase 5's.  Then 32
+   probabilities not constant, F1 > 0, printed beside phases 3 and 5's.  Then 32
    steps of a second fit under ``torch.profiler``.
 17. LM — the LM scaffold's serving path at qwen2-1.5b's published width
    (28 layers, d_model 1,536, 12 query and 2 kv heads of 128, vocab
@@ -284,10 +287,18 @@ IC_FORM_SHAPES = ((1, 1, 1, 4), (33, 3, 4, 4), (4097, 64, 1, 4), (4096, 32, 1, 3
                   (11, 3, 64, 64), (4, 64, 256, 256), (256, 1, 1024, 1024))
 WINDOW = 4096
 SEED = 0  # data seed
+# The script must end within 1,200 s on a machine whose host may be far
+# slower than the one it was timed on (957 s on one NVIDIA H100 machine
+# at 700 W, more than 1,200 s for the same tree on another), so it aims
+# at well under 1,200 s on such a host: the depths marked "cut for the
+# time limit" were cut for that, each path still driven, and phase 3's
+# warm re-mine covers WARM_SEEDS seeds, not every edge (PERF.md section 4
+# lists the cuts with their sizes before)
 CPU_SEEDS = 4096  # seeds the CPU cross-check mines
-TORCH_SEEDS = 1 << 20  # seeds the "torch"-backend cross-check mines
+WARM_SEEDS = 1 << 14  # seeds mined twice on the main path's session: the warm re-mine
+TORCH_SEEDS = 1 << 16  # seeds the "torch"-backend cross-check mines (cut for the time limit)
 DET_ROWS = 1 << 20  # training rows of the card's determinism fits
-CPU_FIT_ROWS = 1 << 18  # training rows of the card-against-CPU fits
+CPU_FIT_ROWS = 1 << 17  # training rows of the card-against-CPU fits (cut for the time limit)
 CHECK_TREES = 10  # trees of each cross-check fit
 FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
 FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
@@ -344,7 +355,9 @@ FA_BWD_TOL = 1e-5
 # dtype): qwen2-1.5b's training launch (phase 18), full attention in bf16
 # at hd 64, ragged tiles (1,000 rows and keys), causal T > S, float32 at
 # hd 16 and 128 with GQA (its simt route; the second is phase 18's float32
-# check's launch), bf16 at hd 32 (simt) and a single key.  bf16 within
+# check's launch), bf16 at hd 32 (simt), a single key, and the wgmma
+# route's tile edges (64-row stages, 128-row and 128-key blocks): T = S =
+# 127, 129 and 257 at hd 64 and 128, a group of 8 over K = 1.  bf16 within
 # 2e-2 relative and absolute; float32 within FA_BWD_TOL absolute plus
 # FA_BWD_TOL relative (its sums run over up to 1,024 rows in another
 # order than the plain version's, and grow with them)
@@ -357,15 +370,23 @@ FA_LONG_BWD_CASES = (
     (1, 1024, 1024, 12, 2, 128, True, "float32"),
     (2, 1024, 1024, 8, 2, 32, True, "bfloat16"),
     (4, 64, 1, 4, 4, 64, True, "bfloat16"),
+    (2, 127, 127, 4, 2, 64, True, "bfloat16"),
+    (1, 127, 127, 8, 1, 128, False, "bfloat16"),
+    (1, 129, 129, 4, 2, 128, True, "bfloat16"),
+    (2, 129, 129, 8, 1, 64, False, "bfloat16"),
+    (1, 257, 257, 8, 1, 128, True, "bfloat16"),
+    (1, 257, 257, 4, 4, 64, True, "bfloat16"),
 )
+# T and S whose wgmma-route tile loops the .cu must give as ops.bwd_tiles
+FA_BWD_TILE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 257, 1000, 4096)
 # phase 9: the oracle's random graphs (nodes, edges, t_max) and their
 # seeds, sized so GFPReference takes under a minute for the 12 full_deep
 # patterns on every edge of the three; the Fig. 10 protocol's seeds
 ORACLE_GRAPH = (512, 5120, 4096)
-ORACLE_SEEDS = (0, 1, 2)
+ORACLE_SEEDS = (0, 1)  # three until cut for the time limit
 FIG10_SEEDS = 2000
 FIG10_ORACLE_SEEDS = 400
-PART_SEEDS = 1 << 18  # phase 10: seeds of the partitioned mine
+PART_SEEDS = 1 << 16  # phase 10: seeds of the partitioned mine (cut for the time limit)
 PART_N = 4
 # phase 11: the live feed (HI-Small in time order): a first tick, then
 # STREAM_TICKS ticks of STREAM_BATCH transactions, at the thresholds of
@@ -378,42 +399,42 @@ STREAM_BATCH = 8192
 STREAM_TICKS = 48
 STREAM_THRESHOLDS = {"cycle3": 1, "scatter_gather": 1, "fan_in": 6}
 STREAM_WARM_TICKS = 8
-STREAM_CHECK_TICKS = 16
+STREAM_CHECK_TICKS = 8  # 16 until cut for the time limit
 RESILIENCE_TICKS = 12  # phase 12
 RESILIENCE_CHECKPOINT_EVERY = 5
 # phase 13: witnesses.  (a) the oracle's graphs, WIT_ORACLE_SEEDS seeds at
 # k = WIT_ORACLE_K; (b) the session's witness mode over WIT_SEEDS seeds of
 # the phase-3 graph at k = WIT_K, the first WIT_CPU_SEEDS of them also on
-# the CPU port (4,096 until phase 18 came, which with its backward cases
-# takes about 40 s; the CPU port's witness mines took 89.6 s at 4,096,
-# 56.2 s at 1,024 and 89.6 s at 2,048 in three runs on NVIDIA H100
-# machines at 700 W, the host's speed varying between them; PERF.md
-# section 4 lists the cuts)
+# the CPU port (4,096 until phase 18 came, then 2,048, then 1,024).  The
+# CPU port's witness mines take 57-86 s for scatter_gather's 16 seeds and
+# 1.2 s for the other patterns' 1,024 on NVIDIA H100 machines at 700 W,
+# the host's speed varying between them, so scatter_gather's CPU check is
+# cut to 4 seeds for the time limit
 WIT_ORACLE_SEEDS = 512
 WIT_ORACLE_K = 3
 WIT_SEEDS = 1 << 16
 WIT_K = 2
-WIT_CPU_SEEDS = 2048
+WIT_CPU_SEEDS = 1024
 # bulk-only witness schedules cannot decompose hub rows into branches as a
 # counting mine does, so hub seeds sweep whole rows: at this size up to
 # 8,192 offset combinations a launch for cycle4 (253 s over 65,536 seeds
 # on an NVIDIA H100 at 700 W) and 1,024 for scatter_gather (123 s over
-# 4,096 seeds, 24 s over 512).
+# 4,096 seeds, 24-31.5 s over 512, cut to 64 for the time limit).
 # These patterns mine a prefix of the seeds, and scatter_gather's CPU
 # check a shorter one (PERF.md section 4 lists the cuts)
-WIT_SEEDS_CUT = {"cycle4": 4096, "scatter_gather": 512}
-WIT_CPU_SEEDS_CUT = {"scatter_gather": 16}
+WIT_SEEDS_CUT = {"cycle4": 4096, "scatter_gather": 64}
+WIT_CPU_SEEDS_CUT = {"scatter_gather": 4}
 # phase 14: the triage server (src/repro/launch/serve.py's service and
 # defaults) over HI-Small in time order: one warm submit, then
 # TRIAGE_SUBMITS submits of TRIAGE_BATCH through TRIAGE_SUBMITTERS
 # threads; then a sequential service at k = TRIAGE_EXACT_K whose last
 # tick's evidence is held to the oracle for up to TRIAGE_EXACT_PAIRS
 # pairs.  A live submit takes 1.47 s on an NVIDIA H100 at 700 W (751 s
-# for 512), so the submits are cut to 32 (64 until phases 15-16 came;
-# PERF.md section 4)
-TRIAGE_WARM = 1 << 18
+# for 512), so the submits are cut to 16 (64 until phases 15-16 came,
+# then 32 until cut for the time limit)
+TRIAGE_WARM = 1 << 16  # 262,144 until cut for the time limit
 TRIAGE_BATCH = 64
-TRIAGE_SUBMITS = 32
+TRIAGE_SUBMITS = 16
 TRIAGE_SUBMITTERS = 4
 TRIAGE_K = 2
 TRIAGE_EXACT_WARM = 16384
@@ -421,12 +442,13 @@ TRIAGE_EXACT_SUBMITS = 8
 TRIAGE_EXACT_K = 3
 TRIAGE_EXACT_PAIRS = 256
 # phase 15: the sharded mine of the phase-3 portfolio: SHARD_PARTS
-# partitions over every edge (time-shared on one card: the host gather),
-# then one partition over SHARD_SEEDS seeds drawn with the data seed (the
-# device-side sum); then repro_torch.launch.mine's command line at
-# SHARD_CLI_SCALE
+# partitions over SHARD_SEEDS seeds drawn with the data seed (time-shared
+# on one card: the host gather), then one partition over the same seeds
+# (the device-side sum); then repro_torch.launch.mine's command line.
+# Every edge and 1,048,576 seeds until cut for the time limit, then
+# 262,144 (53.5 s in 4 parts, 15.8 s in 1, on an NVIDIA H100 at 700 W)
 SHARD_PARTS = 4
-SHARD_SEEDS = 1 << 20
+SHARD_SEEDS = 1 << 16
 SHARD_CLI_ARGS = ("--pattern", "scatter_gather", "--parts", "4", "--scale", "28")
 # phase 16: FraudGT trained for FGT_EPOCHS epoch (the reference trains 3)
 # on the first FGT_FIT_ROWS training edges, its threshold picked on the
@@ -434,13 +456,13 @@ SHARD_CLI_ARGS = ("--pattern", "scatter_gather", "--parts", "4", "--scale", "28"
 # training edges), then scored on the test split.  One epoch over all
 # 4,110,125 training edges takes 236-255 s of steps (63-68 steps/s, host
 # bound) on an NVIDIA H100 at 700 W and the threshold 48-58 s more
-# (tools/smoke_phases.py --fit-rows 0), so the rows are cut to 655,360
-# (1,048,576 until phase 17 came: the 1,536 steps dropped save about
-# 40 s, what phase 17 takes, 15-37 s on an NVIDIA H100 at 700 W; PERF.md
-# section 4 lists the cuts); FGT_PROFILE_STEPS steps of a second fit run
-# under torch.profiler
+# (tools/smoke_phases.py --fit-rows 0), so the rows are cut to 131,072
+# (1,048,576 until phase 17 came, then 655,360 until cut for the time
+# limit: 43.1 s of steps at 655,360, 22.3-24.2 s at 262,144-393,216, F1
+# 0.988-0.991); FGT_PROFILE_STEPS steps of a second fit run under
+# torch.profiler
 FGT_EPOCHS = 1
-FGT_FIT_ROWS = 5 << 17
+FGT_FIT_ROWS = 1 << 17
 FGT_PROFILE_STEPS = 32
 # phase 17: the LM scaffold at qwen2-1.5b's published width (28 layers,
 # d_model 1,536, bf16 activations over float32 weights drawn with SEED):
@@ -1258,6 +1280,14 @@ def phase_flash_attention_bwd(device, report):
     reached = {r["bwd_plan"] for r in rows}
     if reached != set(fa_ops.BWD_PATHS):
         raise AssertionError(f"the backward cases reached only the paths {sorted(reached)}")
+    for t in FA_BWD_TILE_LENGTHS:
+        for s in FA_BWD_TILE_LENGTHS:
+            for causal in (True, False):
+                if fa_ops.kernel_bwd_tiles(t, s, causal) != fa_ops.bwd_tiles(t, s, causal):
+                    raise AssertionError(f"the .cu's wgmma tile loops differ from ops.bwd_tiles at T {t}, S {s}, "
+                                         f"causal={causal}")
+    log(f"kernel: flash_attention_bwd's wgmma tile loops equal ops.bwd_tiles at {len(FA_BWD_TILE_LENGTHS) ** 2 * 2} "
+        f"(T, S, mask)")
     worst = {p: max((r["max_abs_err"] for r in rows if r["dtype"] == "float32" and (r["bwd_plan"] == "short") == (p == "short")),
                     default=0.0) for p in ("short", "long")}
     log(f"kernel: flash_attention_bwd within {FA_BWD_TOL} (float32; the long path also {FA_BWD_TOL} relative) "
@@ -1415,7 +1445,7 @@ def random_temporal_graph(seed: int):
 
 def phase_oracle(report):
     """(a) every ``full_deep`` pattern mined on the card under both kernel
-    backends equals the port's GFPReference on every edge of three random
+    backends equals the port's GFPReference on every edge of two random
     graphs; (b) the paper's Fig. 10 protocol (benchmarks/bench_scaling.py):
     scatter_gather on Trovares-10K/100K/1M, 2,000 seeds on the card, the
     first 400 of them through the oracle, exact, with both rates."""
@@ -1712,7 +1742,7 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
 
 def phase_witness(session, ds, counts, report):
     """(a) compiled witnesses on the card equal the port's GFPReference on
-    the oracle's three random graphs, for every library pattern that has a
+    the oracle's two random graphs, for every library pattern that has a
     witness layout, under both kernel backends, and witness-mode counts
     equal a counting mine's; (b) the session's witness mode over WIT_SEEDS
     seeds of the phase-3 graph under sync-debug "error" (one host sync per
@@ -2007,10 +2037,10 @@ def phase_triage(g, report, zero_launches, read_launches):
 
 
 def phase_sharded(session, g, counts, report, zero_launches, read_launches):
-    """Phase 15: the phase-3 session's sharded mine, twice, under
-    ``set_sync_debug_mode("error")``: SHARD_PARTS partitions over every
-    edge (they time-share the card: the host gather) and one partition
-    over SHARD_SEEDS seeds (the device-side sum).  Each must equal phase
+    """Phase 15: the phase-3 session's sharded mine of SHARD_SEEDS seeds,
+    twice, under ``set_sync_debug_mode("error")``: in SHARD_PARTS
+    partitions (they time-share the card: the host gather) and in one
+    (the device-side sum).  Each must equal phase
     3's rows, sync once, launch ``intersect_count`` and have per-shard
     stats that sum to its totals.  Then ``repro_torch.launch.mine``'s
     command line once.  Returns intersect_count's launches."""
@@ -2027,7 +2057,7 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
                                              replace=False).astype(np.int32)
     rows = {}
     launches = 0
-    for name, seeds, n_parts, mode in (("every_edge", None, SHARD_PARTS, "host"), ("seeds", sub, 1, "collective")):
+    for name, seeds, n_parts, mode in (("parts", sub, SHARD_PARTS, "host"), ("seeds", sub, 1, "collective")):
         zero_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2045,8 +2075,7 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
                "launches": read_launches(), "stats": res.stats}
         rows[name] = row
         log(f"sharded mine ({name}): " + json.dumps(row))
-        want = counts if seeds is None else counts[seeds]
-        if not np.array_equal(res.counts, want):
+        if not np.array_equal(res.counts, counts[seeds]):
             raise AssertionError(f"the sharded mine ({name}) differs from phase 3's rows")
         if res.gather_mode != mode or res.stats["host_syncs"] != 1:
             raise AssertionError(f"the sharded mine ({name}) gathered by {res.gather_mode!r} with "
@@ -2576,8 +2605,8 @@ def phase_train(report, zero_launches, read_launches):
     n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     path = fa_ops.bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True)
-    if path != "mma" or fa_ops.kernel_bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True) != path:
-        raise AssertionError(f"qwen2's training launch is planned on the {path!r} backward path, not 'mma'")
+    if path != "wgmma" or fa_ops.kernel_bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True) != path:
+        raise AssertionError(f"qwen2's training launch is planned on the {path!r} backward path, not 'wgmma'")
     n_params = M.n_params(cfg)
     out = {"arch": LM_ARCH, "n_params": n_params, "dtype": cfg.dtype, "batch": b, "tokens": t, "remat": True,
            "attn_backend": "kernel", "bwd_plan": path}
@@ -2764,6 +2793,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=282.0, help="HI-Small scale (282 = published size)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository (src/repro_torch is missing)", file=sys.stderr)
@@ -2791,7 +2821,12 @@ def main() -> int:
     from repro_torch.ml.pipeline import FEATURE_SETS, run_aml_pipeline
 
     device = torch.device("cuda")
-    report = {"scale": args.scale, "seed": SEED}
+    report = {"scale": args.scale, "seed": SEED, "phase_end_s": {}}
+
+    def mark(phase: int) -> None:
+        # the seconds since the script started, at the end of each phase
+        report["phase_end_s"][phase] = time.perf_counter() - t_start
+        log(f"phase {phase} ended at {report['phase_end_s'][phase]:.1f} s")
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
@@ -2818,6 +2853,7 @@ def main() -> int:
     log(f"build: {', '.join(KERNELS)} from src/repro_torch/csrc in {report['build_s']:.2f} s "
         f"(nvcc in parallel: {json.dumps(report['nvcc_s'])})")
     log(f"card: {card}")
+    mark(1)
 
     # ---- 2. kernels against their plain versions ----------------------
     max_err = phase_kernel(device, report)
@@ -2825,8 +2861,9 @@ def main() -> int:
     wd_row = phase_window_degree(device, report)
     fa_err = phase_flash_attention(device, report)
     fa_bwd_err = phase_flash_attention_bwd(device, report)
+    mark(2)
 
-    # ---- 3. main path at a real size ----------------------------------
+    # ---- 3. main path at a real size: mine, features, fit, F1 ---------
     t0 = time.perf_counter()
     ds = generate_aml_dataset("HI-Small", seed=SEED, scale=args.scale)
     g = ds.graph
@@ -2836,57 +2873,106 @@ def main() -> int:
     pats = feature_pattern_set("full")
     session = MiningSession(g, window=WINDOW).register(*pats)
 
+    params = GBDTParams()
+    fit_launches = params.n_trees * (params.max_depth + 1)
+    rows_fit_launches = params.n_trees * params.max_depth
+    hu_fn, hu_rows_fn = hu_ops.hist_update, hu_ops.hist_update_rows
+    hu_path = {}  # (N, S) -> the first keys-entry launch of each shape the fit makes
+    hu_rows_path = {}  # (N, S) -> the first rows-entry launch of each shape
+
+    def capture_hu(keys, gh, s):
+        hu_path.setdefault((keys.shape[0], s), (keys, gh, s))
+        return hu_fn(keys, gh, s)
+
+    def capture_hu_rows(xb, node, gh, n_nodes, n_bins):
+        hu_rows_path.setdefault((xb.shape[0], n_nodes * xb.shape[1] * n_bins), (xb, node, gh, n_nodes, n_bins))
+        return hu_rows_fn(xb, node, gh, n_nodes, n_bins)
+
+    def detection_row(fs, res, wall):
+        row = {"f1": res.f1, "precision": res.precision, "recall": res.recall, "confusion": res.confusion,
+               "mine_seconds": res.mine_seconds, "train_seconds": res.train_seconds,
+               "fit_seconds": res.fit_seconds, "wall_s": wall, "n_train": res.n_train, "n_test": res.n_test,
+               "launches": read_launches(),
+               "mine_host_syncs": res.mining.stats["host_syncs"] if res.mining else 0}
+        log(f"detection path ({fs}): " + json.dumps(row))
+        if row["launches"]["hist_update"] != fit_launches:
+            raise AssertionError(f"the {fs} fit launched hist_update {row['launches']['hist_update']} "
+                                 f"times, not {fit_launches}")
+        if row["launches"]["hist_update_rows"] != rows_fit_launches:
+            raise AssertionError(f"the {fs} fit launched the rows entry {row['launches']['hist_update_rows']} "
+                                 f"times, not {rows_fit_launches}")
+        if not 0.0 <= res.f1 <= 1.0 or res.n_train + res.n_test != g.n_edges:
+            raise AssertionError(f"{fs}: F1 {res.f1} or split {res.n_train}+{res.n_test} out of range")
+        return row
+
     biggest = {}
     kernel_fn, capture = capture_biggest(biggest)
     ic_ops.intersect_count = capture
+    hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
-        cold = session.mine()
-        with allowed_sync():
-            torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        warm = session.mine()
-        with allowed_sync():
-            torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        full = run_aml_pipeline(ds, "full", session=session)
+        wall = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
         ic_ops.intersect_count = kernel_fn
-    main_launches = read_launches()
+        hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
+    detection = {"full": detection_row("full", full, wall)}
+    main_launches = detection["full"]["launches"]
     launches = main_launches["intersect_count"]
     n_compiled = len(session._compiled)
+    cold = full.mining
+    counts = cold.counts
+    # the warm re-mine: WARM_SEEDS seeds mined twice, the second time from
+    # the cached schedules
+    wsub = np.random.default_rng(SEED + 2).choice(g.n_edges, size=min(WARM_SEEDS, g.n_edges),
+                                                  replace=False).astype(np.int32)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        first = session.mine(seeds=wsub)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = session.mine(seeds=wsub)
+        warm_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     main = {
         "patterns": list(pats),
         "n_seeds": int(cold.n_seeds),
-        "cold_s": cold_s,
-        "warm_s": warm_s,
+        "cold_s": full.mine_seconds,
+        "pipeline_s": wall,
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
         "launches": main_launches,
         "n_compiled": n_compiled,
         "fused": list(cold.fused),
         "totals": cold.totals(),
         "stats_cold": cold.stats,
-        "stats_warm": warm.stats,
         "seconds_cold": cold.seconds,
+        "warm_seeds": int(len(wsub)),
+        "first_s": first_s,
+        "warm_s": warm_s,
+        "stats_warm": warm.stats,
     }
     report["main_path"] = main
     log("main path: " + json.dumps(main))
     if launches <= 0:
         raise AssertionError("the main path launched intersect_count no time")
-    for name, res in (("cold", cold), ("warm", warm)):
+    for name, res in (("cold", cold), ("first subset", first), ("warm", warm)):
         if res.stats["host_syncs"] != 1 + n_compiled:
             raise AssertionError(f"{name} mine synced {res.stats['host_syncs']} times, not {1 + n_compiled}")
     if warm.stats["schedule_hits"] <= 0:
         raise AssertionError("the warm mine did not replay its schedules")
-    counts = cold.counts
-    if counts.shape != (g.n_edges, len(pats)) or (counts < 0).any():
-        raise AssertionError(f"count matrix has shape {counts.shape} or negative counts")
-    if not np.array_equal(counts, warm.counts):
-        raise AssertionError("warm mine disagrees with the cold mine")
+    if cold.columns != FEATURE_SETS["full"] or counts.shape != (g.n_edges, len(pats)) or (counts < 0).any():
+        raise AssertionError(f"count matrix has columns {cold.columns}, shape {counts.shape} or negative counts")
+    if not (np.array_equal(first.counts, counts[wsub]) and np.array_equal(warm.counts, counts[wsub])):
+        raise AssertionError("the subset's mines disagree with the main path's rows")
+    if full.f1 <= 0.0:
+        raise AssertionError("the full feature set detected nothing")
+    mark(3)
 
     # ---- 4. cross-checks on the card ----------------------------------
     t0 = time.perf_counter()
@@ -2907,60 +2993,15 @@ def main() -> int:
                               "cpu_seeds": int(len(sub)), "cpu_s": cpu_s, "cpu_equal": True,
                               "cpu_nonzero_cells": int((res_c.counts != 0).sum())}
     log("cross-checks: " + json.dumps(report["cross_checks"]))
+    mark(4)
 
-    # ---- 5. detection path at the same size ---------------------------
-    params = GBDTParams()
-    fit_launches = params.n_trees * (params.max_depth + 1)
-    rows_fit_launches = params.n_trees * params.max_depth
-    hu_fn, hu_rows_fn = hu_ops.hist_update, hu_ops.hist_update_rows
-    hu_path = {}  # (N, S) -> the first keys-entry launch of each shape the fit makes
-    hu_rows_path = {}  # (N, S) -> the first rows-entry launch of each shape
-
-    def capture_hu(keys, gh, s):
-        hu_path.setdefault((keys.shape[0], s), (keys, gh, s))
-        return hu_fn(keys, gh, s)
-
-    def capture_hu_rows(xb, node, gh, n_nodes, n_bins):
-        hu_rows_path.setdefault((xb.shape[0], n_nodes * xb.shape[1] * n_bins), (xb, node, gh, n_nodes, n_bins))
-        return hu_rows_fn(xb, node, gh, n_nodes, n_bins)
-
-    detection = {}
-    results = {}
-    for fs in ("full", "xgb_only"):
-        if fs == "full":
-            hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
-        zero_launches()
-        if fs == "full":
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            t0 = time.perf_counter()
-            res = run_aml_pipeline(ds, fs)
-            wall = time.perf_counter() - t0
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
-        results[fs] = res
-        row = {"f1": res.f1, "precision": res.precision, "recall": res.recall, "confusion": res.confusion,
-               "mine_seconds": res.mine_seconds, "train_seconds": res.train_seconds,
-               "fit_seconds": res.fit_seconds, "wall_s": wall, "n_train": res.n_train, "n_test": res.n_test,
-               "launches": read_launches(),
-               "mine_host_syncs": res.mining.stats["host_syncs"] if res.mining else 0}
-        detection[fs] = row
-        log(f"detection path ({fs}): " + json.dumps(row))
-        if row["launches"]["hist_update"] != fit_launches:
-            raise AssertionError(f"the {fs} fit launched hist_update {row['launches']['hist_update']} "
-                                 f"times, not {fit_launches}")
-        if row["launches"]["hist_update_rows"] != rows_fit_launches:
-            raise AssertionError(f"the {fs} fit launched the rows entry {row['launches']['hist_update_rows']} "
-                                 f"times, not {rows_fit_launches}")
-        if not 0.0 <= res.f1 <= 1.0 or res.n_train + res.n_test != g.n_edges:
-            raise AssertionError(f"{fs}: F1 {res.f1} or split {res.n_train}+{res.n_test} out of range")
-    mined = results["full"].mining
-    if mined.columns != FEATURE_SETS["full"] or not np.array_equal(mined.counts, counts):
-        raise AssertionError("the pipeline's mined columns differ from phase 3's count matrix")
-    if results["full"].f1 <= 0.0:
-        raise AssertionError("the full feature set detected nothing")
+    # ---- 5. the detection path without mined features -----------------
+    zero_launches()
+    t0 = time.perf_counter()
+    res = run_aml_pipeline(ds, "xgb_only")
+    detection["xgb_only"] = detection_row("xgb_only", res, time.perf_counter() - t0)
     report["detection"] = detection
+    mark(5)
 
     # ---- 6. detection cross-checks ------------------------------------
     x = np.concatenate([base_features(g), counts.astype(np.float32)], axis=1)
@@ -2995,9 +3036,11 @@ def main() -> int:
     log("detection cross-checks: " + json.dumps(check))
     if diff is not None and not diff["near_tie"]:
         raise AssertionError(f"the card and the CPU split differently where the gains are no near tie: {diff}")
+    mark(6)
 
     # ---- 7. FraudGT inference ----------------------------------------
     fgt_launches, fa_args = phase_fraudgt(ds, device, report, zero_launches, read_launches)
+    mark(7)
 
     # ---- 8. report -----------------------------------------------------
     a = biggest["args"]
@@ -3083,7 +3126,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/window_degree.cu",
         "replaces": "src/repro/kernels/window_degree/kernel.py:34",
         # no path of the system calls it (as in the JAX package)
-        "launches": main_launches["window_degree"] + detection["full"]["launches"]["window_degree"],
+        "launches": main_launches["window_degree"] + detection["xgb_only"]["launches"]["window_degree"],
         **{k: wd_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": {"B": wd_row["B"], "D": wd_row["D"]},
     })
@@ -3101,6 +3144,7 @@ def main() -> int:
         "max_abs_err_cases": fa_err,
         "shape": {k: fa_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
+    mark(8)
 
     # ---- 9. the oracle on the card, and the paper's Fig. 10 ------------
     t0 = time.perf_counter()
@@ -3109,6 +3153,7 @@ def main() -> int:
     log("fig10: " + json.dumps({k: {kk: v[kk] for kk in ("compiled_edges_per_s", "gfp_edges_per_s", "speedup")}
                                 for k, v in fig10.items()}))
     log(f"card: {card}")
+    mark(9)
 
     # ---- 10. partitioned mine against phase 3's rows ------------------
     sub = np.random.default_rng(SEED).choice(g.n_edges, size=min(PART_SEEDS, g.n_edges),
@@ -3123,6 +3168,7 @@ def main() -> int:
     log("partitioned: " + json.dumps(part_row))
     if not np.array_equal(part.counts, counts[sub]):
         raise AssertionError("the partitioned mine differs from phase 3's rows")
+    mark(10)
 
     # ---- 11. the streaming detection service over a live feed ---------
     t0 = time.perf_counter()
@@ -3145,26 +3191,31 @@ def main() -> int:
     })
     log("kernel timing: intersect_count on the streaming path " + json.dumps(
         {k: v for k, v in kernels[0].items() if k.startswith(("launches_streaming", "streaming_"))}))
+    mark(11)
 
     # ---- 12. resilience: retry, WAL + checkpoint recovery -------------
     res_launches, rec_launches = phase_resilience(session, g, report, zero_launches, read_launches)
     kernels[0].update({"launches_resilience": res_launches, "launches_recovery": rec_launches})
+    mark(12)
 
     # ---- 13. witnesses: oracle, session witness mode, plant and recover
     t0 = time.perf_counter()
     phase_witness(session, ds, counts, report)
     report["witness"]["phase_s"] = time.perf_counter() - t0
+    mark(13)
 
     # ---- 14. the triage server over a live feed -----------------------
     t0 = time.perf_counter()
     kernels[0]["launches_triage"] = phase_triage(g, report, zero_launches, read_launches)
     report["triage"]["phase_s"] = time.perf_counter() - t0
     log(f"card: {card}")
+    mark(14)
 
     # ---- 15. the sharded mine -------------------------------------------
     t0 = time.perf_counter()
     kernels[0]["launches_sharded"] = phase_sharded(session, g, counts, report, zero_launches, read_launches)
     report["sharded"]["phase_s"] = time.perf_counter() - t0
+    mark(15)
 
     # ---- 16. FraudGT training through the attention kernels both ways --
     t0 = time.perf_counter()
@@ -3189,6 +3240,7 @@ def main() -> int:
         "shape": {k: bwd_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
     log(f"card: {card}")
+    mark(16)
 
     # ---- 17. the LM scaffold's serving path: qwen2-1.5b at full width --
     t0 = time.perf_counter()
@@ -3206,6 +3258,7 @@ def main() -> int:
         "lm_shape": {key: lm_main[key] for key in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
     })
     log(f"card: {card}")
+    mark(17)
 
     # ---- 18. the LM's training loop: qwen2-1.5b at full width -----------
     t0 = time.perf_counter()
@@ -3233,6 +3286,7 @@ def main() -> int:
     fa_entry.update({"launches_train": train_launches["flash_attention"],
                      "launches_train_lse": train_launches["flash_attention_lse"]})
     log(f"card: {card}")
+    mark(18)
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

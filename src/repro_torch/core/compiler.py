@@ -1584,11 +1584,22 @@ class CompiledPattern:
         Under ``schedule_mode="shape"`` (streaming), counting schedules
         are re-keyed on the pow2-padded launch profile instead of the
         seed identity — see :meth:`_schedule_shape_keyed`.  Witness
-        (``bulk_only``) schedules stay value-keyed in both modes: their
-        packed top-k payloads depend on exact seed order."""
+        (``bulk_only``) schedules are value-keyed, as their packed top-k
+        payloads depend on exact seed order; under ``"shape"`` they are
+        built anew every call and never cached, because that cache
+        outlives the tick's view and a local seed id names another edge
+        in the next tick's view."""
         stats = self.stats if stats is None else stats
-        if self.schedule_mode == "shape" and not bulk_only:
-            return self._schedule_shape_keyed(seed_eids, stats)
+        if self.schedule_mode == "shape":
+            if not bulk_only:
+                return self._schedule_shape_keyed(seed_eids, stats)
+            with obs_trace.span(
+                "schedule_build",
+                pattern=self.spec.name,
+                n_seeds=len(seed_eids),
+                bulk_only=True,
+            ):
+                return self._build_schedule(seed_eids, bulk_only=True)
         key = (
             len(seed_eids),
             hashlib.sha1(seed_eids.tobytes()).hexdigest(),

@@ -40,7 +40,7 @@
 // logsumexp of the scaled, masked scores (B, H, T), and
 // flash_attention_bwd_launch computes dQ, dK, dV from it: for path A's
 // shapes with flash_short_bwd.cuh, for every other shape with
-// flash_long_bwd.cuh (its "mma" route for bf16 at hd 64 or 128, its
+// flash_long_bwd.cuh (its "wgmma" route for bf16 at hd 64 or 128, its
 // "simt" route otherwise; `bwd_plan`).  A forward-only call passes no
 // logsumexp pointer and writes none.
 //
@@ -79,7 +79,7 @@ constexpr int kBK = 32;   // keys per shared-memory tile
 constexpr int kSmemBudget = 48 * 1024;
 
 enum Path { kShort = 0, kWgmma = 1, kSimt = 2 };
-enum BwdPath { kBwdShort = 0, kBwdMma = 1, kBwdSimt = 2 };
+enum BwdPath { kBwdShort = 0, kBwdWgmma = 1, kBwdSimt = 2 };
 
 // dtype: 0 = float32, 1 = bfloat16
 int plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
@@ -91,10 +91,10 @@ int plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
 }
 
 // the backward's path: the short kernel for path A's shapes, else the long
-// kernels' tensor-core route for bf16 at hd 64 or 128, else their simt route
+// kernels' wgmma route for bf16 at hd 64 or 128, else their simt route
 int bwd_plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
   if (plan(b, t, s, h, kvh, hd, dtype, causal) == kShort) return kBwdShort;
-  return dtype == 1 && (hd == 64 || hd == 128) ? kBwdMma : kBwdSimt;
+  return dtype == 1 && (hd == 64 || hd == 128) ? kBwdWgmma : kBwdSimt;
 }
 
 // grid: n_groups * q_tiles blocks; block x covers problems
@@ -309,7 +309,7 @@ extern "C" int flash_attention_bwd_chunk(int b, int t, int s, int h, int kvh, in
   return flash::bwd_chunk_heads(t, s, h, kvh, hd);
 }
 
-// the backward's path at this shape: 0 short, 1 mma, 2 simt; -1 if the
+// the backward's path at this shape: 0 short, 1 wgmma, 2 simt; -1 if the
 // shape is refused
 extern "C" int flash_attention_bwd_plan(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal) {
   return valid(b, t, s, h, kvh, hd, dtype) ? bwd_plan(b, t, s, h, kvh, hd, dtype, causal) : -1;
@@ -317,8 +317,9 @@ extern "C" int flash_attention_bwd_plan(int b, int t, int s, int h, int kvh, int
 
 // the backward of the forward at any shape it takes: dq (B, T, H, hd), dk
 // and dv (B, S, K, hd) in the inputs' dtype, from q, k, v, the forward's o
-// and lse, and the output gradient dout.  dsum is a float32 (B, H, T)
-// scratch for the long paths (unused, and may be null, on the short one).
+// and lse, and the output gradient dout.  dsum is a float32 scratch of
+// 2 * B * H * ceil(T / 64) * 64 floats for the long paths (unused, and may
+// be null, on the short one).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                           const void* dout, const float* lse, void* dq, void* dk, void* dv,
                                           float* dsum, int dtype, int b, int t, int s, int h, int kvh, int hd,
@@ -331,4 +332,19 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     return launch_bwd_hd<float>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, hd, causal, scale, st);
   return launch_bwd_hd<__nv_bfloat16>(path, q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, hd, causal,
                                       scale, st);
+}
+
+// the wgmma route's tile loops at this shape (a pure function of T, S and
+// the mask): first_q[kt] the first 64-row query tile that the dK/dV block
+// of 128-key tile kt visits (ceil(T / 64) when none), for the ceil(S /
+// 128) key tiles; n_keys[mt] the number of 128-key tiles the dQ block of
+// 128-row query tile mt visits, for the ceil(T / 128) row tiles.  Returns
+// -1 for a refused length.
+extern "C" int flash_attention_bwd_tiles(int t, int s, int causal, int* first_q, int* n_keys) {
+  if (t <= 0 || s <= 0) return -1;
+  for (int kt = 0; kt < flash::bwd_ceil_div(s, flash::kKeyTile); ++kt)
+    first_q[kt] = flash::bwd_first_qtile(kt, t, causal);
+  for (int mt = 0; mt < flash::bwd_ceil_div(t, flash::kRowTile); ++mt)
+    n_keys[mt] = flash::bwd_key_tiles(mt, t, s, causal);
+  return 0;
 }

@@ -22,11 +22,13 @@
 // with k_j, v_j of kv head h / G.  Sums in float32; outputs in q's type.
 //
 // Bound: the operations.  Counted work is 5 products of 2 * hd flops per
-// visible (row, key) pair; at the training launch 0.52 TFLOP against the
-// bf16 tensor-core peak.  Design, simple first, deterministic (no
-// atomics: two launches give the same bits), three kernels a call:
-//   1. D = rowsum(dO * O) into a float32 (B, H, T) scratch the wrapper
-//      allocates (a lane group of hd / 8 lanes per row);
+// visible (row, key) pair: at the training launch 402.75 M pairs over
+// its 48 (b, h), 0.52 TFLOP, 0.521 ms at the bf16 tensor-core peak (989
+// TFLOP/s on an H100 SXM).  Deterministic (no atomics: two
+// launches give the same bits), three kernels a call:
+//   1. the row pass: D = rowsum(dO * O) (on the wgmma route also each
+//      row's lse in base 2) into a float32 scratch the wrapper allocates
+//      (a lane group of hd / 8 lanes per row);
 //   2. dQ: a block per (b, query head, tile of query rows); it loops over
 //      the key tiles its rows can see (causal: up to the diagonal),
 //      recomputes P and dS and sums dS K;
@@ -39,23 +41,54 @@
 // cost 5; that is the price of the fixed summation order.
 //
 // Two routes for passes 2 and 3, fixed by the dtype and head size:
-//   "mma"  (bf16 at hd 64 or 128): warp-level mma.sync.m16n8k16 on the
-//          tensor cores, bf16 operands and float32 sums.  Tiles of 64
-//          rows and 64 keys, one warp per 16 rows (keys in pass 3), staged
-//          into shared memory with rows padded by 16 bytes so that
-//          ldmatrix reads them without bank conflicts.  P and dS stay in
-//          registers: the accumulator layout of one product is the A
-//          operand layout of the next.  P and dS are rounded to bf16 for
-//          the products, as the forward rounds P.
+//   "wgmma" (bf16 at hd 64 or 128): the FlashAttention-3 backward (Shah
+//          et al., 2024) with its dQ atomics replaced by a pass of its
+//          own.  Only wgmma reaches the tensor cores' full rate, and they
+//          idle while a tile loads, so both passes are warp-specialised:
+//          384 threads, a producer warpgroup (24 registers by setmaxnreg;
+//          one thread issues every copy) that keeps TMA tiles in flight
+//          through a 2-stage mbarrier ring, and two consumer warpgroups
+//          (240 registers each, no spill) that run the products on 64 rows
+//          (keys in pass 3) each.  Tensor maps read q, k, v and dO in place
+//          in their (B, L, heads, hd) layouts with the 128-byte swizzle;
+//          rows past T and keys past S arrive as zeros and are masked by
+//          index, only on tiles that cross the end of T or S or the
+//          diagonal (the others take a loop without the mask's selects).
+//          - Pass 1 writes (B, H, ceil(T / 64), 2, 64): a 64-row tile's
+//            lse * log2(e), then its D, zeros past T (lse past T is never
+//            read), so that one 512-byte bulk copy brings a stage's rows.
+//          - Pass 3: a block per (b, kv head, tile of 128 keys), K and V
+//            loaded once; Q and dO tiles of 64 rows stream through the
+//            ring.  Per stage each consumer runs S^T = K Q^T and
+//            dP^T = V dO^T (m64n64k16, both from shared memory), forms
+//            P^T while dP^T runs, rounded to bf16 as the forward rounds P
+//            (the accumulator layout of S^T, keys as rows, is the A
+//            operand layout of the next product), issues dV += P^T dO,
+//            forms dS^T while it runs, then dK += dS^T Q (A from
+//            registers, B MN-major).  dK and dV (128 registers at hd 128)
+//            are written once, scaled.
+//          - Pass 2: a block per (b, query head, tile of 128 rows), Q and
+//            dO loaded once; K and V tiles of 128 keys stream through the
+//            ring.  Per stage S = Q K^T and dP = dO V^T (m64n128k16), P
+//            formed while dP runs, then dQ += dS K with dS in registers and
+//            K MN-major.
+//          P = 2^(s * scale * log2(e) - lse * log2(e)) by ex2.approx.ftz
+//          alone: the exponent, the mask and dS are the CUDA-core work
+//          that the tensor cores wait on, and exp2f adds range handling
+//          around the special-function unit to it.
+//          Both passes start with their heaviest tiles (causal: the
+//          earliest key tiles, the latest query tiles), and their tile
+//          loops are bwd_first_qtile and bwd_key_tiles, which the .cu
+//          entry flash_attention_bwd_tiles reports.
 //   "simt" (the rest: float32, and bf16 at hd 16 or 32): the CUDA cores,
 //          a lane group of hd / 8 lanes per row holding 8 dims each, the
 //          other side staged 32 rows at a time into shared memory as
 //          float32; scores formed as the forward's simt path forms them
 //          (q scaled first, 8-dim partial products, xor shuffles).
-// wgmma, TMA and warp specialisation are left for later work.
 #pragma once
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 #include "flash_short_bwd.cuh"
 
 #include <type_traits>
@@ -64,7 +97,6 @@ namespace flash {
 
 constexpr int kLongThreads = 128;
 constexpr int kSimtRows = 32;  // rows of the staged side on the simt route
-constexpr int kMmaTile = 64;   // rows and keys of a tile on the mma route
 constexpr float kLog2eBwd = 1.4426950408889634f;
 
 // ---- pass 1: D = rowsum(dO * O), (B, T, H, hd) rows -> (B, H, T) ----
@@ -238,300 +270,443 @@ flash_bwd_kernel_simt_dkv(const T* __restrict__ q, const T* __restrict__ k, cons
   }
 }
 
-// ---- mma route: warp-level tensor-core products (bf16 in, float32 sums) ----
+// ---- wgmma route (bf16 at hd 64 or 128) ----
 
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+constexpr int kBwdThreads = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr int kBwdStages = 2;     // ring stages of both passes
+constexpr int kKeyTile = 128;     // keys of a dK/dV block, 64 a consumer warpgroup
+constexpr int kRowStage = 64;     // query rows of a dK/dV ring stage (and of a row-pass tile)
+constexpr int kRowTile = 128;     // query rows of a dQ block, 64 a consumer warpgroup
+constexpr int kKeyStage = 128;    // keys of a dQ ring stage
+constexpr int kStatFloats = 2 * kRowStage;  // a row tile's lse * log2(e), then its D
+
+__host__ __device__ inline int bwd_ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// the first 64-row query tile whose rows see a key of the 128-key tile kt;
+// every later tile sees one too; ceil(T / 64) (no tile) when none does
+__host__ __device__ inline int bwd_first_qtile(int kt, int t_len, int causal) {
+  if (!causal) return 0;
+  const int j0 = kt * kKeyTile;
+  return j0 < t_len ? j0 / kRowStage : bwd_ceil_div(t_len, kRowStage);
 }
 
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// how many 128-key tiles the rows of the 128-row query tile mt see; they
+// are the first ones
+__host__ __device__ inline int bwd_key_tiles(int mt, int t_len, int s_len, int causal) {
+  const int end = (mt + 1) * kRowTile < t_len ? (mt + 1) * kRowTile : t_len;  // past the tile's last row
+  const int n_keys = causal && end < s_len ? end : s_len;
+  return bwd_ceil_div(n_keys, kKeyStage);
 }
 
-// C (16 x 8, float32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// the A operand of k-step kk from two accumulator tiles of 16 x 8 (n
-// blocks 2 kk and 2 kk + 1): the accumulator layout is the A layout
-__device__ __forceinline__ void acc_to_a(float (*c)[4], int kk, uint32_t* a) {
-  a[0] = pack2_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack2_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack2_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack2_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
+// ---- wgmma route, pass 1: each row's lse * log2(e) and D = rowsum(dO * O),
+// (B, T, H, hd) rows -> (B, H, n_q, 2, 64) float32, rows past T zeros ----
 template <int HD>
-struct MmaSmem {
-  static constexpr int kLd = HD + 8;                       // a row, padded by 16 bytes
-  static constexpr int kTile = kMmaTile * kLd;             // elements of one staged tile
-  static constexpr int kBytes = 4 * kTile * 2 + 2 * kMmaTile * 4;  // four tiles, and two float rows
+__global__ void __launch_bounds__(kLongThreads)
+flash_bwd_kernel_rowdot_tiled(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse, float* __restrict__ stats, int n_rows, int t_len,
+                              int n_heads, int n_q) {
+  constexpr int L = HD / kBwdDPL;
+  const int r = blockIdx.x * (kLongThreads / L) + threadIdx.x / L;  // over (B, n_q * 64, H)
+  const int sub = threadIdx.x % L;
+  const int t_pad = n_q * kRowStage;
+  const int h = r % n_heads, i = (r / n_heads) % t_pad, e = r / (n_heads * t_pad);
+  const bool in = r < n_rows && i < t_len;
+  float a[kBwdDPL], b[kBwdDPL];
+  if (in) {
+    const size_t off = (((size_t)e * t_len + i) * n_heads + h) * HD + sub * kBwdDPL;
+    Io<__nv_bfloat16>::load8(o + off, a);
+    Io<__nv_bfloat16>::load8(dout + off, b);
+  } else {
+#pragma unroll
+    for (int x = 0; x < kBwdDPL; ++x) a[x] = b[x] = 0.f;
+  }
+  const float d = group_dot<L>(b, a);
+  if (r < n_rows && sub == 0) {
+    const size_t bh = (size_t)e * n_heads + h;
+    float* row = stats + (bh * n_q + i / kRowStage) * kStatFloats + i % kRowStage;
+    row[0] = in ? lse[bh * t_len + i] * kLog2eBwd : 0.f;
+    row[kRowStage] = d;
+  }
+}
+
+// acc (64 x N) = A B^T on the tensor cores, hd / 16 steps of m64nNk16:
+// A the warpgroup's 64 rows (from row a_row0) of a K-major tile of a_rows
+// rows at a, B a K-major tile of N rows at bt (b_rows rows a box column)
+template <int HD, int N>
+__device__ __forceinline__ void ss_products(float* acc, uint32_t a, int a_rows, int a_row0, uint32_t bt, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;  // 16 dims into the 128-byte swizzled row
+    const uint64_t da = smem_desc(a + (kk / 4) * a_rows * 128 + a_row0 * 128 + off, 16, 1024);
+    const uint64_t db = smem_desc(bt + (kk / 4) * b_rows * 128 + off, 16, 1024);
+    if constexpr (N == 128) {
+      wgmma_ss_n128(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n64(acc, da, db, kk > 0);
+    }
+  }
+}
+
+// acc (64 x hd) += A B on the tensor cores: A (64 x 16 KS) in registers as
+// KS k-steps of 16, B the first 16 KS rows of an MN-major tile of b_rows
+// rows at bt (8-row groups of 1024 bytes, a k-step two of them)
+template <int HD, int KS>
+__device__ __forceinline__ void rs_products(float* acc, const uint32_t (*a)[4], uint32_t bt, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+      wgmma_rs_n64_tb(acc + 32 * c, a[kk], smem_desc(bt + c * b_rows * 128 + kk * 2048, 1024, 1024));
+  }
+}
+
+// N / 2 accumulator values as the A operand of N / 16 k-steps of 16: the
+// accumulator layout of one product is the A layout of the next
+template <int N>
+__device__ __forceinline__ void pack_a(const float* acc, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) a[kk][x] = pack_bf16(acc[8 * kk + 2 * x], acc[8 * kk + 2 * x + 1]);
+  }
+}
+
+// 2^x by the special-function unit alone (subnormal results flush to 0),
+// without exp2f's range handling around it
+__device__ __forceinline__ float bwd_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared memory of pass 3: K and V of the block's 128 keys, then the ring's
+// Q, dO and row-stat stages, then the barriers; every tile 1024-aligned
+template <int HD>
+struct DkvSmem {
+  static constexpr int kKvBytes = kKeyTile * HD * 2;    // K or V
+  static constexpr int kRowBytes = kRowStage * HD * 2;  // a Q or dO stage
+  static constexpr int kK = 0;
+  static constexpr int kV = kKvBytes;
+  static constexpr int kQ = 2 * kKvBytes;                       // stage st at kQ + st * kRowBytes
+  static constexpr int kDo = kQ + kBwdStages * kRowBytes;
+  static constexpr int kStat = kDo + kBwdStages * kRowBytes;    // stage st at kStat + st * 4 * kStatFloats
+  static constexpr int kBar = kStat + kBwdStages * 4 * kStatFloats;
+  static constexpr int kBytes = kBar + 64 + 1024;               // barriers, and room to align the base
 };
 
-// rows [0, n_valid) of a tile of kMmaTile rows from device memory (row r
-// at src + r * stride) into padded shared memory; rows past n_valid are
-// zeros
+// pass 3 on the tensor cores: block = (b, kv head, tile of 128 keys), the
+// earliest (heaviest, causal) key tiles first
 template <int HD>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, size_t stride,
-                                           int n_valid) {
-  constexpr int CH = HD / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < kMmaTile * CH; c += kLongThreads) {
-    const int r = c / CH, x = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + x * 8);
-    *reinterpret_cast<uint4*>(dst + r * MmaSmem<HD>::kLd + x * 8) = val;
-  }
-}
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int t_len, int s_len, int n_heads, int group,
+                           int kv_heads, int causal, float scale, int n_bkh) {
+  using L = DkvSmem<HD>;
+  constexpr int CB = HD / 64;  // 128-byte-wide boxes across hd
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sk = base + L::kK, sv = base + L::kV, sq = base + L::kQ, sdo = base + L::kDo;
+  const uint32_t sstat = base + L::kStat;
+  const float* stat_ptr = reinterpret_cast<const float*>(smem_raw + (sstat - raw));
+  const uint32_t bar_kv = base + L::kBar;
+  const uint32_t bar_full = bar_kv + 8;                 // kBwdStages of them
+  const uint32_t bar_empty = bar_full + 8 * kBwdStages;
 
-// pass 2 on the tensor cores: block = (b, h, tile of 64 rows), one warp
-// per 16 rows; heaviest (latest causal) tiles first
-template <int HD>
-__global__ void __launch_bounds__(kLongThreads)
-flash_bwd_kernel_mma_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ dsum,
-                        __nv_bfloat16* __restrict__ dq, int t_len, int s_len, int n_heads, int group, int kv_heads,
-                        int causal, float scale, int q_tiles, int n_bh) {
-  using M = MmaSmem<HD>;
-  constexpr int LD = M::kLd;
-  extern __shared__ __align__(16) unsigned char smem_lbwd[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_lbwd);
-  __nv_bfloat16* dos = qs + M::kTile;
-  __nv_bfloat16* ks = dos + M::kTile;
-  __nv_bfloat16* vs = ks + M::kTile;
-  const int m_tile = q_tiles - 1 - (int)(blockIdx.x / n_bh);
-  const int bh = blockIdx.x % n_bh;
-  const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
-  const int i0 = m_tile * kMmaTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-
-  stage_rows<HD>(qs, q + (((size_t)b * t_len + i0) * n_heads + h) * HD, (size_t)n_heads * HD, t_len - i0);
-  stage_rows<HD>(dos, dout + (((size_t)b * t_len + i0) * n_heads + h) * HD, (size_t)n_heads * HD, t_len - i0);
-  float lse2[2], dd[2];
-  int row_i[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_i[r] = i0 + warp * 16 + g + 8 * r;
-    const bool in = row_i[r] < t_len;
-    lse2[r] = in ? lse[(size_t)bh * t_len + row_i[r]] * kLog2eBwd : 0.f;
-    dd[r] = in ? dsum[(size_t)bh * t_len + row_i[r]] : 0.f;
-  }
-  const float sl2 = scale * kLog2eBwd;
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  const uint32_t qs_a = smem_u32(qs), dos_a = smem_u32(dos), ks_a = smem_u32(ks), vs_a = smem_u32(vs);
-  // lane offsets of the three ldmatrix patterns (in elements)
-  const int a_off = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;             // A: 16 rows x 16
-  const int b_off = ((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;  // B from [n][k], 2 n blocks
-  const int bt_off = (lane % 16) * LD + (lane / 16) * 8;                         // B from [k][n], 2 n blocks
-
-  const int n_keys = causal ? min(s_len, i0 + kMmaTile) : s_len;
-  for (int j0 = 0; j0 < n_keys; j0 += kMmaTile) {
-    __syncthreads();  // the previous key tile is done with (and the row tiles are staged)
-    stage_rows<HD>(ks, k + (((size_t)b * s_len + j0) * kv_heads + kh) * HD, (size_t)kv_heads * HD, s_len - j0);
-    stage_rows<HD>(vs, v + (((size_t)b * s_len + j0) * kv_heads + kh) * HD, (size_t)kv_heads * HD, s_len - j0);
-    __syncthreads();
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      ldsm_x4(qs_a + 2 * (a_off + kk * 16), aq);
-      ldsm_x4(dos_a + 2 * (a_off + kk * 16), ado);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(ks_a + 2 * (b_off + np * 16 * LD + kk * 16), bk);
-        ldsm_x4(vs_a + 2 * (b_off + np * 16 * LD + kk * 16), bv);
-        mma_16816(sc[2 * np], aq, bk[0], bk[1]);
-        mma_16816(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma_16816(dp[2 * np], ado, bv[0], bv[1]);
-        mma_16816(dp[2 * np + 1], ado, bv[2], bv[3]);
-      }
-    }
-    const bool need_mask = j0 + kMmaTile > s_len || (causal && j0 + kMmaTile > i0);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + n * 8 + 2 * t4 + (e & 1);
-        const bool vis = !need_mask || (key < s_len && (!causal || key <= row_i[e >> 1]));
-        const float p = vis ? exp2f(sc[n][e] * sl2 - lse2[e >> 1]) : 0.f;
-        sc[n][e] = p * (dp[n][e] - dd[e >> 1]);  // dS
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(sc, kk, a);
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        uint32_t bk[4];
-        ldsm_x4_t(ks_a + 2 * (bt_off + kk * 16 * LD + np * 16), bk);
-        mma_16816(dq_acc[2 * np], a, bk[0], bk[1]);
-        mma_16816(dq_acc[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row_i[r] >= t_len) continue;
-    __nv_bfloat16* out = dq + (((size_t)b * t_len + row_i[r]) * n_heads + h) * HD;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dq_acc[n][2 * r] * scale, dq_acc[n][2 * r + 1] * scale);
-  }
-}
-
-// pass 3 on the tensor cores: block = (b, kv head, tile of 64 keys), one
-// warp per 16 keys; the rows of a staged query tile are taken 32 at a time
-// (two sub-steps), which keeps S^T and dP^T at 16 registers each beside
-// the dK and dV sums; heaviest (earliest causal) tiles first
-template <int HD>
-__global__ void __launch_bounds__(kLongThreads)
-flash_bwd_kernel_mma_dkv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ dsum,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t_len, int s_len,
-                         int n_heads, int group, int kv_heads, int causal, float scale, int n_bkh) {
-  using M = MmaSmem<HD>;
-  constexpr int LD = M::kLd;
-  constexpr int NQ = 32;  // rows a sub-step
-  extern __shared__ __align__(16) unsigned char smem_lbwd[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_lbwd);
-  __nv_bfloat16* vs = ks + M::kTile;
-  __nv_bfloat16* qs = vs + M::kTile;
-  __nv_bfloat16* dos = qs + M::kTile;
-  float* ls = reinterpret_cast<float*>(dos + M::kTile);
-  float* dsm = ls + kMmaTile;
-  const int tile = blockIdx.x / n_bkh;
+  const int kt = blockIdx.x / n_bkh;
   const int bkh = blockIdx.x % n_bkh;
   const int b = bkh / kv_heads, kh = bkh % kv_heads;
-  const int j0 = tile * kMmaTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int j0 = kt * kKeyTile;
+  const int n_q = bwd_ceil_div(t_len, kRowStage);
+  const int q_first = bwd_first_qtile(kt, t_len, causal);
+  const int per_head = n_q - q_first;
+  const int n_iters = group * per_head;  // (query head, query tile) stages, head-major
 
-  stage_rows<HD>(ks, k + (((size_t)b * s_len + j0) * kv_heads + kh) * HD, (size_t)kv_heads * HD, s_len - j0);
-  stage_rows<HD>(vs, v + (((size_t)b * s_len + j0) * kv_heads + kh) * HD, (size_t)kv_heads * HD, s_len - j0);
-  int key_j[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) key_j[r] = j0 + warp * 16 + g + 8 * r;
-  const float sl2 = scale * kLog2eBwd;
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs), qs_a = smem_u32(qs), dos_a = smem_u32(dos);
-  const int a_off = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
-  const int b_off = ((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
-  const int bt_off = (lane % 16) * LD + (lane / 16) * 8;
-
-  const int i_begin = causal ? j0 : 0;  // tiles are aligned: rows before j0 see none of the keys
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kh * group + gi;
-    const size_t bh = (size_t)b * n_heads + h;
-    for (int i0 = i_begin; i0 < t_len; i0 += kMmaTile) {
-      __syncthreads();  // the previous rows are done with (and the key tiles are staged)
-      stage_rows<HD>(qs, q + (((size_t)b * t_len + i0) * n_heads + h) * HD, (size_t)n_heads * HD, t_len - i0);
-      stage_rows<HD>(dos, dout + (((size_t)b * t_len + i0) * n_heads + h) * HD, (size_t)n_heads * HD, t_len - i0);
-      for (int c = threadIdx.x; c < kMmaTile; c += kLongThreads) {
-        const int i = i0 + c;
-        ls[c] = i < t_len ? lse[bh * t_len + i] * kLog2eBwd : 0.f;
-        dsm[c] = i < t_len ? dsum[bh * t_len + i] : 0.f;
+  if (threadIdx.x < 128) {  // ---- producer warpgroup: one thread issues every copy ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_iters > 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kKvBytes);
+      for (int c = 0; c < CB; ++c) {
+        tma_load_4d(sk + c * kKeyTile * 128, &tm_k, bar_kv, c * 64, kh, j0, b);
+        tma_load_4d(sv + c * kKeyTile * 128, &tm_v, bar_kv, c * 64, kh, j0, b);
       }
-      __syncthreads();
-      const bool need_mask = i0 + kMmaTile > t_len || j0 + kMmaTile > s_len || (causal && i0 < j0 + kMmaTile);
-#pragma unroll
-      for (int qb = 0; qb < kMmaTile; qb += NQ) {
-        if (i0 + qb >= t_len) break;  // uniform across the block
-        float st[NQ / 8][4], dpt[NQ / 8][4];  // S^T, dP^T: 16 keys x NQ rows a warp
-#pragma unroll
-        for (int n = 0; n < NQ / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t ak[4], av[4];
-          ldsm_x4(ks_a + 2 * (a_off + kk * 16), ak);
-          ldsm_x4(vs_a + 2 * (a_off + kk * 16), av);
-#pragma unroll
-          for (int np = 0; np < NQ / 16; ++np) {
-            uint32_t bq[4], bo[4];
-            ldsm_x4(qs_a + 2 * (b_off + (qb + np * 16) * LD + kk * 16), bq);
-            ldsm_x4(dos_a + 2 * (b_off + (qb + np * 16) * LD + kk * 16), bo);
-            mma_16816(st[2 * np], ak, bq[0], bq[1]);
-            mma_16816(st[2 * np + 1], ak, bq[2], bq[3]);
-            mma_16816(dpt[2 * np], av, bo[0], bo[1]);
-            mma_16816(dpt[2 * np + 1], av, bo[2], bo[3]);
-          }
+      for (int it = 0; it < n_iters; ++it) {
+        const int h = kh * group + it / per_head, qt = q_first + it % per_head;
+        const int st = it % kBwdStages;
+        if (it >= kBwdStages) mbar_wait(bar_empty + 8 * st, ((it / kBwdStages) - 1) & 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * L::kRowBytes + 4 * kStatFloats);
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sq + st * L::kRowBytes + c * kRowStage * 128, &tm_q, full, c * 64, h, qt * kRowStage, b);
+          tma_load_4d(sdo + st * L::kRowBytes + c * kRowStage * 128, &tm_do, full, c * 64, h, qt * kRowStage, b);
         }
+        bulk_g2s(sstat + st * 4 * kStatFloats, stats + ((size_t)(b * n_heads + h) * n_q + qt) * kStatFloats,
+                 4 * kStatFloats, full);
+      }
+    }
+  } else {  // ---- consumer warpgroup cw holds keys j0 + 64 cw .. + 63 ----
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, quad = lane % 4;
+    const int kw0 = j0 + 64 * cw;
+    const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
+    const float sl2 = scale * kLog2eBwd;
+    float dk_acc[HD / 2], dv_acc[HD / 2];
 #pragma unroll
-        for (int n = 0; n < NQ / 8; ++n) {
+    for (int x = 0; x < HD / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+    // per stage, in two groups: S^T = K Q^T and dP^T = V dO^T (64 keys x
+    // 64 rows each); P^T is formed while dP^T runs and dV += P^T dO while
+    // dS^T is formed; then dK += dS^T Q
+    float s_acc[32], p_acc[32];
+    uint32_t pa[4][4], da[4][4];
+    if (n_iters > 0) mbar_wait(bar_kv, 0);
+    for (int it = 0; it < n_iters; ++it) {
+      const int i0 = (q_first + it % per_head) * kRowStage;
+      const int st = it % kBwdStages;
+      const uint32_t qst = sq + st * L::kRowBytes, dost = sdo + st * L::kRowBytes;
+      const float* stat = stat_ptr + st * kStatFloats;
+      const bool need_mask = i0 + kRowStage > t_len || kw0 + 64 > s_len || (causal && kw0 + 63 > i0);
+      mbar_wait(bar_full + 8 * st, (it / kBwdStages) & 1);
+      wgmma_fence();
+      ss_products<HD, 64>(s_acc, sk, kKeyTile, 64 * cw, qst, kRowStage);
+      wgmma_commit();
+      ss_products<HD, 64>(p_acc, sv, kKeyTile, 64 * cw, dost, kRowStage);
+      wgmma_commit();
+      wgmma_wait1();  // S^T done
+      fence_regs<32>(s_acc);
+
+      // P^T: element 4 i + e is key key0 + 8 (e >> 1), row i0 + 8 i + 2 quad + (e & 1)
+      if (!need_mask) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 l2 = *reinterpret_cast<const float2*>(stat + 8 * i + 2 * quad);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s_acc[4 * i + e] = bwd_exp2(s_acc[4 * i + e] * sl2 - ((e & 1) ? l2.y : l2.x));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 l2 = *reinterpret_cast<const float2*>(stat + 8 * i + 2 * quad);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int c = qb + n * 8 + 2 * t4 + (e & 1);  // the row within the staged tile
-            const int i = i0 + c, key = key_j[e >> 1];
-            const bool vis = !need_mask || (i < t_len && key < s_len && (!causal || key <= i));
-            const float p = vis ? exp2f(st[n][e] * sl2 - ls[c]) : 0.f;
-            st[n][e] = p;
-            dpt[n][e] = p * (dpt[n][e] - dsm[c]);  // dS^T
+            const int idx = 4 * i + e;
+            const int row = i0 + 8 * i + 2 * quad + (e & 1), key = key0 + 8 * (e >> 1);
+            const bool vis = row < t_len && key < s_len && (!causal || key <= row);
+            s_acc[idx] = vis ? bwd_exp2(s_acc[idx] * sl2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
           }
         }
+      }
+      pack_a<64>(s_acc, pa);  // P^T in bf16, the stage's rows as k
+      wgmma_fence();
+      fence_regs<HD / 2>(dv_acc);
+      rs_products<HD, 4>(dv_acc, pa, dost, kRowStage);  // dV += P^T dO, B MN-major
+      wgmma_commit();
+      wgmma_wait1();  // dP^T done
+      fence_regs<32>(p_acc);
 #pragma unroll
-        for (int kq = 0; kq < NQ / 16; ++kq) {
-          uint32_t ap[4], ads[4];
-          acc_to_a(st, kq, ap);
-          acc_to_a(dpt, kq, ads);
+      for (int i = 0; i < 8; ++i) {
+        const float2 dd = *reinterpret_cast<const float2*>(stat + kRowStage + 8 * i + 2 * quad);
 #pragma unroll
-          for (int np = 0; np < HD / 16; ++np) {
-            uint32_t bo[4], bq[4];
-            ldsm_x4_t(dos_a + 2 * (bt_off + (qb + kq * 16) * LD + np * 16), bo);
-            ldsm_x4_t(qs_a + 2 * (bt_off + (qb + kq * 16) * LD + np * 16), bq);
-            mma_16816(dv_acc[2 * np], ap, bo[0], bo[1]);
-            mma_16816(dv_acc[2 * np + 1], ap, bo[2], bo[3]);
-            mma_16816(dk_acc[2 * np], ads, bq[0], bq[1]);
-            mma_16816(dk_acc[2 * np + 1], ads, bq[2], bq[3]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * i + e;
+          p_acc[idx] = s_acc[idx] * (p_acc[idx] - ((e & 1) ? dd.y : dd.x));  // dS^T
+        }
+      }
+      pack_a<64>(p_acc, da);
+      wgmma_fence();
+      fence_regs<HD / 2>(dk_acc);
+      rs_products<HD, 4>(dk_acc, da, qst, kRowStage);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<HD / 2>(dv_acc);
+      fence_regs<HD / 2>(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // ---- epilogue: dK * scale and dV in bf16, keys < S ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= s_len) continue;
+      const size_t o = (((size_t)b * s_len + key) * kv_heads + kh) * HD;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int idx = 32 * c + 4 * i + 2 * r;
+          const int d = 64 * c + 8 * i + 2 * quad;
+          *reinterpret_cast<__nv_bfloat162*>(dk + o + d) =
+              __floats2bfloat162_rn(dk_acc[idx] * scale, dk_acc[idx + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + o + d) = __floats2bfloat162_rn(dv_acc[idx], dv_acc[idx + 1]);
         }
       }
     }
   }
+}
+
+// shared memory of pass 2: Q and dO of the block's 128 rows, then the
+// ring's K and V stages, then the barriers; every tile 1024-aligned
+template <int HD>
+struct DqSmem {
+  static constexpr int kRowBytes = kRowTile * HD * 2;  // Q or dO
+  static constexpr int kKvBytes = kKeyStage * HD * 2;  // a K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kRowBytes;
+  static constexpr int kK = 2 * kRowBytes;              // stage st at kK + st * kKvBytes
+  static constexpr int kV = kK + kBwdStages * kKvBytes;
+  static constexpr int kBar = kV + kBwdStages * kKvBytes;
+  static constexpr int kBytes = kBar + 64 + 1024;
+};
+
+// pass 2 on the tensor cores: block = (b, query head, tile of 128 rows),
+// the latest (heaviest, causal) row tiles first
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int t_len, int s_len,
+                          int n_heads, int group, int causal, float scale, int n_mtiles, int n_bh) {
+  using L = DqSmem<HD>;
+  constexpr int CB = HD / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base + L::kQ, sdo = base + L::kDo, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kBwdStages;
+
+  const int mt = n_mtiles - 1 - (int)(blockIdx.x / n_bh);
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
+  const int m0 = mt * kRowTile;
+  const int n_tiles = bwd_key_tiles(mt, t_len, s_len, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // ---- producer warpgroup ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * L::kRowBytes);
+      for (int c = 0; c < CB; ++c) {
+        tma_load_4d(sq + c * kRowTile * 128, &tm_q, bar_q, c * 64, h, m0, b);
+        tma_load_4d(sdo + c * kRowTile * 128, &tm_do, bar_q, c * 64, h, m0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kBwdStages;
+        if (j >= kBwdStages) mbar_wait(bar_empty + 8 * st, ((j / kBwdStages) - 1) & 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * L::kKvBytes);
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(sk + st * L::kKvBytes + c * kKeyStage * 128, &tm_k, full, c * 64, kh, j * kKeyStage, b);
+          tma_load_4d(sv + st * L::kKvBytes + c * kKeyStage * 128, &tm_v, full, c * 64, kh, j * kKeyStage, b);
+        }
+      }
+    }
+  } else {  // ---- consumer warpgroup cw holds rows m0 + 64 cw .. + 63 ----
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, quad = lane % 4;
+    const int r0 = m0 + 64 * cw;
+    const int row0 = r0 + 16 * warp + lane / 4;  // and row0 + 8
+    const int n_q = bwd_ceil_div(t_len, kRowStage);
+    const float sl2 = scale * kLog2eBwd;
+    float lse2[2], dd[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key_j[r] >= s_len) continue;
-    const size_t o = (((size_t)b * s_len + key_j[r]) * kv_heads + kh) * HD;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const float* tile = stats + ((size_t)bh * n_q + row / kRowStage) * kStatFloats + row % kRowStage;
+      lse2[r] = row < t_len ? tile[0] : 0.f;
+      dd[r] = row < t_len ? tile[kRowStage] : 0.f;
+    }
+    float dq_acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + n * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    for (int x = 0; x < HD / 2; ++x) dq_acc[x] = 0.f;
+    // per key tile, in two groups: S = Q K^T and dP = dO V^T (64 rows x
+    // 128 keys each); P is formed while dP runs; then dQ += dS K
+    float s_acc[kKeyStage / 2], p_acc[kKeyStage / 2];
+    uint32_t da[kKeyStage / 16][4];
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kBwdStages;
+      const uint32_t kst = sk + st * L::kKvBytes, vst = sv + st * L::kKvBytes;
+      const int kb = j * kKeyStage;
+      const bool need_mask = kb + kKeyStage > s_len || r0 + 64 > t_len || (causal && kb + kKeyStage - 1 > r0);
+      mbar_wait(bar_full + 8 * st, (j / kBwdStages) & 1);
+      wgmma_fence();
+      ss_products<HD, kKeyStage>(s_acc, sq, kRowTile, 64 * cw, kst, kKeyStage);
+      wgmma_commit();
+      ss_products<HD, kKeyStage>(p_acc, sdo, kRowTile, 64 * cw, vst, kKeyStage);
+      wgmma_commit();
+      wgmma_wait1();  // S done
+      fence_regs<kKeyStage / 2>(s_acc);
+
+      // P: element 4 i + e is row row0 + 8 (e >> 1), key kb + 8 i + 2 quad + (e & 1)
+      if (!need_mask) {
+#pragma unroll
+        for (int idx = 0; idx < kKeyStage / 2; ++idx) s_acc[idx] = bwd_exp2(s_acc[idx] * sl2 - lse2[(idx >> 1) & 1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kKeyStage / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = 4 * i + e;
+            const int key = kb + 8 * i + 2 * quad + (e & 1), row = row0 + 8 * (e >> 1);
+            const bool vis = row < t_len && key < s_len && (!causal || key <= row);
+            s_acc[idx] = vis ? bwd_exp2(s_acc[idx] * sl2 - lse2[e >> 1]) : 0.f;
+          }
+        }
+      }
+      wgmma_wait0();  // dP done
+      fence_regs<kKeyStage / 2>(p_acc);
+#pragma unroll
+      for (int idx = 0; idx < kKeyStage / 2; ++idx) s_acc[idx] *= p_acc[idx] - dd[(idx >> 1) & 1];  // dS
+      pack_a<kKeyStage>(s_acc, da);
+      wgmma_fence();
+      fence_regs<HD / 2>(dq_acc);
+      rs_products<HD, kKeyStage / 16>(dq_acc, da, kst, kKeyStage);  // dQ += dS K, K MN-major
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<HD / 2>(dq_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // ---- epilogue: dQ * scale in bf16, rows < T ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= t_len) continue;
+      __nv_bfloat16* out = dq + (((size_t)b * t_len + row) * n_heads + h) * HD;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int idx = 32 * c + 4 * i + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * i + 2 * quad) =
+              __floats2bfloat162_rn(dq_acc[idx] * scale, dq_acc[idx + 1] * scale);
+        }
+      }
     }
   }
 }
@@ -539,42 +714,67 @@ flash_bwd_kernel_mma_dkv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 // the route of a long backward: true for the tensor cores (bf16 at hd 64
 // or 128), false for the CUDA cores
 template <typename T, int HD>
-constexpr bool long_bwd_mma() {
+constexpr bool long_bwd_wgmma() {
   return std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
 }
 
+// the wgmma route's three kernels on stream st
+template <int HD>
+int launch_long_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                          const float* lse, void* dq, void* dk, void* dv, float* stats, int b, int t, int s, int h,
+                          int kvh, int causal, float scale, cudaStream_t st) {
+  using B16 = __nv_bfloat16;
+  CUtensorMap q_rows, do_rows, k_keys, v_keys;  // pass 3: 64-row stages, the block's 128 keys
+  CUtensorMap q_tile, do_tile, k_stage, v_stage;  // pass 2: the block's 128 rows, 64-key stages
+  if (!make_map(&q_rows, q, b, t, h, HD, kRowStage) || !make_map(&do_rows, dout, b, t, h, HD, kRowStage) ||
+      !make_map(&k_keys, k, b, s, kvh, HD, kKeyTile) || !make_map(&v_keys, v, b, s, kvh, HD, kKeyTile) ||
+      !make_map(&q_tile, q, b, t, h, HD, kRowTile) || !make_map(&do_tile, dout, b, t, h, HD, kRowTile) ||
+      !make_map(&k_stage, k, b, s, kvh, HD, kKeyStage) || !make_map(&v_stage, v, b, s, kvh, HD, kKeyStage)) {
+    return kErrTensorMap;
+  }
+  constexpr int L = HD / kBwdDPL;
+  const int n_q = bwd_ceil_div(t, kRowStage);
+  const long long n_rows = (long long)b * n_q * kRowStage * h;
+  const int rpb = kLongThreads / L;
+  flash_bwd_kernel_rowdot_tiled<HD><<<(unsigned)((n_rows + rpb - 1) / rpb), kLongThreads, 0, st>>>(
+      (const B16*)o, (const B16*)dout, lse, stats, (int)n_rows, t, h, n_q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kdq = flash_bwd_kernel_wgmma_dq<HD>;
+  auto kdkv = flash_bwd_kernel_wgmma_dkv<HD>;
+  constexpr int smem_dq = DqSmem<HD>::kBytes, smem_dkv = DkvSmem<HD>::kBytes;
+  if ((err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv)) != cudaSuccess)
+    return (int)err;
+  const int n_mtiles = bwd_ceil_div(t, kRowTile), n_ktiles = bwd_ceil_div(s, kKeyTile);
+  kdq<<<(unsigned)((long long)n_mtiles * b * h), kBwdThreads, smem_dq, st>>>(
+      q_tile, k_stage, v_stage, do_tile, stats, (B16*)dq, t, s, h, h / kvh, causal, scale, n_mtiles, b * h);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kdkv<<<(unsigned)((long long)n_ktiles * b * kvh), kBwdThreads, smem_dkv, st>>>(
+      q_rows, k_keys, v_keys, do_rows, stats, (B16*)dk, (B16*)dv, t, s, h, h / kvh, kvh, causal, scale, b * kvh);
+  return (int)cudaGetLastError();
+}
+
 // the three kernels of a long backward on stream st; dsum is a float32
-// (B, H, T) scratch.  Returns the first launch error.
+// scratch of 2 * B * H * ceil(T / 64) * 64 floats: (B, H, T) on the simt
+// route, (B, H, ceil(T / 64), 2, 64) on the wgmma route.  Returns the
+// first launch error.
 template <typename T, int HD>
 int launch_long_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* dsum, int b, int t, int s, int h, int kvh, int causal,
                     float scale, cudaStream_t st) {
-  constexpr int L = HD / kBwdDPL;
-  const int g = h / kvh;
-  const int n_rows = b * t * h;
-  const int rpb = kLongThreads / L;
-  flash_bwd_kernel_rowdot<T, HD><<<(n_rows + rpb - 1) / rpb, kLongThreads, 0, st>>>(
-      (const T*)o, (const T*)dout, dsum, n_rows, t, h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (long_bwd_mma<T, HD>()) {
-    using B16 = __nv_bfloat16;
-    constexpr int smem = MmaSmem<HD>::kBytes;
-    auto kdq = flash_bwd_kernel_mma_dq<HD>;
-    auto kdkv = flash_bwd_kernel_mma_dkv<HD>;
-    if ((err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
-      return (int)err;
-    const int q_tiles = (t + kMmaTile - 1) / kMmaTile, k_tiles = (s + kMmaTile - 1) / kMmaTile;
-    kdq<<<(unsigned)((long long)q_tiles * b * h), kLongThreads, smem, st>>>(
-        (const B16*)q, (const B16*)k, (const B16*)v, (const B16*)dout, lse, dsum, (B16*)dq, t, s, h, g, kvh,
-        causal, scale, q_tiles, b * h);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    kdkv<<<(unsigned)((long long)k_tiles * b * kvh), kLongThreads, smem, st>>>(
-        (const B16*)q, (const B16*)k, (const B16*)v, (const B16*)dout, lse, dsum, (B16*)dk, (B16*)dv, t, s, h,
-        g, kvh, causal, scale, b * kvh);
+  if constexpr (long_bwd_wgmma<T, HD>()) {
+    return launch_long_bwd_wgmma<HD>(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
   } else {
+    constexpr int L = HD / kBwdDPL;
+    const int g = h / kvh;
+    const int n_rows = b * t * h;
+    const int rpb = kLongThreads / L;
+    flash_bwd_kernel_rowdot<T, HD><<<(n_rows + rpb - 1) / rpb, kLongThreads, 0, st>>>(
+        (const T*)o, (const T*)dout, dsum, n_rows, t, h);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     const int r = kLongThreads / L;
     const int q_tiles = (t + r - 1) / r, k_tiles = (s + r - 1) / r;
     flash_bwd_kernel_simt_dq<T, HD><<<(unsigned)((long long)q_tiles * b * h), kLongThreads, 0, st>>>(
@@ -584,8 +784,8 @@ int launch_long_bwd(const void* q, const void* k, const void* v, const void* o, 
     flash_bwd_kernel_simt_dkv<T, HD><<<(unsigned)((long long)k_tiles * b * kvh), kLongThreads, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv, t, s, h, g, kvh, causal,
         scale, k_tiles);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace flash

@@ -34,9 +34,10 @@ the two for autograd.  The backward's path is :func:`bwd_plan`'s (the
 reports it): ``"short"`` for the forward's short-path shapes
 (``csrc/flash_short_bwd.cuh``), else the long backward
 (``csrc/flash_long_bwd.cuh``: a row-dot pass, a dQ pass and a dK/dV pass,
-no atomics) on its ``"mma"`` route (bf16 at hd 64 or 128, ``mma.sync``
-on the tensor cores) or its ``"simt"`` route (the rest, CUDA cores).  On
-the CPU both take the plain version.
+no atomics) on its ``"wgmma"`` route (bf16 at hd 64 or 128: TMA tiles, a
+producer warpgroup and two consumer warpgroups on ``wgmma``; its tile
+loops are :func:`bwd_tiles`) or its ``"simt"`` route (the rest, CUDA
+cores).  On the CPU both take the plain version.
 
 ``launches`` counts forward launches in this process (one per call that
 reached the card), ``lse_launches`` those of them that wrote the
@@ -64,6 +65,8 @@ __all__ = [
     "bwd_plan",
     "kernel_bwd_plan",
     "bwd_chunk_heads",
+    "bwd_tiles",
+    "kernel_bwd_tiles",
     "launches",
     "lse_launches",
     "bwd_launches",
@@ -86,13 +89,17 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the launch's dtype code
 _SCALE = {hd: 1.0 / math.sqrt(hd) for hd in HEAD_DIMS}
 PATHS = ("short", "wgmma", "simt")  # in the order of the .cu entry's path codes
-BWD_PATHS = ("short", "mma", "simt")  # the backward's, in the order of its path codes
+BWD_PATHS = ("short", "wgmma", "simt")  # the backward's, in the order of its path codes
 # the short path's limits, as in csrc/flash_short.cuh
 SHORT_MAX_LEN = 32
 SHORT_HEADER = 128  # bytes of barriers before the slabs
 SMEM_MAX = 232448  # shared memory a block can use on sm_90 (227 KB)
 NEG_LSE = -float("inf")  # the logsumexp of a row with no key (S = 0)
-ERR_TENSOR_MAP = 10001  # the wgmma path's refusal to encode a tensor map (csrc/flash_wgmma.cuh)
+ERR_TENSOR_MAP = 10001  # the wgmma paths' refusal to encode a tensor map (csrc/flash_hopper.cuh)
+# the long backward's wgmma route (csrc/flash_long_bwd.cuh): a dK/dV block
+# holds BWD_KEY_TILE keys and takes query rows BWD_ROW_STAGE at a time; a
+# dQ block holds BWD_ROW_TILE rows and takes keys BWD_KEY_STAGE at a time
+BWD_KEY_TILE, BWD_ROW_STAGE, BWD_ROW_TILE, BWD_KEY_STAGE = 128, 64, 128, 128
 
 _fn = None
 _bwd_fn = None
@@ -116,11 +123,38 @@ def plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, 
 def bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
     """The path a CUDA backward launch at this shape takes: ``"short"``
     where the forward's :func:`plan` is ``"short"``, else the long
-    backward's ``"mma"`` route for bf16 at hd 64 or 128, else its
+    backward's ``"wgmma"`` route for bf16 at hd 64 or 128, else its
     ``"simt"`` route.  A pure function of the shape."""
     if plan(b, t, s, h, kvh, hd, dtype, causal) == "short":
         return "short"
-    return "mma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_tiles(t: int, s: int, causal: bool):
+    """The long backward's tile loops on its ``"wgmma"`` route, a pure
+    function of T, S and the mask: ``(first_q, n_keys)``, where
+    ``first_q[kt]`` is the first BWD_ROW_STAGE-row query tile the dK/dV
+    block of key tile ``kt`` (BWD_KEY_TILE keys) visits, it and every later
+    one up to ``ceil(T / BWD_ROW_STAGE)`` (that count when the block visits
+    none), and ``n_keys[mt]`` is how many BWD_KEY_STAGE-key tiles, the
+    first ones, the dQ block of row tile ``mt`` (BWD_ROW_TILE rows)
+    visits.  A tile is visited iff it holds a visible (row, key) pair: key
+    j < S visible to row i < T, with j <= i when causal.  The ``.cu``
+    entry ``flash_attention_bwd_tiles`` gives the same numbers."""
+    n_q = _cdiv(t, BWD_ROW_STAGE)
+    first_q = []
+    for kt in range(_cdiv(s, BWD_KEY_TILE)):
+        j0 = kt * BWD_KEY_TILE
+        first_q.append(0 if not causal else (j0 // BWD_ROW_STAGE if j0 < t else n_q))
+    n_keys = []
+    for mt in range(_cdiv(t, BWD_ROW_TILE)):
+        end = min((mt + 1) * BWD_ROW_TILE, t)  # past the tile's last row
+        n_keys.append(_cdiv(min(end, s) if causal else s, BWD_KEY_STAGE))
+    return tuple(first_q), tuple(n_keys)
 
 
 def _launcher():
@@ -147,6 +181,8 @@ def _bwd_launcher():
         lib.flash_attention_bwd_chunk.restype = ctypes.c_int
         lib.flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 8
         lib.flash_attention_bwd_plan.restype = ctypes.c_int
+        lib.flash_attention_bwd_tiles.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        lib.flash_attention_bwd_tiles.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
@@ -167,6 +203,17 @@ def kernel_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.
     if code < 0:
         raise ValueError(f"flash_attention refuses the shape {(b, t, s, h, kvh, hd, dtype)}")
     return PATHS[code]
+
+
+def kernel_bwd_tiles(t: int, s: int, causal: bool):
+    """The tile loops of the built ``.cu`` (``flash_attention_bwd_tiles``;
+    needs the card's toolkit): they must equal :func:`bwd_tiles`."""
+    _bwd_launcher()
+    first_q = (ctypes.c_int * max(1, _cdiv(s, BWD_KEY_TILE)))()
+    n_keys = (ctypes.c_int * max(1, _cdiv(t, BWD_ROW_TILE)))()
+    if build.load("flash_attention").flash_attention_bwd_tiles(t, s, int(causal), first_q, n_keys) != 0:
+        raise ValueError(f"flash_attention_bwd_tiles refuses T = {t}, S = {s}")
+    return tuple(first_q[: _cdiv(s, BWD_KEY_TILE)]), tuple(n_keys[: _cdiv(t, BWD_ROW_TILE)])
 
 
 def kernel_bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool) -> str:
@@ -286,8 +333,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
     logsumexp lse (B, H, T), and the output gradient do (B, T, H, hd) ->
     (dq, dk, dv) in q's dtype, dk and dv summed over each GQA group.  On
     the card one call of the hand-written backward on :func:`bwd_plan`'s
-    path (the long path allocates its float32 (B, H, T) row-dot scratch
-    here); on the CPU its plain version."""
+    path (the long path allocates its float32 row scratch here); on the
+    CPU its plain version."""
     global bwd_launches, long_bwd_launches
     # no block arguments: the JAX wrapper's refusal of a full-attention S
     # off its blocks is the forward's (a block_k >= S takes every S)
@@ -322,7 +369,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
     fn = _bwd_launcher()
     dev = q.get_device()
     path = bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal)
-    dsum = None if path == "short" else torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    # the long paths' float32 row scratch: (B, H, T) on the simt route,
+    # (B, H, ceil(T / 64), 2, 64) on the wgmma route; one size for both
+    dsum = None if path == "short" else torch.empty(
+        2 * b * h * _cdiv(t, BWD_ROW_STAGE) * BWD_ROW_STAGE, dtype=torch.float32, device=q.device)
     args = (*(x.data_ptr() for x in tensors), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if dsum is None else dsum.data_ptr(), DTYPES[q.dtype],
             b, t, s, h, kvh, hd, 1 if causal else 0, _SCALE[hd])

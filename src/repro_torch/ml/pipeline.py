@@ -67,11 +67,17 @@ def run_aml_pipeline(
     params: Optional[GBDTParams] = None,
     window: Optional[int] = None,
     device=None,
+    session: Optional[MiningSession] = None,
 ) -> PipelineResult:
+    """``session``, if given, is a session over ``ds.graph`` at the same
+    window and device that the mine goes through instead of a new one: a
+    session that mined every edge before replays its cached schedules."""
     device = resolve_device(device)
     g = ds.graph
     w = window or ds.meta.get("window", 4096)
     patterns = FEATURE_SETS[feature_set]
+    if session is not None and (session.graph is not g or session.window != w or session.device != device):
+        raise ValueError("session must be over ds.graph at the pipeline's window and device")
 
     t0 = time.perf_counter()
     x = base_features(g)
@@ -79,8 +85,8 @@ def run_aml_pipeline(
     if patterns:
         # portfolio session: one shared compile + seed-local kernel fusion
         # across the whole feature group
-        session = MiningSession(g, window=w, device=device).register(*patterns)
-        mining = session.mine(list(patterns), backend=backend)
+        session = session or MiningSession(g, window=w, device=device)
+        mining = session.register(*patterns).mine(list(patterns), backend=backend)
         x = np.concatenate([x, mining.as_features()], axis=1)
     mine_s = time.perf_counter() - t0
 

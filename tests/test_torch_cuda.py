@@ -577,18 +577,27 @@ def test_flash_attention_bwd_off_the_short_path_raises(cuda):
 
 # the long backward (T or S above 32): qwen2-1.5b's layer at 512 rows,
 # full bf16 at hd 64, ragged tiles (1,000), causal T > S and T < S, float32
-# at hd 16 and 128 with GQA (simt), bf16 at hd 32 (simt), one key; each
-# (B, T, S, H, K, hd, causal, dtype) with the path bwd_plan names
+# at hd 16 and 128 with GQA (simt), bf16 at hd 32 (simt), one key; then
+# the wgmma route's tile edges (64-row stages, 128-row and 128-key
+# blocks): T = S = 127, 129 and 257 at hd 64 and 128, causal and full,
+# and a group of 8 query heads over one kv head; each (B, T, S, H, K, hd,
+# causal, dtype) with the path bwd_plan names
 LONG_BWD_CASES = [
-    (1, 512, 512, 12, 2, 128, True, "bfloat16", "mma"),
-    (2, 256, 256, 4, 4, 64, False, "bfloat16", "mma"),
-    (1, 1000, 1000, 4, 2, 128, True, "bfloat16", "mma"),
-    (2, 200, 90, 4, 2, 64, True, "bfloat16", "mma"),
-    (1, 90, 200, 4, 1, 128, True, "bfloat16", "mma"),
+    (1, 512, 512, 12, 2, 128, True, "bfloat16", "wgmma"),
+    (2, 256, 256, 4, 4, 64, False, "bfloat16", "wgmma"),
+    (1, 1000, 1000, 4, 2, 128, True, "bfloat16", "wgmma"),
+    (2, 200, 90, 4, 2, 64, True, "bfloat16", "wgmma"),
+    (1, 90, 200, 4, 1, 128, True, "bfloat16", "wgmma"),
     (2, 300, 300, 8, 2, 16, True, "float32", "simt"),
     (1, 200, 200, 6, 2, 128, True, "float32", "simt"),
     (2, 150, 150, 4, 2, 32, False, "bfloat16", "simt"),
-    (3, 70, 1, 4, 4, 64, True, "bfloat16", "mma"),
+    (3, 70, 1, 4, 4, 64, True, "bfloat16", "wgmma"),
+    (2, 127, 127, 4, 2, 64, True, "bfloat16", "wgmma"),
+    (1, 127, 127, 8, 1, 128, False, "bfloat16", "wgmma"),
+    (1, 129, 129, 4, 2, 128, True, "bfloat16", "wgmma"),
+    (2, 129, 129, 8, 1, 64, False, "bfloat16", "wgmma"),
+    (1, 257, 257, 8, 1, 128, True, "bfloat16", "wgmma"),
+    (1, 257, 257, 4, 4, 64, True, "bfloat16", "wgmma"),
 ]
 
 
@@ -619,6 +628,17 @@ def test_flash_attention_long_bwd_matches_plain(cuda, b, t, s, h, kvh, hd, causa
     for name, x, y, z in zip("qkv", got, again, want):
         assert x.dtype == q.dtype and torch.equal(x, y), name
         torch.testing.assert_close(x.float(), z, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_tiles_match_kernel(cuda, causal):
+    """The wgmma route's tile loops as the built .cu computes them
+    (``flash_attention_bwd_tiles``) equal ``ops.bwd_tiles`` at ragged T and
+    S around the tiles, T > S and T < S, and the training launch's 4,096."""
+    lengths = (1, 63, 64, 65, 127, 128, 129, 257, 1000, 4096)
+    for t in lengths:
+        for s in lengths:
+            assert fa_ops.kernel_bwd_tiles(t, s, causal) == fa_ops.bwd_tiles(t, s, causal), (t, s)
 
 
 def test_lm_train_on_card_equals_cpu(cuda, tmp_path):

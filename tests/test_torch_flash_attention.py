@@ -173,7 +173,7 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
     name changes when a header does, so an edited header rebuilds."""
     assert [p.name for p in build.sources("flash_attention")] == [
         "flash_attention.cu", "flash_common.cuh", "flash_short.cuh", "flash_long_bwd.cuh", "flash_short_bwd.cuh",
-        "flash_wgmma.cuh"]
+        "flash_wgmma.cuh", "flash_hopper.cuh"]
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")
@@ -287,16 +287,55 @@ def test_bwd_off_the_short_path_raises():
         (17, 17, 8, 8, 16, F32, "short"),
         (32, 32, 4, 4, 128, BF16, "short"),
         (32, 32, 4, 4, 128, F32, "simt"),  # a short shape whose slabs do not fit
-        (32, 32, 16, 16, 128, BF16, "mma"),
-        (33, 33, 2, 2, 64, BF16, "mma"),
+        (32, 32, 16, 16, 128, BF16, "wgmma"),
+        (33, 33, 2, 2, 64, BF16, "wgmma"),
         (33, 33, 2, 2, 32, BF16, "simt"),
-        (4096, 4096, 12, 2, 128, BF16, "mma"),  # qwen2-1.5b's training launch
+        (4096, 4096, 12, 2, 128, BF16, "wgmma"),  # qwen2-1.5b's training launch
         (4096, 4096, 12, 2, 128, F32, "simt"),
         (1000, 1000, 8, 2, 16, BF16, "simt"),
-        (40, 1, 4, 4, 64, BF16, "mma"),
+        (40, 1, 4, 4, 64, BF16, "wgmma"),
     ],
 )
 @pytest.mark.parametrize("causal", [True, False])
 def test_bwd_plan_at_path_boundaries(t, s, h, kvh, hd, dtype, path, causal):
     for b in (1, 4, 5003):  # the batch size never changes the path
         assert fa_ops.bwd_plan(b, t, s, h, kvh, hd, dtype, causal) == path
+
+
+# ragged lengths around the wgmma route's tiles (64 and 128 rows or keys)
+# and the training launch's 4,096
+TILE_LENGTHS = (1, 63, 64, 127, 128, 129, 1000, 4096)
+
+
+def _tiles_holding_a_pair(t, s, causal, row_tile, key_tile):
+    """(row tiles, key tiles) bool: the tile pair holds a visible (row, key)
+    pair, from the pairs themselves: key j < S visible to row i < T, with
+    j <= i when causal."""
+    n_r, n_k = -(-t // row_tile), -(-s // key_tile)
+    vis = np.zeros((n_r * row_tile, n_k * key_tile), dtype=bool)
+    vis[:t, :s] = True
+    if causal:
+        vis &= np.arange(n_k * key_tile)[None, :] <= np.arange(n_r * row_tile)[:, None]
+    return vis.reshape(n_r, row_tile, n_k, key_tile).any(axis=(1, 3))
+
+
+@pytest.mark.parametrize("t", TILE_LENGTHS)
+@pytest.mark.parametrize("s", TILE_LENGTHS)
+def test_bwd_tiles_cover_exactly_the_visible_pairs(t, s):
+    """``bwd_tiles``: each dK/dV block (128 keys) visits exactly the 64-row
+    query tiles that hold a visible pair with its keys, and each dQ block
+    (128 rows) exactly the 128-key tiles that hold one with its rows, so
+    every visible pair is summed and no tile without one is loaded; T > S,
+    T < S and T = S, causal and full."""
+    for causal in (True, False):
+        first_q, n_keys = fa_ops.bwd_tiles(t, s, causal)
+        dkv = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_STAGE, fa_ops.BWD_KEY_TILE)  # (query, key tiles)
+        assert len(first_q) == dkv.shape[1]
+        for kt, first in enumerate(first_q):
+            visited = np.arange(dkv.shape[0]) >= first
+            assert (visited == dkv[:, kt]).all(), (t, s, causal, kt)
+        dq = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_TILE, fa_ops.BWD_KEY_STAGE)
+        assert len(n_keys) == dq.shape[0]
+        for mt, n in enumerate(n_keys):
+            visited = np.arange(dq.shape[1]) < n
+            assert (visited == dq[mt]).all(), (t, s, causal, mt)

@@ -122,3 +122,21 @@ def test_pipeline_backends_and_device(datasets, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_aml_pipeline(port, "xgb_only")
+
+
+def test_pipeline_through_a_warm_session(datasets):
+    # a session that mined every edge before: the pipeline's mine replays
+    # its schedules and gives the columns and F1 of a fresh session's
+    port = datasets[1]
+    params = GBDTParams(n_trees=TREES)
+    session = api.MiningSession(port.graph, window=WINDOW, device="cpu").register(*FEATURE_SETS["full"])
+    first = session.mine()
+    warm = run_aml_pipeline(port, "full", params=params, device="cpu", session=session)
+    fresh = run_aml_pipeline(port, "full", params=params, device="cpu")
+    assert warm.mining.stats["schedule_hits"] > 0 and fresh.mining.stats["schedule_hits"] == 0
+    np.testing.assert_array_equal(warm.mining.counts, first.counts)
+    np.testing.assert_array_equal(warm.mining.counts, fresh.mining.counts)
+    assert warm.f1 == fresh.f1
+    other = api.MiningSession(port.graph, window=WINDOW // 2, device="cpu")
+    with pytest.raises(ValueError, match="session"):
+        run_aml_pipeline(port, "fan", params=params, device="cpu", session=other)

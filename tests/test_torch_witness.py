@@ -234,3 +234,23 @@ def test_session_witness_mode_matches_jax(backend):
     assert again.stats["schedule_hits"] == len(names)
     with pytest.raises(ValueError):
         sess.mine(names, seeds, backend="oracle", witnesses=2)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_witness_schedules_do_not_outlive_a_view(backend):
+    """A streaming service gives every tick's plan one schedule cache in
+    "shape" mode; a witness mine on the next tick's view must not replay
+    a schedule staged from an earlier view for the same local seed ids."""
+    from collections import OrderedDict
+
+    spec = build_pattern("scatter_gather", W)
+    cache = OrderedDict()
+    seeds = np.arange(16, dtype=np.int32)
+    for seed in (21, 22, 21):
+        g = _graph(seed, n_nodes=18, n_edges=140, t_max=256)
+        cp = CompiledPattern(spec, g, backend=backend, device="cpu", schedule_cache=cache, schedule_mode="shape")
+        w = mine_witnesses(cp, seeds, 2)
+        oc, ow = GFPReference(spec, g).mine_witnesses(seeds, k=2)
+        np.testing.assert_array_equal(w.counts, oc)
+        for i in range(len(seeds)):
+            assert w.tuples(i) == ow[i][:2], (seed, i)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's ``flash_attention`` at FraudGT's shape and a long bf16 shape.
+"""Time the port's ``flash_attention`` (forward or backward) at FraudGT's shape and long bf16 shapes.
 
-    python3 tools/bench_flash.py [--src DIR ...] [--shapes fraudgt,long] [--out FILE]
+    python3 tools/bench_flash.py [--src DIR ...] [--shapes fraudgt,long] [--direction fwd|bwd]
+                                 [--ptxas] [--out FILE]
 
 Needs one CUDA card.  Each ``--src`` (the ``src/`` of any checkout; the
 default is this checkout's) is timed in a process of its own, in the order
@@ -20,6 +21,28 @@ given, so that two versions can be compared in turns in one call
   (float32) or 989 TFLOP/s (bf16 tensor cores), whichever is larger;
 - ``plan``: the path the package's ``ops.plan`` picks, where it has one;
 - ``max_abs_err`` against the plain version.
+
+``--direction bwd`` times ``flash_attention_bwd`` instead, on the
+forward kernel's o and logsumexp and a standard-normal dO: ``ms``,
+``kernel_ms`` (the call's kernels summed) and ``passes`` (the profiler's
+device ms a call of each kernel: ``row_dot``, ``dq``, ``dkv`` on the long
+backward), ``host_us``, ``library_ms`` (the backward of one
+``F.scaled_dot_product_attention``, ``torch.autograd.grad`` at dO),
+``bound_ms`` (5 products of 2 * hd flops per visible pair at the peak, or
+the bytes: q, k, v, o, dO, lse read once, dQ, dK, dV written once),
+``bwd_plan``, and ``max_abs_err`` / ``max_rel_err`` against the plain
+version (``flash_attention_bwd_ref`` in float32 on the card; the relative
+one over the largest |value| of dQ, dK and dV together).  The long
+backward's time at qwen2-1.5b's training launch, against a parent
+checkout unpacked under ``build/parent``, in turns:
+
+    python3 tools/bench_flash.py --direction bwd --shapes lm_train --ptxas \
+        --src build/parent/src --src src --src src --src build/parent/src
+
+``--ptxas`` also compiles each ``--src``'s ``csrc/flash_attention.cu``
+with ``-Xptxas -v`` and reports, for every backward kernel
+(``flash_bwd_kernel*``), its registers a thread at launch, its stack frame
+and its spill stores and loads.
 
 ``--shapes fraudgt_path`` times FraudGT's shape on the inputs FraudGT
 itself gives its first attention call (seeded weights, the first 1,024
@@ -118,6 +141,117 @@ def profiled_kernel_ms(fn, reps: int):
     return {name: total[name] / count[name] for name in total}
 
 
+def bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (4 * b * t * h * hd + 4 * b * s * kvh * hd) * size + 4 * b * h * t
+    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 5 * 2 * hd * pairs * b * h / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the long backward's kernels by a part of their names (the wgmma route's and
+# the mma route's before it): the row pass, the dQ pass, the dK/dV pass
+PASSES = (("row_dot", "rowdot"), ("dq", "_dq"), ("dkv", "_dkv"))
+
+
+def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0) -> None:
+    import torch
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for name in names:
+        b, t, s, h, kvh, hd, causal, dtype = SHAPES[name]
+        dt = getattr(torch, dtype)
+        q, do = ((torch.randn((b, t, h, hd), generator=gen, device="cuda") * scale).to(dt) for _ in range(2))
+        k, v = ((torch.randn((b, s, kvh, hd), generator=gen, device="cuda") * scale).to(dt) for _ in range(2))
+        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True)
+        run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        got = run()
+        g = h // kvh
+        flat = lambda x, n: x.float().repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
+        want = flash_attention_bwd_ref(flat(q, t), flat(k, s), flat(v, s), flat(o, t), flat(do, t),
+                                       lse.reshape(b * h, t), causal=causal)
+        fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
+        want = (want[0].reshape(b, h, t, hd).transpose(1, 2), fold(want[1]), fold(want[2]))
+        err = max(float((x.float() - z).abs().max()) for x, z in zip(got, want))
+        top = max(float(z.abs().max()) for z in want)
+        del got, want
+        torch.cuda.empty_cache()
+        reps = REPS[name]
+        kern = profiled_kernel_ms(run, reps)
+        passes = {key: sum(v for n, v in kern.items() if "flash_bwd_kernel" in n and part in n)
+                  for key, part in PASSES}
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                   enable_gqa=h != kvh)
+        do_t = do.transpose(1, 2)
+        bound, by = bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+        row = {
+            "src": src, "direction": "bwd", "shape": name, "input_scale": scale, "B": b, "T": t, "S": s, "H": h,
+            "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
+            "bwd_plan": fa_ops.bwd_plan(b, t, s, h, kvh, hd, dt, causal),
+            "max_abs_err": err, "max_rel_err": err / max(top, 1e-30),
+            "ms": cuda_ms(run, reps),
+            "kernel_ms": sum(v for n, v in kern.items() if "flash_bwd_kernel" in n),
+            "passes": passes,
+            "kernels": kern,
+            "host_us": host_us(run, reps),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True), reps),
+            "bound_ms": bound, "bound_by": by,
+        }
+        print(json.dumps(row), flush=True)
+        out_rows.append(row)
+        del q, k, v, o, do, lse, lib_out, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def ptxas_report(src: str) -> dict:
+    """Registers a thread, stack frame and spills of every backward kernel
+    of ``<src>/repro_torch/csrc/flash_attention.cu``, from ``nvcc -Xptxas
+    -v`` with the package's own flags (compiled, not linked), and ptxas's
+    warnings (``"warnings"``)."""
+    import re
+    import tempfile
+
+    sys.path.insert(0, src)
+    from repro_torch.kernels import build
+
+    cu = Path(src) / "repro_torch" / "csrc" / "flash_attention.cu"
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared",)]
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([build.find_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / "x.o"),
+                               str(cu)], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"bench_flash.py: nvcc failed on {cu}:\n{proc.stderr[-4000:]}")
+    out, name = {}, None
+    # ptxas's own warnings and notes (wgmma serialised, registers) go with the report
+    warnings = [line.strip() for line in proc.stderr.splitlines()
+                if "warning" in line or "Performance" in line or "injected" in line]
+    if warnings:
+        out["warnings"] = warnings
+    for line in proc.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w]+)'?", line)
+        if m:
+            name = m.group(1) if "flash_bwd_kernel" in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        entry = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return out
+
+
 def fraudgt_inputs(fa_ops, data_scale: float):
     """q, k, v of FraudGT's first attention call over 1,024 test edges."""
     from repro_torch.data.loader import temporal_split
@@ -205,6 +339,10 @@ def main() -> None:
     ap.add_argument("--input-scale", type=float, default=1.0,
                     help="multiply the standard-normal q, k, v by this (the data's effect on the time)")
     ap.add_argument("--scale", type=float, default=28.0, help="HI-Small scale of fraudgt_path's data")
+    ap.add_argument("--direction", choices=("fwd", "bwd"), default="fwd",
+                    help="time flash_attention (fwd) or flash_attention_bwd (bwd)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="also report each backward kernel's registers and spills (nvcc -Xptxas -v)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     names = args.shapes.split(",")
@@ -214,16 +352,26 @@ def main() -> None:
         if not torch.cuda.is_available():
             raise SystemExit("bench_flash.py: no CUDA device")
         rows: list = []
-        run_one(args.one, names, rows, args.input_scale, args.scale)
+        if args.ptxas:
+            print(json.dumps({"src": args.one, "ptxas": ptxas_report(args.one)}), flush=True)
+        if args.direction == "bwd":
+            run_one_bwd(args.one, names, rows, args.input_scale)
+        else:
+            run_one(args.one, names, rows, args.input_scale, args.scale)
         return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     rows = []
+    seen = set()
     for src in args.src or [str(ROOT / "src")]:
-        proc = subprocess.run([sys.executable, __file__, "--one", str(Path(src).resolve()),
+        src = str(Path(src).resolve())
+        ptxas = args.ptxas and src not in seen  # once for each checkout
+        seen.add(src)
+        proc = subprocess.run([sys.executable, __file__, "--one", src,
                                "--shapes", args.shapes, "--input-scale", str(args.input_scale),
-                               "--scale", str(args.scale)],
+                               "--scale", str(args.scale), "--direction", args.direction,
+                               *(["--ptxas"] if ptxas else [])],
                               capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Write copies of a checkout's ``src/`` whose ``flash_attention`` kernel
-differs in one choice, for ``tools/bench_flash.py`` to time at FraudGT's
-shape:
+differs in one choice, for ``tools/bench_flash.py`` to time (the forward
+at FraudGT's shape, the long backward at the LM's training launch):
 
     python3 tools/flash_variants.py build/flash_variants --kind simt --src build/parent/src
     python3 tools/flash_variants.py build/flash_variants --kind short --src src
@@ -36,6 +36,22 @@ ran on FraudGT's shape):
   so that a warp's rows span few queries and, causal, its key loops stop
   at the group after the last key its rows see (``__reduce_max_sync``);
   the rows of a warp then read several kv heads' words.
+
+``--kind long_bwd`` varies the long backward's wgmma route
+(``csrc/flash_long_bwd.cuh``), one of its choices undone in each copy:
+
+- ``exp2f``: P by ``exp2f`` (its range handling around the
+  special-function unit) instead of ``ex2.approx.ftz`` alone;
+- ``always_mask``: every tile through the masked loop, not only those
+  that cross the diagonal or the end of T or S;
+- ``dq_keys64``: the dQ pass's ring stages hold 64 keys instead of 128
+  (m64n64k16 products for S and dP);
+- ``no_overlap``: both passes wait for S and dP together before forming
+  P, instead of forming P while dP runs.
+
+    python3 tools/flash_variants.py build/bwd_variants --kind long_bwd --src src
+    python3 tools/bench_flash.py --direction bwd --shapes lm_train --src src \\
+        --src build/bwd_variants/exp2f/src ... --src src
 
 Each copy goes to ``<out>/<name>/src`` and builds its own library under
 ``<out>/<name>/build/kernels``.  The copies are experiments, not a
@@ -76,6 +92,21 @@ SHORT_VARIANTS = {
         (VALUES_LOOP, VALUES_LOOP.replace("j0 >= s_len", "j0 >= kv_end")),
     ),
 }
+LONG_BWD = "repro_torch/csrc/flash_long_bwd.cuh"
+LONG_BWD_VARIANTS = {
+    "exp2f": (('  float y;\n  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n  return y;', "  return exp2f(x);"),),
+    "always_mask": (
+        ("      if (!need_mask) {\n#pragma unroll\n        for (int i = 0; i < 8; ++i) {",
+         "      if (false) {\n#pragma unroll\n        for (int i = 0; i < 8; ++i) {"),
+        ("      if (!need_mask) {\n#pragma unroll\n        for (int idx = 0;",
+         "      if (false) {\n#pragma unroll\n        for (int idx = 0;"),
+    ),
+    "dq_keys64": (("constexpr int kKeyStage = 128;", "constexpr int kKeyStage = 64; "),),
+    "no_overlap": (
+        ("      wgmma_wait1();  // S^T done", "      wgmma_wait0();  // S^T and dP^T done"),
+        ("      wgmma_wait1();  // S done", "      wgmma_wait0();  // S and dP done"),
+    ),
+}
 
 
 def apply(cu: str, edits) -> str:
@@ -91,9 +122,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out", type=Path)
     ap.add_argument("--src", type=Path, required=True, help="src/ of the checkout to vary")
-    ap.add_argument("--kind", choices=("simt", "short"), required=True)
+    ap.add_argument("--kind", choices=("simt", "short", "long_bwd"), required=True)
     args = ap.parse_args()
-    rel, variants = (CU, SIMT) if args.kind == "simt" else (SHORT, SHORT_VARIANTS)
+    rel, variants = {"simt": (CU, SIMT), "short": (SHORT, SHORT_VARIANTS),
+                     "long_bwd": (LONG_BWD, LONG_BWD_VARIANTS)}[args.kind]
     text = (args.src / rel).read_text()
     for name, edits in variants.items():
         dst = args.out / name
