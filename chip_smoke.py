@@ -304,8 +304,9 @@ FGT_CHECK_EDGES = 16384  # test edges of the FraudGT cross-checks
 FGT_PROFILE_EDGES = 1 << 17  # test edges of the profiled FraudGT forward
 PROFILE_TRIES = 3  # torch.profiler runs before a device time is "not measured"
 # written between the timed launches of the paths' largest intersect_count
-# calls, so that each finds its operands in HBM and not in the 50 MB L2
-# (the operands are 3-22 MB; the bound counts HBM bytes)
+# calls (read between those of the short attention backward), so that
+# each finds its operands in HBM and not in the 50 MB L2 (the operands are
+# 3-22 MB; the bound counts HBM bytes)
 L2_FLUSH_BYTES = 256 << 20
 # flash_attention cases (B, T, S, H, K, hd, causal, dtype): those of
 # tests/test_flash_attention.py (its hypothesis test is drawn for seeds
@@ -336,8 +337,12 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # T > S, the short-path cases of tests/test_torch_cuda.py (a ragged B past
 # the grid, the 32/32 edge at hd 128, one key; in bf16 GQA, whole kv groups
 # in chunks, one group in parts) and a block at the shared-memory limit;
-# float32 within FA_BWD_TOL absolute, bf16 within 2e-2 relative and
-# absolute (one rounding of each output)
+# then the ring route's edges, as in that file: causal T < S, GQA 4:1 at
+# hd 16 in bf16 and hd 32 in float32, an lse the stage cannot bulk-copy
+# (H * T = 34), the last head count whose two stages fit and the first on
+# the chunked route, a chunked shape in full attention; float32 within
+# FA_BWD_TOL absolute, bf16 within 2e-2 relative and absolute (one
+# rounding of each output)
 FA_BWD_CASES = (
     (256, 17, 17, 8, 8, 16, True, "float32"),
     (1024, 17, 17, 8, 8, 16, True, "float32"),
@@ -349,7 +354,20 @@ FA_BWD_CASES = (
     (1001, 17, 17, 8, 2, 32, False, "bfloat16"),
     (5, 32, 32, 4, 4, 128, True, "bfloat16"),
     (3, 32, 32, 16, 1, 64, True, "bfloat16"),
+    (300, 12, 20, 8, 2, 16, True, "float32"),
+    (700, 17, 17, 8, 2, 16, True, "bfloat16"),
+    (700, 17, 17, 8, 2, 32, True, "float32"),
+    (333, 17, 17, 2, 1, 16, True, "float32"),
+    (40, 32, 32, 7, 7, 16, True, "float32"),
+    (20, 32, 32, 8, 8, 16, True, "float32"),
+    (6, 32, 32, 3, 3, 64, False, "float32"),
 )
+# the ring route's batch edges at FraudGT's training shape (T, S, H, K,
+# hd, causal, dtype): B below the card's persistent grid, equal to it, one
+# past a whole turn of the ring (grid x stages) and a B no multiple of the
+# grid reaches (tests/test_torch_cuda.py's RING_EDGES)
+FA_BWD_RING_SHAPE = (17, 17, 8, 8, 16, True, "float32")
+FA_BWD_RING_EDGES = ("below", "equal", "turn_plus_one", "ragged")
 FA_BWD_TOL = 1e-5
 # the long backward (csrc/flash_long_bwd.cuh; B, T, S, H, K, hd, causal,
 # dtype): qwen2-1.5b's training launch (phase 18), full attention in bf16
@@ -1189,9 +1207,11 @@ def fa_bwd_plain(q, k, v, o, do, lse, causal):
     return dq.reshape(b, h, t, hd).transpose(1, 2), fold(dk), fold(dv)
 
 
-def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0) -> dict:
+def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0, flush_l2: bool = False) -> dict:
     """The backward kernel (short or long path, ``ops.bwd_plan``'s, which
-    must equal the ``.cu`` entry's) against its plain version on the same
+    must equal the ``.cu`` entry's; on the short path also the route and
+    stage count of ``ops.short_bwd_route``, which must equal the ``.cu``'s,
+    and the blocks it launches) against its plain version on the same
     inputs (the forward kernel's o and lse unless given): max |diff| over
     dQ, dK, dV, within FA_BWD_TOL (plus ``rtol32`` relative) in float32 and
     2e-2 relative and absolute in bf16 (on the long path also the max
@@ -1202,7 +1222,12 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0)
     the call's kernels, one on the short path, three on the long one).
     The library call is the backward of one
     ``F.scaled_dot_product_attention`` at the same shape
-    (``torch.autograd.grad`` of its output at dO)."""
+    (``torch.autograd.grad`` of its output at dO).  ``flush_l2`` also
+    times each launch after a read of ``L2_FLUSH_BYTES`` has evicted the
+    operands from L2 (``l2_flushed_ms`` by events, ``l2_flushed_kernel_ms``
+    under the profiler), as the bytes bound assumes: a read, so that L2
+    holds clean lines and the launch pays for no other buffer's
+    write-back (as it would after a write such as ``ic_times``')."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1213,6 +1238,12 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0)
     path = fa_ops.bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal)
     if fa_ops.kernel_bwd_plan(b, t, s, h, kvh, hd, q.dtype, causal) != path:
         raise AssertionError(f"ops.bwd_plan and the .cu entry choose different backward paths at {tuple(q.shape)}")
+    route, stages, grid = None, None, None
+    if path == "short":
+        route, stages = fa_ops.short_bwd_route(b, t, s, h, kvh, hd, q.dtype, causal)
+        if fa_ops.kernel_short_bwd_route(b, t, s, h, kvh, hd, q.dtype, causal) != (route, stages):
+            raise AssertionError(f"ops.short_bwd_route and the .cu choose different routes at {tuple(q.shape)}")
+        grid = fa_ops.kernel_short_bwd_grid(b, t, s, h, kvh, hd, q.dtype)
     if o is None:
         o, lse = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True)
     run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
@@ -1242,8 +1273,16 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0)
     do_t = do.transpose(1, 2)
     bound, by = fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
     kernel_ms, seen = kernel_device_ms(run, reps, match="flash_bwd_kernel", per_call=1 if path == "short" else 3)
+    flushed = {}
+    if flush_l2:
+        flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=q.device)
+        flushed = {"l2_flushed_ms": cuda_ms(run, reps, before=flush.max),
+                   "l2_flushed_kernel_ms": kernel_device_ms(run, reps, match="flash_bwd_kernel", before=flush.max,
+                                                            per_call=1 if path == "short" else 3)[0]}
+        del flush
     return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "bwd_plan": path, "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
+            "bwd_plan": path, "route": route, "stages": stages, "grid": grid, **flushed,
+            "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
             "max_rel_err": rel,
             "ms": cuda_ms(run, reps), "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
             "plain_ms": cuda_ms(lambda: fa_bwd_plain(q, k, v, o, do, lse, causal), max(3, reps // 10)),
@@ -1252,9 +1291,18 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0)
             "bound_ms": bound, "bound_by": by}
 
 
+def ring_edge_batch(edge: str, grid: int, stages: int) -> int:
+    """The batch of a FA_BWD_RING_EDGES case on a card whose persistent
+    grid at the shape is ``grid`` blocks over a ring of ``stages``."""
+    return {"below": grid // 2, "equal": grid, "turn_plus_one": grid * stages + 1,
+            "ragged": 3 * grid + grid // 3 + 1}[edge]
+
+
 def phase_flash_attention_bwd(device, report):
     """The backward kernels against their plain version: the short path at
-    every case of FA_BWD_CASES, the long backward at every case of
+    every case of FA_BWD_CASES and at FA_BWD_RING_EDGES' batches (both of
+    its routes must be reached; every row logs its route, the ring's
+    rows also with L2 flushed), the long backward at every case of
     FA_LONG_BWD_CASES (both of its routes must be reached), timed beside
     their bound and SDPA's backward.  Returns the worst float32 |diff| of
     each path."""
@@ -1263,23 +1311,34 @@ def phase_flash_attention_bwd(device, report):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
+    t_, s_, h_, kvh_, hd_, causal_, dtype_ = FA_BWD_RING_SHAPE
+    dt_ = getattr(torch, dtype_)
+    grid = fa_ops.kernel_short_bwd_grid(1 << 30, t_, s_, h_, kvh_, hd_, dt_)
+    stages = fa_ops.short_bwd_route(1, t_, s_, h_, kvh_, hd_, dt_, causal_)[1]
+    edges = tuple((ring_edge_batch(e, grid, stages), *FA_BWD_RING_SHAPE) for e in FA_BWD_RING_EDGES)
+    log(f"kernel: the short backward's ring at {FA_BWD_RING_SHAPE}: a grid of {grid} blocks, {stages} stages; "
+        f"edge batches {[c[0] for c in edges]}")
     rows = []
-    for long, cases in ((False, FA_BWD_CASES), (True, FA_LONG_BWD_CASES)):
+    for long, cases in ((False, FA_BWD_CASES + edges), (True, FA_LONG_BWD_CASES)):
         for b, t, s, h, kvh, hd, causal, dtype in cases:
             dt = getattr(torch, dtype)
             q, do = (torch.randn((b, t, h, hd), generator=gen, device=device).to(dt) for _ in range(2))
             k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
-            row = fa_bwd_row(q, k, v, do, causal, 20, rtol32=FA_BWD_TOL if long else 0.0)
+            ring = not long and fa_ops.short_bwd_route(b, t, s, h, kvh, hd, dt, causal)[0] == "ring"
+            row = fa_bwd_row(q, k, v, do, causal, 20, rtol32=FA_BWD_TOL if long else 0.0, flush_l2=ring)
             if (row["bwd_plan"] != "short") != long:
                 raise AssertionError(f"the backward case {(b, t, s, h, kvh, hd)} took the {row['bwd_plan']!r} path")
             rows.append(row)
-            log("kernel timing: flash_attention_bwd " + json.dumps(row))
+            log(f"kernel timing: flash_attention_bwd ({row['route'] or row['bwd_plan']}) " + json.dumps(row))
             del q, do, k, v
             torch.cuda.empty_cache()
     report["flash_attention_bwd_shapes"] = rows
     reached = {r["bwd_plan"] for r in rows}
     if reached != set(fa_ops.BWD_PATHS):
         raise AssertionError(f"the backward cases reached only the paths {sorted(reached)}")
+    routes = {r["route"] for r in rows if r["bwd_plan"] == "short"}
+    if routes != set(fa_ops.SHORT_BWD_ROUTES):
+        raise AssertionError(f"the short backward's cases reached only the routes {sorted(routes)}")
     for t in FA_BWD_TILE_LENGTHS:
         for s in FA_BWD_TILE_LENGTHS:
             for causal in (True, False):
@@ -3223,7 +3282,7 @@ def main() -> int:
     report["fraudgt_fit"]["phase_s"] = time.perf_counter() - t0
     kernels[-1]["launches_fit"] = fit_launches["flash_attention"]
     q, k, v, o, do, lse, causal = bwd_args
-    bwd_main = fa_bwd_row(q, k, v, do, causal, 50, o=o, lse=lse)
+    bwd_main = fa_bwd_row(q, k, v, do, causal, 50, o=o, lse=lse, flush_l2=True)
     log("kernel timing: flash_attention_bwd on the FraudGT training path " + json.dumps(bwd_main))
     report["flash_attention_bwd_path_shape"] = bwd_main
     kernels.append({
@@ -3234,7 +3293,9 @@ def main() -> int:
         "replaces": "src/repro/models/layers.py:108",
         "launches": fit_launches["flash_attention_bwd"],
         **{k: bwd_main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                    "kernel_ms")},
+                                    "kernel_ms", "l2_flushed_ms", "l2_flushed_kernel_ms", "stages", "grid")},
+        # the kernel's own route inside the short path ("route" is the port's: cuda)
+        "short_bwd_route": bwd_main["route"],
         "max_abs_err_cases": fa_bwd_err["short"],
         "library": "the backward of F.scaled_dot_product_attention at the same shape",
         "shape": {k: bwd_main[k] for k in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},

@@ -39,7 +39,9 @@
 // Training: on every path the launch can also write the rows' float32
 // logsumexp of the scaled, masked scores (B, H, T), and
 // flash_attention_bwd_launch computes dQ, dK, dV from it: for path A's
-// shapes with flash_short_bwd.cuh, for every other shape with
+// shapes with flash_short_bwd.cuh (its "ring" route where two stages of
+// an element's slabs fit, its "chunked" route otherwise;
+// `flash_attention_bwd_route`), for every other shape with
 // flash_long_bwd.cuh (its "wgmma" route for bf16 at hd 64 or 128, its
 // "simt" route otherwise; `bwd_plan`).  A forward-only call passes no
 // logsumexp pointer and writes none.
@@ -273,6 +275,17 @@ int launch_bwd_hd(int path, const void* q, const void* k, const void* v, const v
   }
 }
 
+template <typename T>
+long long short_bwd_grid_hd(int b, int t, int s, int h, int kvh, int hd) {
+  switch (hd) {
+    case 16: return flash::short_bwd_grid<T, 16>(b, t, s, h, kvh);
+    case 32: return flash::short_bwd_grid<T, 32>(b, t, s, h, kvh);
+    case 64: return flash::short_bwd_grid<T, 64>(b, t, s, h, kvh);
+    case 128: return flash::short_bwd_grid<T, 128>(b, t, s, h, kvh);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 static bool valid(int b, int t, int s, int h, int kvh, int hd, int dtype) {
@@ -307,6 +320,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 extern "C" int flash_attention_bwd_chunk(int b, int t, int s, int h, int kvh, int hd, int dtype) {
   if (!valid(b, t, s, h, kvh, hd, dtype) || plan(b, t, s, h, kvh, hd, dtype, 1) != kShort) return 0;
   return flash::bwd_chunk_heads(t, s, h, kvh, hd);
+}
+
+// the short backward's route at this shape: 0 "ring" (its stage count in
+// *stages), 1 "chunked" (*stages = 0); -1 where the shape is refused or
+// its backward is not the short one
+extern "C" int flash_attention_bwd_route(int b, int t, int s, int h, int kvh, int hd, int dtype, int causal,
+                                         int* stages) {
+  if (!valid(b, t, s, h, kvh, hd, dtype) || bwd_plan(b, t, s, h, kvh, hd, dtype, causal) != kBwdShort) return -1;
+  *stages = flash::ring_stages(t, s, h, kvh, hd, dtype == 1 ? 2 : 4);
+  return *stages > 0 ? 0 : 1;
+}
+
+// the blocks a short-backward launch at this shape runs on this card: the
+// ring's persistent grid, min(B, the blocks resident), or B on the chunked
+// route; -1 where the shape is refused, is not the short backward's, or
+// the card refuses its configuration
+extern "C" long long flash_attention_bwd_grid(int b, int t, int s, int h, int kvh, int hd, int dtype) {
+  if (!valid(b, t, s, h, kvh, hd, dtype) || plan(b, t, s, h, kvh, hd, dtype, 1) != kShort) return -1;
+  return dtype == 0 ? short_bwd_grid_hd<float>(b, t, s, h, kvh, hd)
+                    : short_bwd_grid_hd<__nv_bfloat16>(b, t, s, h, kvh, hd);
 }
 
 // the backward's path at this shape: 0 short, 1 wgmma, 2 simt; -1 if the

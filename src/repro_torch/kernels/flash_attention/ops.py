@@ -32,8 +32,10 @@ on it, at every shape the forward takes; :class:`FlashAttentionFn` joins
 the two for autograd.  The backward's path is :func:`bwd_plan`'s (the
 ``.cu`` entry makes the same choice, ``flash_attention_bwd_plan``
 reports it): ``"short"`` for the forward's short-path shapes
-(``csrc/flash_short_bwd.cuh``), else the long backward
-(``csrc/flash_long_bwd.cuh``: a row-dot pass, a dQ pass and a dK/dV pass,
+(``csrc/flash_short_bwd.cuh``: on its ``"ring"`` route, persistent
+blocks over a ring of bulk-copied batch elements, where two stages fit,
+else on its ``"chunked"`` route; :func:`short_bwd_route`), else the
+long backward (``csrc/flash_long_bwd.cuh``: a row-dot pass, a dQ pass and a dK/dV pass,
 no atomics) on its ``"wgmma"`` route (bf16 at hd 64 or 128: TMA tiles, a
 producer warpgroup and two consumer warpgroups on ``wgmma``; its tile
 loops are :func:`bwd_tiles`) or its ``"simt"`` route (the rest, CUDA
@@ -65,6 +67,9 @@ __all__ = [
     "bwd_plan",
     "kernel_bwd_plan",
     "bwd_chunk_heads",
+    "short_bwd_route",
+    "kernel_short_bwd_route",
+    "kernel_short_bwd_grid",
     "bwd_tiles",
     "kernel_bwd_tiles",
     "launches",
@@ -75,6 +80,7 @@ __all__ = [
     "DTYPES",
     "PATHS",
     "BWD_PATHS",
+    "SHORT_BWD_ROUTES",
 ]
 
 launches = 0
@@ -90,10 +96,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the launch's dtype code
 _SCALE = {hd: 1.0 / math.sqrt(hd) for hd in HEAD_DIMS}
 PATHS = ("short", "wgmma", "simt")  # in the order of the .cu entry's path codes
 BWD_PATHS = ("short", "wgmma", "simt")  # the backward's, in the order of its path codes
+SHORT_BWD_ROUTES = ("ring", "chunked")  # the short backward's, in the order of its route codes
 # the short path's limits, as in csrc/flash_short.cuh
 SHORT_MAX_LEN = 32
 SHORT_HEADER = 128  # bytes of barriers before the slabs
 SMEM_MAX = 232448  # shared memory a block can use on sm_90 (227 KB)
+# the short backward's ring route, as in csrc/flash_short_bwd.cuh
+BWD_RING_STAGES = 2  # ring depth where it fits
+BWD_RING_HEADER = 128  # bytes of barriers before the p/dS buffer
 NEG_LSE = -float("inf")  # the logsumexp of a row with no key (S = 0)
 ERR_TENSOR_MAP = 10001  # the wgmma paths' refusal to encode a tensor map (csrc/flash_hopper.cuh)
 # the long backward's wgmma route (csrc/flash_long_bwd.cuh): a dK/dV block
@@ -132,6 +142,25 @@ def bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dty
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def short_bwd_route(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool):
+    """The route a CUDA backward launch takes inside :func:`bwd_plan`'s
+    ``"short"``: ``("ring", stages)`` where at least two stages of one batch
+    element's slabs (q, dO, o, k, v in the inputs' type and its float32
+    lse, 128-byte aligned) fit in a block's shared memory beside the
+    element's p/dS buffer (a float2 for every (head, row, key), rows
+    ``S | 1`` apart), with ``stages`` BWD_RING_STAGES or as many as fit;
+    else ``("chunked", 0)``.  A pure function of the shape; the batch size
+    and the mask do not change it.  Raises for a shape whose backward is
+    not the short one."""
+    if bwd_plan(b, t, s, h, kvh, hd, dtype, causal) != "short":
+        raise ValueError(f"the backward at {(b, t, s, h, kvh, hd, dtype)} is not the short one")
+    size = 2 if dtype == torch.bfloat16 else 4
+    stage = _cdiv((3 * t * h + 2 * s * kvh) * hd * size + 4 * h * t, 128) * 128
+    pds = _cdiv(8 * h * t * (s | 1), 128) * 128
+    n = (SMEM_MAX - BWD_RING_HEADER - pds) // stage
+    return ("ring", min(n, BWD_RING_STAGES)) if n >= 2 else ("chunked", 0)
 
 
 def bwd_tiles(t: int, s: int, causal: bool):
@@ -183,6 +212,10 @@ def _bwd_launcher():
         lib.flash_attention_bwd_plan.restype = ctypes.c_int
         lib.flash_attention_bwd_tiles.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         lib.flash_attention_bwd_tiles.restype = ctypes.c_int
+        lib.flash_attention_bwd_route.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.flash_attention_bwd_route.restype = ctypes.c_int
+        lib.flash_attention_bwd_grid.argtypes = [ctypes.c_int] * 7
+        lib.flash_attention_bwd_grid.restype = ctypes.c_longlong
         _bwd_fn = fn
     return _bwd_fn
 
@@ -224,6 +257,31 @@ def kernel_bwd_plan(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: to
     if code < 0:
         raise ValueError(f"flash_attention_bwd refuses the shape {(b, t, s, h, kvh, hd, dtype)}")
     return BWD_PATHS[code]
+
+
+def kernel_short_bwd_route(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype, causal: bool):
+    """The short backward's route and stage count as the built ``.cu``
+    decides them (``flash_attention_bwd_route``; needs the card's
+    toolkit): they must equal :func:`short_bwd_route`."""
+    _bwd_launcher()
+    stages = ctypes.c_int(0)
+    code = build.load("flash_attention").flash_attention_bwd_route(
+        b, t, s, h, kvh, hd, DTYPES[dtype], int(causal), ctypes.byref(stages))
+    if code < 0:
+        raise ValueError(f"the backward at {(b, t, s, h, kvh, hd, dtype)} is not the short one")
+    return SHORT_BWD_ROUTES[code], stages.value
+
+
+def kernel_short_bwd_grid(b: int, t: int, s: int, h: int, kvh: int, hd: int, dtype: torch.dtype) -> int:
+    """The blocks a short-backward launch at this shape runs on this card
+    (``flash_attention_bwd_grid``): on the ring route the persistent grid,
+    min(B, the blocks resident on the card), which is also the stride a
+    block takes over the batch; B on the chunked route."""
+    _bwd_launcher()
+    grid = build.load("flash_attention").flash_attention_bwd_grid(b, t, s, h, kvh, hd, DTYPES[dtype])
+    if grid < 0:
+        raise ValueError(f"no short-backward grid at {(b, t, s, h, kvh, hd, dtype)} on this card")
+    return grid
 
 
 def _check(q, k, v, causal, block_q, block_k):

@@ -507,7 +507,12 @@ def test_evidence_service_on_card_equals_cpu(cuda):
 # element at exactly the block's shared-memory limit (T = S = 32, H = 12,
 # K = 1, hd 64), whole kv groups taken in chunks (bf16, H = K = 4,
 # hd 128) and one group taken in parts whose dK and dV sums carry over
-# (bf16, H = 16, K = 1, hd 64)
+# (bf16, H = 16, K = 1, hd 64); then the ring route's edges: causal T < S
+# (keys no row sees), GQA 4:1 at hd 16 in bf16 and hd 32 in float32, an
+# lse the stage cannot bulk-copy (H * T = 34, not a multiple of 4), the
+# last head count whose two stages fit (T = S = 32, H = K = 7, hd 16) and
+# the first that takes the chunked route (8), and a chunked shape in full
+# attention (H = K = 3, hd 64)
 BWD_CASES = [
     (1024, 17, 17, 8, 8, 16, True, "float32"),
     (1000, 20, 12, 8, 2, 16, True, "float32"),
@@ -520,6 +525,13 @@ BWD_CASES = [
     (2, 32, 32, 12, 1, 64, True, "float32"),
     (5, 32, 32, 4, 4, 128, True, "bfloat16"),
     (3, 32, 32, 16, 1, 64, True, "bfloat16"),
+    (300, 12, 20, 8, 2, 16, True, "float32"),
+    (700, 17, 17, 8, 2, 16, True, "bfloat16"),
+    (700, 17, 17, 8, 2, 32, True, "float32"),
+    (333, 17, 17, 2, 1, 16, True, "float32"),
+    (40, 32, 32, 7, 7, 16, True, "float32"),
+    (20, 32, 32, 8, 8, 16, True, "float32"),
+    (6, 32, 32, 3, 3, 64, False, "float32"),
 ]
 
 
@@ -537,8 +549,65 @@ def test_flash_attention_bwd_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dt
     """The backward kernel against its plain version on the same inputs
     (the forward kernel's o and lse), within 1e-5 in float32 (2e-2
     relative and absolute in bfloat16, the forward's bound: one rounding
-    of the output), and bit-identical across two launches (no atomics)."""
+    of the output), and bit-identical across two launches (no atomics);
+    the .cu takes the route ``short_bwd_route`` names."""
+    _check_short_bwd(cuda, b, t, s, h, kvh, hd, causal, dtype)
+
+
+# the ring route's batch edges at FraudGT's training shape and a bf16 GQA
+# shape: B below the persistent grid, equal to it, one past a whole turn
+# of the ring (grid x stages elements), and a B that no multiple of the
+# grid reaches; B is read from the card's grid at run time
+RING_EDGES = ("below", "equal", "turn_plus_one", "ragged")
+
+
+def ring_edge_batch(edge: str, grid: int, stages: int) -> int:
+    return {"below": grid // 2, "equal": grid, "turn_plus_one": grid * stages + 1,
+            "ragged": 3 * grid + grid // 3 + 1}[edge]
+
+
+@pytest.mark.parametrize("edge", RING_EDGES)
+@pytest.mark.parametrize("t,s,h,kvh,hd,causal,dtype", [
+    (17, 17, 8, 8, 16, True, "float32"),
+    (17, 17, 8, 2, 32, False, "bfloat16"),
+])
+def test_flash_attention_bwd_ring_batch_edges(cuda, edge, t, s, h, kvh, hd, causal, dtype):
+    """The ring route at a batch below, at and past its persistent grid:
+    the elements each block walks (a stride of the grid, the ring's
+    stages reused) all get their gradients, as ``_check_short_bwd``
+    holds them."""
+    dt = getattr(torch, dtype)
+    route, stages = fa_ops.short_bwd_route(1, t, s, h, kvh, hd, dt, causal)
+    grid = fa_ops.kernel_short_bwd_grid(1 << 30, t, s, h, kvh, hd, dt)
+    assert route == "ring" and grid >= fa_ops.kernel_short_bwd_grid(1, t, s, h, kvh, hd, dt) == 1
+    b = ring_edge_batch(edge, grid, stages)
+    assert fa_ops.kernel_short_bwd_grid(b, t, s, h, kvh, hd, dt) == min(b, grid)
+    _check_short_bwd(cuda, b, t, s, h, kvh, hd, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_short_bwd_route_matches_kernel(cuda, dtype):
+    """The .cu's short-backward route and stage count
+    (``flash_attention_bwd_route``) equal ``ops.short_bwd_route`` over a
+    grid of short-path shapes: lengths 1 to 32, T > S and T < S, head
+    sizes 16 to 128, GQA, both sides of the ring's limit."""
+    dt = getattr(torch, dtype)
+    seen = set()
+    for t, s in ((1, 1), (17, 17), (20, 12), (12, 20), (32, 32), (32, 1), (1, 32)):
+        for hd in fa_ops.HEAD_DIMS:
+            for h, kvh in ((1, 1), (2, 1), (3, 3), (7, 7), (8, 8), (8, 2), (12, 1), (16, 1), (18, 18), (32, 4)):
+                if fa_ops.plan(1, t, s, h, kvh, hd, dt, True) != "short":
+                    continue
+                want = fa_ops.short_bwd_route(1, t, s, h, kvh, hd, dt, True)
+                assert fa_ops.kernel_short_bwd_route(1, t, s, h, kvh, hd, dt, True) == want, (t, s, h, kvh, hd)
+                seen.add(want[0])
+    assert seen == set(fa_ops.SHORT_BWD_ROUTES)
+
+
+def _check_short_bwd(cuda, b, t, s, h, kvh, hd, causal, dtype):
     q, k, v, do = _bwd_case(b, t, s, h, kvh, hd, dtype, b + t + s + hd, cuda)
+    assert fa_ops.kernel_short_bwd_route(b, t, s, h, kvh, hd, q.dtype, causal) == fa_ops.short_bwd_route(
+        b, t, s, h, kvh, hd, q.dtype, causal)
     before = (fa_ops.launches, fa_ops.lse_launches, fa_ops.bwd_launches)
     o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)

@@ -186,7 +186,8 @@ def test_build_hashes_the_included_headers(tmp_path, monkeypatch):
 
 # (B, T, S, H, K, hd, causal): FraudGT's training shape at a few edges,
 # GQA, T > S (causal rows i >= S see all S keys), one key, hd 64, and a
-# grid of heads that is not a power of two; then the long backward's
+# grid of heads that is not a power of two, causal T < S (keys no row
+# sees) and a causal GQA group of 4 at hd 32; then the long backward's
 # shapes (T or S above 32): causal and full, ragged tiles, T > S and
 # T < S, GQA, hd 16 to 128
 BWD_SHAPES = [
@@ -196,6 +197,8 @@ BWD_SHAPES = [
     (2, 32, 32, 2, 1, 64, False),
     (3, 1, 1, 8, 8, 16, True),
     (2, 5, 7, 6, 3, 16, False),
+    (2, 12, 20, 8, 2, 16, True),
+    (2, 17, 17, 8, 2, 32, True),
 ]
 LONG_BWD_SHAPES = [
     (1, 100, 100, 4, 2, 16, True),
@@ -300,6 +303,42 @@ def test_bwd_off_the_short_path_raises():
 def test_bwd_plan_at_path_boundaries(t, s, h, kvh, hd, dtype, path, causal):
     for b in (1, 4, 5003):  # the batch size never changes the path
         assert fa_ops.bwd_plan(b, t, s, h, kvh, hd, dtype, causal) == path
+
+
+@pytest.mark.parametrize(
+    "t,s,h,kvh,hd,dtype,route",
+    [
+        (17, 17, 8, 8, 16, F32, ("ring", 2)),  # FraudGT's training launch: 2 x 44,160 + 18,560 bytes
+        (17, 17, 8, 2, 32, BF16, ("ring", 2)),
+        (20, 12, 8, 2, 16, F32, ("ring", 2)),  # T > S
+        (12, 20, 8, 2, 16, F32, ("ring", 2)),  # T < S
+        (1, 1, 1, 1, 16, BF16, ("ring", 2)),  # room for hundreds of stages; the ring keeps two
+        (32, 32, 7, 7, 16, F32, ("ring", 2)),  # 2 x 72,576 + 59,136 + 128 = 204,416 bytes fit
+        (32, 32, 8, 8, 16, F32, ("chunked", 0)),  # 2 x 82,944 + 67,584 + 128 = 233,600 do not
+        (17, 17, 17, 17, 16, F32, ("ring", 2)),
+        (17, 17, 18, 18, 16, F32, ("chunked", 0)),
+        (32, 32, 2, 2, 64, F32, ("ring", 2)),
+        (32, 32, 3, 3, 64, F32, ("chunked", 0)),
+        (32, 32, 2, 1, 64, BF16, ("ring", 2)),
+        (32, 32, 2, 2, 128, F32, ("chunked", 0)),  # the forward's two stages fit, the backward's do not
+        (32, 32, 4, 4, 128, BF16, ("chunked", 0)),
+        (32, 32, 12, 1, 64, F32, ("chunked", 0)),
+        (32, 32, 16, 1, 64, BF16, ("chunked", 0)),
+        (32, 1, 17, 17, 16, F32, ("ring", 2)),
+        (32, 1, 18, 18, 16, F32, ("chunked", 0)),
+    ],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_short_bwd_route_at_boundaries(t, s, h, kvh, hd, dtype, route, causal):
+    """``short_bwd_route``: the ring where two stages of an element's slabs
+    and lse fit beside its p/dS buffer, the chunked route where they do
+    not, at both sides of the limit; every shape is the forward's short
+    path's, and the batch size never changes the route."""
+    for b in (1, 256, 5003):
+        assert fa_ops.bwd_plan(b, t, s, h, kvh, hd, dtype, causal) == "short"
+        assert fa_ops.short_bwd_route(b, t, s, h, kvh, hd, dtype, causal) == route
+    with pytest.raises(ValueError):
+        fa_ops.short_bwd_route(1, 33, 33, 2, 2, 64, BF16, causal)  # the long backward's
 
 
 # ragged lengths around the wgmma route's tiles (64 and 128 rows or keys)

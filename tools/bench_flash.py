@@ -2,7 +2,7 @@
 """Time the port's ``flash_attention`` (forward or backward) at FraudGT's shape and long bf16 shapes.
 
     python3 tools/bench_flash.py [--src DIR ...] [--shapes fraudgt,long] [--direction fwd|bwd]
-                                 [--ptxas] [--out FILE]
+                                 [--flush-l2] [--ptxas] [--out FILE]
 
 Needs one CUDA card.  Each ``--src`` (the ``src/`` of any checkout; the
 default is this checkout's) is timed in a process of its own, in the order
@@ -30,11 +30,24 @@ backward), ``host_us``, ``library_ms`` (the backward of one
 ``F.scaled_dot_product_attention``, ``torch.autograd.grad`` at dO),
 ``bound_ms`` (5 products of 2 * hd flops per visible pair at the peak, or
 the bytes: q, k, v, o, dO, lse read once, dQ, dK, dV written once),
-``bwd_plan``, and ``max_abs_err`` / ``max_rel_err`` against the plain
-version (``flash_attention_bwd_ref`` in float32 on the card; the relative
-one over the largest |value| of dQ, dK and dV together).  The long
-backward's time at qwen2-1.5b's training launch, against a parent
-checkout unpacked under ``build/parent``, in turns:
+``bwd_plan`` (on the short path also ``route`` and ``stages``, where the
+checkout has ``short_bwd_route``), and ``max_abs_err`` / ``max_rel_err``
+against the plain version (``flash_attention_bwd_ref`` in float32 on the
+card; the relative one over the largest |value| of dQ, dK and dV
+together).  ``--flush-l2`` times each backward launch after a read of
+256 MB has evicted its operands from the 50 MB L2, as the bytes bound
+assumes (``ms`` by events a launch, ``kernel_ms`` under the profiler; a
+read, so that L2 holds clean lines and the launch pays for no other
+buffer's write-back, as it would after a write),
+and keeps the back-to-back times, operands in L2, as ``l2_warm_ms`` and
+``l2_warm_kernel_ms``.  The short backward at FraudGT's training launch
+(``fraudgt_train``, B 256) and at its inference chunk (``fraudgt``, B
+1,024), against a parent checkout unpacked under ``build/parent``:
+
+    python3 tools/bench_flash.py --direction bwd --shapes fraudgt_train,fraudgt --flush-l2 \
+        --src build/parent/src --src src --src src --src build/parent/src
+
+The long backward's time at qwen2-1.5b's training launch, in turns:
 
     python3 tools/bench_flash.py --direction bwd --shapes lm_train --ptxas \
         --src build/parent/src --src src --src src --src build/parent/src
@@ -66,9 +79,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+L2_FLUSH_BYTES = 256 << 20  # read before each launch under --flush-l2 (the L2 is 50 MB)
 # (B, T, S, H, K, hd, causal, dtype)
 SHAPES = {
     "fraudgt": (1024, 17, 17, 8, 8, 16, True, "float32"),
+    "fraudgt_train": (256, 17, 17, 8, 8, 16, True, "float32"),  # FraudGT.fit's batch of 256 edges
     "short_bf16": (1001, 17, 17, 8, 2, 32, False, "bfloat16"),  # the short path in two passes
     "long": (1, 4096, 4096, 32, 8, 128, True, "bfloat16"),
     "long_full": (1, 4096, 4096, 32, 8, 128, False, "bfloat16"),
@@ -76,7 +91,7 @@ SHAPES = {
     "lm_prefill": (4, 2048, 2048, 12, 2, 128, True, "bfloat16"),  # qwen2-1.5b's prefill launch
     "lm_train": (4, 4096, 4096, 12, 2, 128, True, "bfloat16"),  # qwen2-1.5b's training launch
 }
-REPS = {"fraudgt": 200, "short_bf16": 200, "fraudgt_path": 200, "fraudgt_path_copies": 200,
+REPS = {"fraudgt": 200, "fraudgt_train": 200, "short_bf16": 200, "fraudgt_path": 200, "fraudgt_path_copies": 200,
         "fraudgt_path_randn": 200, "long": 20, "long_full": 20, "long_hd64": 20,
         "lm_prefill": 20, "lm_train": 20}
 
@@ -91,11 +106,24 @@ def bound_ms(b, t, s, h, kvh, hd, causal, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, before=None) -> float:
+    """Mean time of a call by CUDA events: ``reps`` calls in a row, or,
+    given ``before``, each call timed alone after ``before()`` ran."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if before is not None:
+        spans = []
+        for _ in range(reps):
+            before()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            spans.append((start, stop))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / reps
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -119,9 +147,11 @@ def host_us(fn, reps: int) -> float:
     return us
 
 
-def profiled_kernel_ms(fn, reps: int):
+def profiled_kernel_ms(fn, reps: int, before=None):
     """Mean device time per launch of each kernel ``fn`` launches (the
-    wrapper launches one a call), over the launches the profiler recorded."""
+    wrapper launches one a call), over the launches the profiler recorded;
+    ``before``, if given, runs ahead of each call (its kernels are listed
+    too, under their own names)."""
     import collections
 
     import torch
@@ -131,6 +161,8 @@ def profiled_kernel_ms(fn, reps: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     total, count = collections.defaultdict(float), collections.Counter()
@@ -156,7 +188,7 @@ def bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
 PASSES = (("row_dot", "rowdot"), ("dq", "_dq"), ("dkv", "_dkv"))
 
 
-def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0) -> None:
+def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0, flush_l2: bool = False) -> None:
     import torch
 
     sys.path.insert(0, src)
@@ -184,9 +216,14 @@ def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0) -> None:
         del got, want
         torch.cuda.empty_cache()
         reps = REPS[name]
-        kern = profiled_kernel_ms(run, reps)
+        flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda") if flush_l2 else None
+        before = None if flush is None else flush.max
+        kern = profiled_kernel_ms(run, reps, before)
         passes = {key: sum(v for n, v in kern.items() if "flash_bwd_kernel" in n and part in n)
                   for key, part in PASSES}
+        path = fa_ops.bwd_plan(b, t, s, h, kvh, hd, dt, causal)
+        route = getattr(fa_ops, "short_bwd_route", None)
+        route = route(b, t, s, h, kvh, hd, dt, causal) if route and path == "short" else (None, None)
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                                    enable_gqa=h != kvh)
@@ -195,9 +232,10 @@ def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0) -> None:
         row = {
             "src": src, "direction": "bwd", "shape": name, "input_scale": scale, "B": b, "T": t, "S": s, "H": h,
             "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "bwd_plan": fa_ops.bwd_plan(b, t, s, h, kvh, hd, dt, causal),
+            "bwd_plan": path, "route": route[0], "stages": route[1],
             "max_abs_err": err, "max_rel_err": err / max(top, 1e-30),
-            "ms": cuda_ms(run, reps),
+            "l2_flushed": flush_l2,
+            "ms": cuda_ms(run, reps, before),
             "kernel_ms": sum(v for n, v in kern.items() if "flash_bwd_kernel" in n),
             "passes": passes,
             "kernels": kern,
@@ -205,9 +243,13 @@ def run_one_bwd(src: str, names, out_rows: list, scale: float = 1.0) -> None:
             "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True), reps),
             "bound_ms": bound, "bound_by": by,
         }
+        if flush_l2:
+            warm = profiled_kernel_ms(run, reps)
+            row.update(l2_warm_ms=cuda_ms(run, reps),
+                       l2_warm_kernel_ms=sum(v for n, v in warm.items() if "flash_bwd_kernel" in n))
         print(json.dumps(row), flush=True)
         out_rows.append(row)
-        del q, k, v, o, do, lse, lib_out, qt, kt, vt
+        del q, k, v, o, do, lse, lib_out, qt, kt, vt, flush
         torch.cuda.empty_cache()
 
 
@@ -341,6 +383,8 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=28.0, help="HI-Small scale of fraudgt_path's data")
     ap.add_argument("--direction", choices=("fwd", "bwd"), default="fwd",
                     help="time flash_attention (fwd) or flash_attention_bwd (bwd)")
+    ap.add_argument("--flush-l2", action="store_true",
+                    help="with --direction bwd: time each launch after evicting its operands from L2")
     ap.add_argument("--ptxas", action="store_true",
                     help="also report each backward kernel's registers and spills (nvcc -Xptxas -v)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
@@ -355,7 +399,7 @@ def main() -> None:
         if args.ptxas:
             print(json.dumps({"src": args.one, "ptxas": ptxas_report(args.one)}), flush=True)
         if args.direction == "bwd":
-            run_one_bwd(args.one, names, rows, args.input_scale)
+            run_one_bwd(args.one, names, rows, args.input_scale, args.flush_l2)
         else:
             run_one(args.one, names, rows, args.input_scale, args.scale)
         return
@@ -371,7 +415,7 @@ def main() -> None:
         proc = subprocess.run([sys.executable, __file__, "--one", src,
                                "--shapes", args.shapes, "--input-scale", str(args.input_scale),
                                "--scale", str(args.scale), "--direction", args.direction,
-                               *(["--ptxas"] if ptxas else [])],
+                               *(["--ptxas"] if ptxas else []), *(["--flush-l2"] if args.flush_l2 else [])],
                               capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:

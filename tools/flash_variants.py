@@ -53,6 +53,29 @@ ran on FraudGT's shape):
     python3 tools/bench_flash.py --direction bwd --shapes lm_train --src src \\
         --src build/bwd_variants/exp2f/src ... --src src
 
+``--kind short_bwd`` varies the short backward's ring route
+(``csrc/flash_short_bwd.cuh``), one of its choices undone in each copy:
+
+- ``one_stage``: a ring of one stage, so no copy is in flight while a
+  block computes (the card's other resident block still overlaps it);
+- ``stages3``: a ring of 3 stages instead of 2 (one block an SM at
+  FraudGT's shape instead of two);
+- ``grid_b``: one block per batch element instead of persistent blocks
+  (each block fetches its element and ends);
+- ``one_wait``: every row of a stage on its first barrier, so phase 1
+  starts only when the whole element has arrived;
+- ``two_pass``: p and dS formed again by the key rows from the staged
+  rows (the buffer carries each row's D and lse instead), as the
+  chunked route forms them twice;
+- ``mask_all``: every causal pair formed and the masked ones set to 0,
+  instead of skipped;
+- ``copy_only``: the ring of bulk copies runs, no row is computed or
+  stored (the output is wrong; the time is that of the copies alone).
+
+    python3 tools/flash_variants.py build/short_bwd_variants --kind short_bwd --src src
+    python3 tools/bench_flash.py --direction bwd --shapes fraudgt_train,fraudgt --flush-l2 --src src \
+        --src build/short_bwd_variants/one_stage/src ... --src src
+
 Each copy goes to ``<out>/<name>/src`` and builds its own library under
 ``<out>/<name>/build/kernels``.  The copies are experiments, not a
 configuration of the package.
@@ -108,6 +131,41 @@ LONG_BWD_VARIANTS = {
     ),
 }
 
+SHORT_BWD = "repro_torch/csrc/flash_short_bwd.cuh"
+RING_PAIRS = """          const float2 pd = pds[r * ld + j];  // (p, dS)
+          float qf[N], dof[N];
+          load_lane<T, L, NC>(qs + r * HD, sub, qf);
+          load_lane<T, L, NC>(dos + r * HD, sub, dof);
+"""
+SHORT_BWD_VARIANTS = {
+    "one_stage": (("return n < 2 ? 0 : (n < kRingStages ? (int)n : kRingStages);", "return n < 2 ? 0 : 1;"),),
+    "stages3": (("constexpr int kRingStages = 2;", "constexpr int kRingStages = 3;"),),
+    "grid_b": (("const int grid = (int)(b < resident ? b : resident);", "const int grid = b;"),),
+    "one_wait": (("const int rows_a = min(rows, slots);", "const int rows_a = rows;"),),
+    "two_pass": (
+        ("if (sub == 0) prow[j] = make_float2(p, ds);", "if (sub == 0) prow[j] = make_float2(dd, lr);"),
+        ("      for (int g = 0; g < group; ++g) {\n        const int h = kh * group + g;",
+         "      float kf[N], vf[N];\n"
+         "      load_lane<T, L, NC>(ks + c * HD, sub, kf);\n"
+         "      load_lane<T, L, NC>(vs + c * HD, sub, vf);\n"
+         "      for (int g = 0; g < group; ++g) {\n        const int h = kh * group + g;"),
+        (RING_PAIRS,
+         RING_PAIRS.replace("const float2 pd = pds[r * ld + j];  // (p, dS)",
+                            "const float2 dl = pds[r * ld + j];  // (D, lse)")
+         + "          const float p = expf(scale * group_sum<L>(dot_lane<N>(qf, kf), gmask) - dl.y);\n"
+           "          const float2 pd = make_float2(p, p * (group_sum<L>(dot_lane<N>(dof, vf), gmask) - dl.x));\n"),
+    ),
+    "copy_only": (
+        ("for (int pass = 0; pass * slots < rows; ++pass) {", "for (int pass = 0; pass * slots < rows * 0; ++pass) {"),
+        ("for (int pass = 0; pass * slots < keys; ++pass) {", "for (int pass = 0; pass * slots < keys * 0; ++pass) {"),
+    ),
+    "mask_all": (
+        ("const int n_keys = causal ? min(i + 1, s_len) : s_len;", "const int n_keys = s_len;"),
+        ("const float p = expf(sc - lr);", "const float p = (!causal || j <= i) ? expf(sc - lr) : 0.f;"),
+        ("const int i_first = causal ? j : 0;", "const int i_first = 0;"),
+    ),
+}
+
 
 def apply(cu: str, edits) -> str:
     for old, new in edits:
@@ -122,10 +180,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out", type=Path)
     ap.add_argument("--src", type=Path, required=True, help="src/ of the checkout to vary")
-    ap.add_argument("--kind", choices=("simt", "short", "long_bwd"), required=True)
+    ap.add_argument("--kind", choices=("simt", "short", "long_bwd", "short_bwd"), required=True)
     args = ap.parse_args()
     rel, variants = {"simt": (CU, SIMT), "short": (SHORT, SHORT_VARIANTS),
-                     "long_bwd": (LONG_BWD, LONG_BWD_VARIANTS)}[args.kind]
+                     "long_bwd": (LONG_BWD, LONG_BWD_VARIANTS),
+                     "short_bwd": (SHORT_BWD, SHORT_BWD_VARIANTS)}[args.kind]
     text = (args.src / rel).read_text()
     for name, edits in variants.items():
         dst = args.out / name
