@@ -104,7 +104,7 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-18 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-19 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
    of phase 16's first backward launch, after phase 16; the LM's
    ``flash_attention`` keys after phase 17; the long backward's entry, at
@@ -235,6 +235,24 @@ Phases, in order; any failure exits non-zero:
    within 5e-4, and the step-0 gradient where they differ most, on the
    CPU and twice on the card; (d) ``python -m repro_torch.launch.train --arch
    qwen2-1.5b --smoke --steps 4`` in process.
+19. mesh — the LM's mesh (``repro_torch.launch.mesh``,
+   ``distributed.sharding``): NCCL at world size 1 (a ``FileStore`` under
+   ``build/``), ``make_local_mesh(1, 1)`` on cuda, qwen2-1.5b at its
+   published width (float32 weights, bf16 activations, remat, the kernel
+   backend) over 1 x 4,096 tokens a step (``train_4k``'s batch of 256 cut
+   to 1): 2 plain steps, then 2 steps of ``make_sharded_train_step`` from
+   the same init and batches on DTensors placed by the reference's rules
+   (params by ``param_sharding``, AdamW moments by ``zero1_sharding``),
+   one state on the card at a time.  Each sharded step runs under
+   ``set_sync_debug_mode("error")``, its counts zeroed before and read
+   after: exactly 28 long-backward and 56 forward launches with the
+   logsumexp, on the wgmma paths, each rank's heads reaching the kernels
+   through ``local_map``; losses within 1e-4 and parameters within 5e-3
+   of the plain steps', every leaf's placements kept.  Printed: s/step
+   plain and sharded, peak memory, each one's device busy share over one
+   more step under ``torch.profiler``, the phase's wall; the kernels line's
+   ``flash_attention`` and ``flash_attention_bwd_long`` entries gain
+   ``launches_mesh_train``.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -535,6 +553,14 @@ TRAIN_SMOKE_SEQ = 64
 TRAIN_SMOKE_LOSS_RTOL = 1e-4
 TRAIN_SMOKE_PARAM_ATOL = 5e-4
 TRAIN_CLI_ARGS = ("--arch", LM_ARCH, "--smoke", "--steps", "4")
+# phase 19: the sharded train step on a (1, 1) NCCL mesh at qwen2-1.5b's
+# published width, train_4k's sequence with its batch of 256 cut to 1
+# (phase 18's cell is 4), MESH_STEPS plain steps then MESH_STEPS sharded
+# ones from the same init and batches, one state on the card at a time
+MESH_CELL = (1, 4096)
+MESH_STEPS = 2
+MESH_LOSS_ATOL = 1e-4
+MESH_PARAM_ATOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -2838,6 +2864,138 @@ def phase_train(report, zero_launches, read_launches):
     return per_step[0], bwd_args["args"]
 
 
+def phase_mesh(report, zero_launches, read_launches):
+    """Phase 19: the LM's mesh on the card.  NCCL at world size 1 (a
+    FileStore under build/), ``make_local_mesh(1, 1)`` on cuda, qwen2-1.5b
+    at its published width (float32 weights, bf16 activations, remat, the
+    kernel attention backend) over 1 x 4,096 tokens a step: MESH_STEPS
+    plain steps (``make_train_step``) and one more under torch.profiler,
+    then, from the same init and
+    batches, MESH_STEPS steps of ``make_sharded_train_step`` on DTensors
+    placed by the reference's rules, each under
+    set_sync_debug_mode("error") with the launch counts zeroed before and
+    read after (exactly 28 long-backward launches and 56 forward launches
+    with the logsumexp a step, all on the wgmma path: each rank's heads
+    reach the kernels through ``local_map``).  Losses within
+    MESH_LOSS_ATOL and parameters within MESH_PARAM_ATOL of the plain
+    steps', placements kept; then one more sharded step under the
+    profiler.  s/step is the last timed step's wall (the first warms up).
+    Returns a sharded step's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import allowed_sync
+    from repro_torch.distributed.optimizer import AdamWConfig, _leaves, adamw_init
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    b, t = MESH_CELL
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    plans = {"fwd": (fa_ops.plan(b, t, t, h, kvh, hd, torch.bfloat16, True),
+                     fa_ops.kernel_plan(b, t, t, h, kvh, hd, torch.bfloat16, True)),
+             "bwd": (fa_ops.bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True),
+                     fa_ops.kernel_bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True))}
+    if any(v != ("wgmma", "wgmma") for v in plans.values()):
+        raise AssertionError(f"the mesh cell's attention is not planned on the wgmma paths: {plans}")
+    ocfg = AdamWConfig(lr=1e-3)
+    batches = [T.synthetic_batch(cfg, b, t, i, device) for i in range(MESH_STEPS)]
+    init = lambda: M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    out = {"arch": LM_ARCH, "batch": b, "tokens": t, "mesh": [1, 1], "backend": "nccl", "steps": MESH_STEPS,
+           "plans": plans}
+
+    # the plain steps; their parameters go to the host, so one state is on the card at a time
+    params = init()
+    opt = adamw_init(params)
+    step = T.make_train_step(cfg, ocfg)
+    plain = {"losses": [], "grad_norms": [], "walls_s": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss, gn = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        plain["walls_s"].append(time.perf_counter() - t0)
+        plain["losses"].append(float(loss))
+        plain["grad_norms"].append(float(gn))
+    plain["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    # one more step under torch.profiler (its results dropped): the device's busy share
+    plain["profile"] = device_profile(lambda: step(params, opt, batches[-1]))
+    want = [a.detach().cpu() for a in _leaves(params)]
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+    store = ROOT / "build" / "mesh_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_local_mesh(1, 1)
+        params = init()
+        ps, os_ = T.place_state(mesh, params, adamw_init(params))
+        del params
+        p_in = [a.placements for a in _leaves(ps)]
+        o_in = [a.placements for a in _leaves(os_["m"]) + _leaves(os_["v"])]
+        sstep = T.make_sharded_train_step(cfg, ocfg, mesh)
+        sharded = {"losses": [], "grad_norms": [], "walls_s": [], "launches": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(MESH_STEPS):
+            bs = T.place_batch(mesh, batches[i])
+            torch.cuda.synchronize()
+            zero_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                ps, os_, loss, gn = sstep(ps, os_, bs)
+                sharded["launches"].append(read_launches())
+                with allowed_sync():
+                    torch.cuda.synchronize()
+                sharded["walls_s"].append(time.perf_counter() - t0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sharded["losses"].append(float(loss))
+            sharded["grad_norms"].append(float(gn))
+        sharded["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        sharded["profile"] = device_profile(lambda: sstep(ps, os_, bs))
+        kept = ([a.placements for a in _leaves(ps)] == p_in
+                and [a.placements for a in _leaves(os_["m"]) + _leaves(os_["v"])] == o_in)
+        diffs = [float((a.full_tensor() - w.to(device)).abs().max()) for a, w in zip(_leaves(ps), want)]
+        del ps, os_, want
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    loss_diff = max(abs(x - y) for x, y in zip(plain["losses"], sharded["losses"]))
+    out.update({"plain": plain, "sharded": sharded, "placements_kept": kept, "loss_max_abs_diff": loss_diff,
+                "param_max_abs_diff": max(diffs), "sync_debug": "error",
+                "s_per_step_plain": plain["walls_s"][-1], "s_per_step_sharded": sharded["walls_s"][-1],
+                "peak_mem_bytes_plain": plain["peak_mem_bytes"], "peak_mem_bytes_sharded": sharded["peak_mem_bytes"],
+                "busy_share_plain": plain["profile"].get("device_busy_share"),
+                "busy_share_sharded": sharded["profile"].get("device_busy_share"),
+                "phase_s": time.perf_counter() - t_phase})
+    report["mesh"] = out
+    log("LM mesh step (1, 1): " + json.dumps({k_: v for k_, v in out.items() if k_ not in ("plain", "sharded")}))
+    log("LM mesh step, plain / sharded: " + json.dumps({"plain": plain, "sharded": sharded}))
+    wanted = {"flash_attention": 2 * n_attn, "flash_attention_lse": 2 * n_attn, "flash_attention_bwd": n_attn,
+              "flash_attention_bwd_long": n_attn}
+    for i, got in enumerate(sharded["launches"]):
+        if any(got[k_] != v for k_, v in wanted.items()):
+            raise AssertionError(f"sharded step {i} launched {got}, not {wanted}")
+    if not kept:
+        raise AssertionError("the sharded step changed a leaf's placements")
+    if not (loss_diff <= MESH_LOSS_ATOL and max(diffs) <= MESH_PARAM_ATOL):
+        raise AssertionError(f"the sharded step differs from the plain step: loss {loss_diff}, params {max(diffs)}")
+    return sharded["launches"][0]
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -3348,6 +3506,14 @@ def main() -> int:
                      "launches_train_lse": train_launches["flash_attention_lse"]})
     log(f"card: {card}")
     mark(18)
+
+    # ---- 19. the LM's mesh: the sharded train step on a (1, 1) mesh -------
+    mesh_launches = phase_mesh(report, zero_launches, read_launches)
+    fa_entry["launches_mesh_train"] = mesh_launches["flash_attention"]
+    next(e for e in kernels if e["name"] == "flash_attention_bwd_long")["launches_mesh_train"] = \
+        mesh_launches["flash_attention_bwd_long"]
+    log(f"card: {card}")
+    mark(19)
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

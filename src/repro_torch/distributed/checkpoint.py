@@ -14,6 +14,13 @@ written by either package reads back in the other.  The reference
 flattens and rebuilds with ``jax.tree_util``; here a plain recursive walk
 does it, and restored leaves are numpy arrays (the streaming service's
 state lives on the host).
+
+Restore is **elastic**: arrays are saved whole, so a checkpoint written
+on one mesh restores onto any other.  ``restore_checkpoint(...,
+shardings=placements, mesh=mesh)`` returns DTensors on ``mesh`` with the
+placements of the matching leaf (each rank keeps its own shard of the
+array it read).  :func:`gather_tree` makes a tree of DTensors whole on
+every rank (a collective), for one rank to save.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "prune"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "prune", "gather_tree"]
 
 
 def _walk(tree, fn: Callable[[str, Any], Any], prefix: Tuple[str, ...] = ()):
@@ -105,12 +112,59 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return best
 
 
+def gather_tree(tree):
+    """Every leaf as a whole numpy array: a DTensor gathered from its
+    shards (every rank of its mesh must call this), a tensor copied to the
+    host."""
+    import torch
+
+    def host(_, leaf):
+        if isinstance(leaf, torch.Tensor):
+            if hasattr(leaf, "full_tensor"):
+                leaf = leaf.full_tensor()
+            return leaf.detach().cpu().numpy()
+        return leaf
+
+    return _walk(tree, host)
+
+
+def _flatten_placements(tree, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """A tree of placement tuples by leaf path (a tuple of placements is
+    a leaf, not a subtree)."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)) and not all(hasattr(x, "is_shard") for x in tree):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return {"/".join(prefix): tree}
+    return {k: v for name, sub in items for k, v in _flatten_placements(sub, prefix + (name,)).items()}
+
+
+def _placed(arr, placements, mesh):
+    """A whole array as a DTensor on ``mesh`` with ``placements``: each
+    rank slices its own shard, with no collective."""
+    import torch
+    from repro_torch.distributed.sharding import distribute_tree
+
+    t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) if arr.dtype.name == "bfloat16" \
+        else torch.from_numpy(np.ascontiguousarray(arr))
+    return distribute_tree(t, placements, mesh)
+
+
 def restore_checkpoint(
     ckpt_dir: str,
     tree_like,
     step: Optional[int] = None,
+    shardings=None,
+    mesh=None,
 ) -> Tuple[Any, int, dict]:
-    """Restore into the structure of `tree_like` (numpy leaves)."""
+    """Restore into the structure of `tree_like` (numpy leaves).
+    ``shardings`` (optional, a matching tree of DTensor placements, with
+    the DeviceMesh ``mesh``) re-shards onto the CURRENT mesh: those leaves
+    come back as DTensors — elastic restore across mesh shapes."""
+    flat_sh = _flatten_placements(shardings) if shardings is not None else {}
+    if flat_sh and mesh is None:
+        raise ValueError("restore_checkpoint(shardings=...) needs the mesh to place them on")
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:
@@ -127,6 +181,8 @@ def restore_checkpoint(
                 import ml_dtypes
 
                 arr = arr.view(ml_dtypes.bfloat16)
+            if key in flat_sh:
+                return _placed(arr, flat_sh[key], mesh)
             return arr
 
         tree = _walk(tree_like, rebuild)

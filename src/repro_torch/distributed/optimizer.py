@@ -28,6 +28,7 @@ __all__ = [
     "AdamWConfig",
     "adamw_init",
     "adamw_update",
+    "adamw_apply",
     "ef_init",
     "compress_int8",
     "decompress_int8",
@@ -113,9 +114,22 @@ def adamw_update(params: Tree, grads: Tree, opt_state: Tree, cfg: AdamWConfig):
     """One AdamW step; returns ``(new_params, new_state, grad_norm)``, the
     norm a 0-d device tensor taken before the clip."""
     p_l, g_l = _leaves(params), _leaves(grads)
-    m_l, v_l = _leaves(opt_state["m"]), _leaves(opt_state["v"])
-    step = opt_state["step"] + 1
     gn = _global_norm(g_l)
+    new_p, m_new, v_new, step = adamw_apply(
+        p_l, g_l, _leaves(opt_state["m"]), _leaves(opt_state["v"]), opt_state["step"], gn, cfg)
+    return (
+        _rebuild(params, iter(new_p)),
+        {"m": _rebuild(params, iter(m_new)), "v": _rebuild(params, iter(v_new)), "step": step},
+        gn,
+    )
+
+
+def adamw_apply(p_l, g_l, m_l, v_l, step, gn, cfg: AdamWConfig):
+    """The update of :func:`adamw_update` on lists of leaves, given the
+    global gradient norm ``gn`` (a 0-d tensor): ``(new_p, new_m, new_v,
+    step + 1)``.  The sharded step calls it on each rank's shards with the
+    norm reduced over the mesh."""
+    step = step + 1
     clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2
@@ -138,8 +152,4 @@ def adamw_update(params: Tree, grads: Tree, opt_state: Tree, cfg: AdamWConfig):
     )
     new_p = torch._foreach_sub(p32, torch._foreach_mul(delta, cfg.lr))
     new_p = [x.to(p.dtype) for x, p in zip(new_p, p_l)]
-    return (
-        _rebuild(params, iter(new_p)),
-        {"m": _rebuild(params, iter(m_new)), "v": _rebuild(params, iter(v_new)), "step": step},
-        gn,
-    )
+    return new_p, m_new, v_new, step

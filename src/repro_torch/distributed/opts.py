@@ -1,10 +1,15 @@
 """Opt-in performance experiments, gated by REPRO_OPTS (comma list).
 
 A copy of the JAX package's framework-free ``repro.distributed.opts``:
-the port reads the same flags with the same defaults.  Of them it acts
-only on ``chunked_ce`` (``models.model.loss_fn``); the others place
-tensors or dispatch on a mesh, which the port has not yet (ROADMAP A12b),
-or were refuted in the reference.
+the port reads the same flags with the same defaults, and acts on four:
+``chunked_ce`` (``models.model.loss_fn``), ``decode_hint``
+(``models.layers.attn_decode`` pins the attention operands to the cache's
+layout through ``ctx.hint``), ``kv_seq_model`` (the layout it pins, and
+``distributed.sharding.cache_sharding``'s sequence-sharded KV caches)
+and ``moe_shard_map`` (``models.blocks.block_apply`` dispatches through
+``moe_apply_shard_map``).  The mesh flags change layouts on a mesh and
+nothing when meshless.  ``bf16_grad_ar`` and ``bf16_scores`` were
+refuted in the reference and the port does not act on them.
 
 Keeping optimizations behind env flags lets the dry-run A/B a single cell
 against the unmodified baseline (§Perf methodology): the baseline sweep

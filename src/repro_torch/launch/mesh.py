@@ -1,8 +1,9 @@
-"""The shard device list of a sharded mine, and the CPU lanes that stand
-in for several devices on a machine without them.
+"""The meshes of the port: the shard device list of a sharded mine, the
+CPU lanes that stand in for several devices on a machine without them,
+and the LM scaffold's device meshes (the JAX package's
+``repro.launch.mesh``).
 
-The port of the JAX package's ``repro.launch.mesh``, for the part the
-sharded mining executor (:mod:`repro_torch.core.shard`) uses:
+For the sharded mining executor (:mod:`repro_torch.core.shard`):
 
 * :func:`make_shard_mesh` is the explicit 1-D list of shard devices that
   the collective gather reduces over (the reference builds a
@@ -18,19 +19,28 @@ sharded mining executor (:mod:`repro_torch.core.shard`) uses:
   graph replica; each reports under its own name (``cpu:0``, ``cpu:1``,
   ...).
 
-The training meshes of the LM scaffold (``make_production_mesh``,
-``make_local_mesh``) come with the LM's training, ROADMAP item A12b, and
-raise until then.
+The LM scaffold's meshes are ``torch.distributed`` device meshes
+(:class:`~torch.distributed.device_mesh.DeviceMesh`) over the initialised default process group (NCCL on the card, gloo on
+the CPU), with the reference's dim names: :func:`make_local_mesh`
+(``("data", "model")``, any small shape) and :func:`make_production_mesh`
+(16 x 16, or 2 x 16 x 16 with a ``"pod"`` dim).  A world whose size is not
+the product of the mesh dims raises.  :class:`MeshShape` is the same
+description without ranks: the sharding rules
+(:mod:`repro_torch.distributed.sharding`) read only names and sizes, so
+they evaluate for a production mesh on one process.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import dataclasses
+import math
+from typing import List, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = [
+    "MeshShape",
     "make_production_mesh",
     "make_local_mesh",
     "make_shard_mesh",
@@ -73,13 +83,48 @@ def make_shard_mesh(devices: Sequence) -> List[torch.device]:
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the LM scaffold's training meshes are not ported yet (ROADMAP A12b)"
-    )
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's dim names and sizes, with no ranks behind it: what the
+    sharding rules read.  ``MeshShape(("data", "model"), (16, 16))``."""
+
+    names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.names) != len(self.sizes):
+            raise ValueError(f"mesh dims {self.names} and sizes {self.sizes} differ in length")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
 
 
-def make_local_mesh(data: int = 1, model: int = 1):
-    raise NotImplementedError(
-        "the LM scaffold's training meshes are not ported yet (ROADMAP A12b)"
-    )
+PRODUCTION = MeshShape(("data", "model"), (16, 16))
+PRODUCTION_MULTI_POD = MeshShape(("pod", "data", "model"), (2, 16, 16))
+
+
+def _device_mesh(shape: MeshShape, device: DeviceLike):
+    """A DeviceMesh of ``shape`` over the default process group, on
+    ``device``'s type (the CUDA card by default)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape.names} mesh needs an initialised torch.distributed process group")
+    world = dist.get_world_size()
+    if world != shape.size:
+        raise ValueError(f"a {shape.names} mesh of {shape.sizes} needs {shape.size} ranks; "
+                         f"the process group has {world}")
+    return init_device_mesh(dev.type, shape.sizes, mesh_dim_names=shape.names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None):
+    """16x16 single pod (256 ranks) or 2x16x16 two-pod (512 ranks)."""
+    return _device_mesh(PRODUCTION_MULTI_POD if multi_pod else PRODUCTION, device)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device: DeviceLike = None):
+    """A small ``("data", "model")`` mesh over every rank (tests, one card)."""
+    return _device_mesh(MeshShape(("data", "model"), (int(data), int(model))), device)

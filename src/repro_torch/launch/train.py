@@ -7,8 +7,17 @@ every unit rematerialised, the global-norm clip and AdamW
 gradient compression, step-atomic checkpoints with resume
 (:mod:`repro_torch.distributed.checkpoint`, the reference's on-disk
 layout: a checkpoint either package wrote resumes in the other), and
-heartbeats with straggler tracking.  The reference's meshes and its
-dry-run lowering are not ported (ROADMAP A12b).
+heartbeats with straggler tracking.
+
+On a mesh (:func:`make_sharded_train_step`) the same step runs on
+DTensors placed by the reference's rules
+(:mod:`repro_torch.distributed.sharding`): params by ``param_sharding``,
+the AdamW moments by ``zero1_sharding`` (ZeRO-1: sharded over data on top
+of the param layout), the batch over data.  The gradients are
+reduce-scattered to the moments' layout, the update runs on each rank's
+shards with the gradient norm reduced over the mesh, and the new params
+are all-gathered back to their layout.  The reference's dry-run lowering
+(``launch/dryrun.py``) is not ported (ROADMAP A12c).
 
 On the card every layer's attention runs through the hand-written
 ``flash_attention`` kernels both ways (``loss_fn``'s default
@@ -23,20 +32,51 @@ Usage (the CUDA card by default; ``--device cpu`` for the plain path):
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.device import DeviceLike, h2d, resolve_device, to_host
 from repro_torch.distributed.checkpoint import latest_step, prune, restore_checkpoint, save_checkpoint
 from repro_torch.distributed.fault_tolerance import Heartbeat, StragglerMonitor
-from repro_torch.distributed.optimizer import AdamWConfig, adamw_init, adamw_update, ef_compress_grads, ef_init
+from repro_torch.distributed import ctx
+from repro_torch.distributed.optimizer import (AdamWConfig, _leaves, _rebuild, adamw_apply, adamw_init,
+                                               adamw_update, ef_compress_grads, ef_init)
+from repro_torch.distributed.sharding import (batch_sharding, distribute_tree, mesh_axes, param_sharding,
+                                              placement_tree, zero1_sharding)
 from repro_torch.models.model import init_params, loss_fn, tree_leaves, tree_map
 
-__all__ = ["make_train_step", "train_loop", "synthetic_batch", "main"]
+__all__ = [
+    "make_train_step",
+    "make_sharded_train_step",
+    "state_placements",
+    "place_state",
+    "place_batch",
+    "train_loop",
+    "synthetic_batch",
+    "main",
+]
+
+
+def _loss_and_grads(params, batch, cfg):
+    """``loss_fn`` (remat on) and its gradient tree; a leaf the loss does
+    not use gets a zero gradient, as ``jax.grad`` gives it."""
+    leaves = tree_leaves(params)
+    req = [a.detach().requires_grad_() for a in leaves]
+    it = iter(req)
+    loss = loss_fn(tree_map(lambda _: next(it), params), batch, cfg, remat=True)
+    if ctx.is_dtensor(loss):  # the data-parallel partial sums: one all-reduce
+        loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
+    got = torch.autograd.grad(loss, req, allow_unused=True)
+    del req
+    it = iter([torch.zeros_like(a) if g is None else g for a, g in zip(leaves, got)])
+    del got
+    return loss.detach(), tree_map(lambda _: next(it), params)
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig):
@@ -50,15 +90,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig):
     compress = opt_cfg.compress
 
     def train_step(params, opt, batch):
-        leaves = tree_leaves(params)
-        req = [a.detach().requires_grad_() for a in leaves]
-        it = iter(req)
-        loss = loss_fn(tree_map(lambda _: next(it), params), batch, cfg, remat=True)
-        got = torch.autograd.grad(loss, req, allow_unused=True)
-        del req
-        it = iter([torch.zeros_like(a) if g is None else g for a, g in zip(leaves, got)])
-        del got
-        grads = tree_map(lambda _: next(it), params)
+        loss, grads = _loss_and_grads(params, batch, cfg)
         if compress:
             grads, opt_resid = ef_compress_grads(grads, opt["ef"])
         new_p, new_core, gn = adamw_update(params, grads, {k: opt[k] for k in ("m", "v", "step")}, opt_cfg)
@@ -67,7 +99,84 @@ def make_train_step(cfg, opt_cfg: AdamWConfig):
             new_opt["ef"] = opt_resid
         elif "ef" in opt:
             new_opt["ef"] = opt["ef"]
-        return new_p, new_opt, loss.detach(), gn
+        return new_p, new_opt, loss, gn
+
+    return train_step
+
+
+def state_placements(mesh, params):
+    """(param placements, AdamW state placements) on ``mesh`` by the
+    reference's rules: ``param_sharding`` for the params, ``zero1_sharding``
+    for ``m`` and ``v``, the step counter replicated."""
+    p_specs = param_sharding(mesh, params)
+    zero = placement_tree(mesh, zero1_sharding(mesh, params, p_specs))
+    return placement_tree(mesh, p_specs), {"m": zero, "v": zero, "step": (Replicate(),) * mesh.ndim}
+
+
+def place_state(mesh, params, opt):
+    """Params and AdamW state (the same full values on every rank) as
+    DTensors on ``mesh`` by :func:`state_placements`."""
+    p_pl, o_pl = state_placements(mesh, params)
+    return distribute_tree(params, p_pl, mesh), distribute_tree(opt, o_pl, mesh)
+
+
+def place_batch(mesh, batch):
+    """A batch (the same full values on every rank) sharded over the data
+    axes by ``batch_sharding``."""
+    return distribute_tree(batch, placement_tree(mesh, batch_sharding(mesh, batch)), mesh)
+
+
+def _mesh_norm(shards, mesh):
+    """The global norm of leaves laid out on ``mesh``: each rank's sum of
+    squares over its shards, divided by the leaf's replica count, summed
+    over every rank."""
+    parts = []
+    for g in shards:
+        reps = math.prod(mesh.size(i) for i, pl in enumerate(g.placements) if pl.is_replicate())
+        parts.append(g.to_local().float().square().sum() / reps)
+    total = DTensor.from_local(torch.stack(parts).sum(), mesh, [Partial()] * mesh.ndim, run_check=False)
+    return torch.sqrt(total.full_tensor())
+
+
+def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh):
+    """``train_step(params, opt, batch) -> (params, opt, loss, grad_norm)``
+    on DTensors placed by :func:`place_state` and :func:`place_batch`:
+    :func:`make_train_step`'s step under the mesh (``ctx`` set to its data
+    and model axes while it runs).  Every layer's attention runs the
+    hand-written kernels on each rank's heads (``local_map``).  The
+    gradients come out of the backward as data-parallel partial sums; each
+    is reduce-scattered to its moments' ZeRO-1 layout, AdamW updates each
+    rank's shards (``adamw_apply``, the norm reduced over the mesh), and
+    the new params are all-gathered to the params' layout, so the
+    placements that come out equal those that went in.  Loss and norm
+    come back as plain 0-d tensors, equal on every rank.  No host sync."""
+    if opt_cfg.compress:
+        raise ValueError("int8 gradient compression has no sharded step (the reference's mesh step has none)")
+    data, model = mesh_axes(mesh)
+
+    def train_step(params, opt, batch):
+        saved = ctx.mesh_and_axes()
+        ctx.set_axes(mesh, data, model)
+        try:
+            loss, grads = _loss_and_grads(params, batch, cfg)
+        finally:
+            ctx.set_axes(*saved)
+        p_l, g_l = _leaves(params), _leaves(grads)
+        m_l, v_l = _leaves(opt["m"]), _leaves(opt["v"])
+        zero = [m.placements for m in m_l]
+        g_z = [g.redistribute(mesh, pl) for g, pl in zip(g_l, zero)]
+        p_z = [a.redistribute(mesh, pl) for a, pl in zip(p_l, zero)]
+        gn = _mesh_norm(g_z, mesh)
+        new_p, m_new, v_new, step = adamw_apply(
+            [a.to_local() for a in p_z], [g.to_local() for g in g_z], [m.to_local() for m in m_l],
+            [v.to_local() for v in v_l], opt["step"].to_local(), gn, opt_cfg)
+        wrap = lambda xs, pls: [DTensor.from_local(x, mesh, pl, run_check=False) for x, pl in zip(xs, pls)]
+        new_p = [x.redistribute(mesh, a.placements) for x, a in zip(wrap(new_p, zero), p_l)]
+        new_opt = {"m": _rebuild(opt["m"], iter(wrap(m_new, zero))), "v": _rebuild(opt["v"], iter(wrap(v_new, zero))),
+                   "step": DTensor.from_local(step, mesh, opt["step"].placements, run_check=False)}
+        if "ef" in opt:
+            new_opt["ef"] = opt["ef"]
+        return _rebuild(params, iter(new_p)), new_opt, loss.to_local(), gn
 
     return train_step
 

@@ -11,7 +11,10 @@ Block types (cfg.unit entries):
   slstm        pre-norm sLSTM mixer, no FFN
 
 ``attn_backend`` ("kernel" or "torch", :data:`~repro_torch.models.layers.BACKENDS`)
-picks the prefill attention; decode is torch ops on both.
+picks the prefill attention; decode is torch ops on both.  A MoE block
+dispatches through ``moe_apply_shard_map`` under the ``moe_shard_map``
+opt (on by default; it is ``moe_apply`` when meshless), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx, opts
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -54,14 +58,16 @@ def block_init(gen: Optional[torch.Generator], btype: str, cfg: ModelConfig):
 
 def block_apply(p, btype: str, x, cfg: ModelConfig, attn_backend: str = "kernel"):
     """Full-sequence (train/prefill). Returns (x, aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = ctx.replicate_like(x, torch.zeros((), dtype=torch.float32, device=x.device))
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
     if btype in ATTN_TYPES:
         x = x + L.attn_apply(p["attn"], h, cfg, backend=attn_backend)
         if btype == "moe_attn":
             h2 = L.rms_norm(p["norm2"], x, cfg.norm_eps)
             b, t, d = h2.shape
-            y, aux = L.moe_apply(p["moe"], h2.reshape(b * t, d), cfg)
+            # moe_apply_shard_map falls back to plain dispatch when meshless
+            moe_fn = L.moe_apply_shard_map if opts.enabled("moe_shard_map") else L.moe_apply
+            y, aux = moe_fn(p["moe"], h2.reshape(b * t, d), cfg)
             x = x + y.reshape(b, t, d)
         elif cfg.d_ff > 0:
             h2 = L.rms_norm(p["norm2"], x, cfg.norm_eps)

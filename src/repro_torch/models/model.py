@@ -28,6 +28,12 @@ the CUDA ``flash_attention``, the plain version on the CPU; "torch": the
 reference's ``_sdpa`` in torch ops).  ``decode_step`` runs torch ops on
 either, and updates the cache in place.  Entry points run on the CUDA
 card unless given ``device="cpu"``.
+
+On a mesh the same functions take DTensors placed by
+:mod:`repro_torch.distributed.sharding` (:mod:`repro_torch.models.layers`
+says how the layers run on them): a vocab-sharded embedding is gathered,
+and the gold logit read from vocab-sharded logits, on each rank's slice
+through ``local_map`` with one all-reduce, never gathering the table.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import opts
+from repro_torch.distributed import ctx, opts
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -143,9 +149,59 @@ def _take_rows(table, ids):
     n = table.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    if _vocab_dims(table, 0):
+        return _take_rows_sharded(table, ids)
     # index_select, not indexing or F.embedding: its gradient is an
     # index_add_, which does not sync the host on the card
     return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
+
+
+def _vocab_dims(t, dim: int):
+    """The mesh dims that shard dim ``dim`` of a DTensor (none for a plain
+    tensor): a vocab-sharded embedding's rows, a head's logits."""
+    if not ctx.is_dtensor(t):
+        return []
+    dim = dim % t.ndim
+    return [i for i, pl in enumerate(t.placements) if pl.is_shard(dim)]
+
+
+def _vocab_local(table, dim: int, ids, body):
+    """``body(local table, local ids, first vocab entry held)`` on each
+    rank through ``local_map``, for a DTensor ``table`` whose dim ``dim``
+    is sharded: the table keeps its placements, the ids are replicated
+    over the vocab-sharding mesh dims and keep their other placements,
+    and the output (of the ids' leading shape) is Partial, a sum, over
+    those dims: each rank contributes what it holds, zeros elsewhere.  The
+    table's gradient is Partial over the mesh dims that shard the ids but
+    not the table (each rank saw its own ids).  Returns the mapped
+    function and the output's reduced placements."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vdims = _vocab_dims(table, dim)
+    lo = ctx.mesh_coordinate(mesh, vdims) * table.to_local().shape[dim % table.ndim]
+    ids_pl = [Replicate() if i in vdims else pl for i, pl in enumerate(ids.placements)]
+    out_pl = [Partial() if i in vdims else pl for i, pl in enumerate(ids_pl)]
+    grad_pl = [Partial() if pl.is_replicate() and q.is_shard() else pl for pl, q in zip(table.placements, ids_pl)]
+    fn = local_map(lambda t, i: body(t, i, lo), out_placements=out_pl, in_placements=(table.placements, ids_pl),
+                   in_grad_placements=(grad_pl, ids_pl), device_mesh=mesh, redistribute_inputs=True)
+    return fn, ids_pl
+
+
+def _take_rows_sharded(table, ids):
+    """The gather from a vocab-sharded table (a DTensor, rows sharded over
+    the model axis): each rank takes the ids that fall in its rows, the
+    rest are zero rows, and one all-reduce over those mesh dims sums the
+    ranks' rows (a rank never gathers the table)."""
+    def body(t, i, lo):
+        local = i - lo
+        mine = (local >= 0) & (local < t.shape[0])
+        rows = t.index_select(0, torch.where(mine, local, 0).reshape(-1)).reshape(*i.shape, t.shape[1])
+        return rows * mine[..., None].to(rows.dtype)
+
+    fn, ids_pl = _vocab_local(table, 0, ids, body)
+    return fn(table, ids).redistribute(table.device_mesh, ids_pl)
 
 
 def _embed(params, batch, cfg: ModelConfig):
@@ -165,7 +221,7 @@ def _stack_apply(params, x, cfg: ModelConfig, remat: bool = False, attn_backend:
             aux = aux + a
         return h, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = ctx.replicate_like(x, torch.zeros((), dtype=torch.float32, device=x.device))
     # each stacked leaf split once: under autograd its gradient is then one
     # stack of the units' gradients, where a view a[i] per unit would add
     # n_units zero-padded copies of the whole stacked leaf
@@ -180,7 +236,10 @@ def _stack_apply(params, x, cfg: ModelConfig, remat: bool = False, attn_backend:
 
 
 def _head(params, x, cfg: ModelConfig):
-    h = x.float()
+    # on a mesh the residual stream may be a partial sum over model (DTensor
+    # keeps a sum partial through linear ops): reduce it here, so that the
+    # product with a vocab-sharded head gives vocab-sharded logits
+    h = ctx.hint(x, ("data",)).float()
     var = h.square().mean(dim=-1, keepdim=True)
     h = (h * torch.rsqrt(var + cfg.norm_eps) * params["final_norm"]["scale"]).to(x.dtype)
     if cfg.n_codebooks > 0:
@@ -204,9 +263,26 @@ def _ce(logits, labels):
     m = logits.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     labels = labels.long()
+    if _vocab_dims(logits, -1):
+        return (logz - _gold_sharded(logits, labels)).sum()
     gold = logits.gather(-1, labels.clamp(0, v - 1)[..., None])[..., 0]
     gold = torch.where((labels >= 0) & (labels < v), gold, 0.0)
     return (logz - gold).sum()
+
+
+def _gold_sharded(logits, labels):
+    """The gold logit from vocab-sharded logits (a DTensor): each rank
+    reads the labels that fall in its vocab slice, and an all-reduce over
+    the vocab-sharding mesh dims sums them (a label outside [0, V) is in
+    no rank's slice: gold 0, as in :func:`_ce`)."""
+    def body(lg, lab, lo):
+        local = lab - lo
+        mine = (local >= 0) & (local < lg.shape[-1])
+        gold = lg.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+        return torch.where(mine, gold, 0.0)
+
+    fn, lab_pl = _vocab_local(logits, -1, labels, body)
+    return fn(logits, labels).redistribute(logits.device_mesh, lab_pl)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, attn_backend: str = "kernel"):
@@ -226,7 +302,7 @@ def loss_fn(params, batch, cfg: ModelConfig, remat: bool = True, attn_backend: s
         def chunk(h_c, l_c):
             return _ce(_head(params, h_c, cfg), l_c)
 
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        tot = ctx.replicate_like(h, torch.zeros((), dtype=torch.float32, device=h.device))
         for c in range(nt):
             if remat and torch.is_grad_enabled():
                 tot = tot + checkpoint(chunk, hc[:, c], lc[:, c], use_reentrant=False)

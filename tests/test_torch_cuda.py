@@ -738,6 +738,58 @@ def test_lm_train_on_card_equals_cpu(cuda, tmp_path):
         torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4)
 
 
+def test_lm_mesh_train_on_card_equals_plain(cuda, tmp_path):
+    """The sharded train step on a (1, 1) NCCL mesh (world size 1, a
+    ``FileStore`` under the test's directory) at the qwen2-1.5b smoke
+    width in float32, T = 64: two steps from the plain step's init and
+    batches give losses within 1e-4 and parameters within 5e-3 of the
+    plain step's, keep every leaf's placements, make no host sync, and
+    launch the forward (with the logsumexp) twice and the long backward
+    once per attention layer a step, on the kernels."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.optimizer import AdamWConfig, _leaves, adamw_init
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = dataclasses.replace(smoke_config("qwen2-1.5b"), dtype="float32")
+    ocfg = AdamWConfig(lr=1e-3)
+    batches = [T.synthetic_batch(cfg, 2, 64, i, cuda) for i in range(2)]
+    params = LMM.init_params(cfg, 0, device=cuda)
+    p, o = params, adamw_init(params)
+    step = T.make_train_step(cfg, ocfg)
+    plain = []
+    for b in batches:
+        p, o, loss, _ = step(p, o, b)
+        plain.append(float(loss))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_local_mesh(1, 1)
+        ps, os_ = T.place_state(mesh, params, adamw_init(params))
+        pl_in = [a.placements for a in _leaves(ps)]
+        sstep = T.make_sharded_train_step(cfg, ocfg, mesh)
+        n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+        for b, want in zip(batches, plain):
+            bs = T.place_batch(mesh, b)
+            torch.cuda.synchronize()
+            before = (fa_ops.lse_launches, fa_ops.long_bwd_launches)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ps, os_, loss, _ = sstep(ps, os_, bs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert (fa_ops.lse_launches - before[0], fa_ops.long_bwd_launches - before[1]) == (2 * n_attn, n_attn)
+            assert abs(float(loss) - want) < 1e-4
+        assert [a.placements for a in _leaves(ps)] == pl_in
+        for a, c in zip(_leaves(ps), _leaves(p)):
+            assert float((a.full_tensor() - c).abs().max()) < 5e-3
+    finally:
+        dist.destroy_process_group()
+
+
 def _small_graph(seed=11, n_nodes=18, n_edges=140, t_max=256):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n_nodes, n_edges).astype(np.int32)

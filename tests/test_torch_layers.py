@@ -111,8 +111,9 @@ def test_mlp_apply():
 def test_unported_raise():
     """What is left unported names its ROADMAP item: a sliding window that
     masks something has no kernel (A15; the torch backend takes it, and a
-    window the sequence fits in runs the kernel), and the LM's meshes come
-    with its training (A12b)."""
+    window the sequence fits in runs the kernel).  The LM's meshes are
+    ported (A12b): they take the CUDA card unless given the CPU, and need
+    an initialised process group; neither falls back."""
     _, cfg = _cfgs(attn_window=8)
     p = L.attn_init(torch.Generator(), cfg)
     x = torch.zeros((1, 9, 64))
@@ -123,7 +124,9 @@ def test_unported_raise():
     from repro_torch.launch import mesh
 
     for make in (mesh.make_production_mesh, mesh.make_local_mesh):
-        with pytest.raises(NotImplementedError, match="A12b"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
             make()
+        with pytest.raises(RuntimeError, match="process group"):
+            make(device="cpu")
     with pytest.raises(ValueError, match="backend"):
         L.attn_apply({}, x, _cfgs()[1], backend="xla")

@@ -90,11 +90,14 @@ def test_unported_surfaces_name_their_roadmap_item(dense):
     sharded = ts.mine(backend="sharded")
     np.testing.assert_array_equal(sharded.counts, ts.mine().counts)
     assert sharded.stats["host_syncs"] == 1
-    # what is left names its item: the LM scaffold's meshes (A12)
+    # the LM scaffold's meshes are ported (A12b): a DeviceMesh over the
+    # process group, on the CUDA card unless given the CPU, never a fallback
     from repro_torch.launch import mesh
 
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(RuntimeError, match="CUDA device|process group"):
         mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_production_mesh(device="cpu")
     # witnesses (A7) are ported: counts as a counting mine, top-k tuples
     res = ts.mine(witnesses=3)
     np.testing.assert_array_equal(res.counts, ts.mine().counts)

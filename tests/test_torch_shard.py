@@ -268,9 +268,12 @@ def test_mining_devices_and_mesh():
     assert mesh.host_lanes() == 1
     with pytest.raises(ValueError):
         mesh.make_shard_mesh([])
+    # the LM's meshes (A12b) want the CUDA card by default and a process group
     for fn in (mesh.make_production_mesh, mesh.make_local_mesh):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(RuntimeError, match="CUDA device|process group"):
             fn()
+        with pytest.raises(RuntimeError, match="process group"):
+            fn(device="cpu")
 
 
 def test_replica_is_the_mirror_on_every_cpu_lane(graph):

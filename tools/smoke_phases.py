@@ -6,6 +6,7 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases fit --fit-rows 0   # every training edge
     python3 tools/smoke_phases.py --phases flash,lm           # the LM path alone
     python3 tools/smoke_phases.py --phases bwd,train          # the LM's training alone
+    python3 tools/smoke_phases.py --phases mesh               # the LM's (1, 1) mesh step alone
 
 Builds the kernels, prints the card line, and runs, in order:
 
@@ -28,7 +29,9 @@ Builds the kernels, prints the card line, and runs, in order:
   4 x 4,096 tokens a step, timed, profiled and its launches counted; the
   float32 and bf16 cross-backend checks; every smoke config trained on
   the card against the CPU port; the launcher), then the long backward at
-  a launch of the cell.
+  a launch of the cell;
+- ``mesh``: phase 19 (the sharded train step on a (1, 1) NCCL mesh at
+  qwen2-1.5b's full width against the plain step, its launches counted).
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -108,6 +111,8 @@ def main() -> int:
         del q, k, v, o, do, lse
         print("kernel timing: flash_attention_bwd on the LM training path "
               + json.dumps(report["flash_attention_bwd_train_shape"]), flush=True)
+    if "mesh" in phases:
+        timed("mesh", lambda: cs.phase_mesh(report, zero, read))
     ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
