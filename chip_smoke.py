@@ -52,7 +52,14 @@ Phases, in order; any failure exits non-zero:
    the backward path ``ops.bwd_plan`` picked (which must be the ``.cu``
    entry's), all three (short, wgmma, simt) must be reached, and the
    ``.cu``'s tile loops must equal ``ops.bwd_tiles``; each timed beside the
-   backward of ``scaled_dot_product_attention``.  Each shape is timed with CUDA events beside its
+   backward of ``scaled_dot_product_attention``.  Then the sliding window
+   and head size 80, both ways: windows below, at and above T on the short
+   path (both backward routes), simt and wgmma, hd 80 in bf16 (wgmma) and
+   float32 (simt), each row against its plain version as above (the
+   library call with the window's boolean mask), and the forward's and
+   the backward's tile lists (``flash_attention_fwd_tiles``,
+   ``flash_attention_bwd_tiles``) equal to ``ops.fwd_tiles`` and
+   ``ops.bwd_tiles`` under windows.  Each shape is timed with CUDA events beside its
    bound, the plain version and, where one PyTorch call computes the same
    function, that call; every kernel but ``hist_update`` also under
    ``torch.profiler`` (``kernel_ms``, the kernel without the wrapper's
@@ -104,11 +111,12 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-19 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-20 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
    of phase 16's first backward launch, after phase 16; the LM's
    ``flash_attention`` keys after phase 17; the long backward's entry, at
-   a launch of phase 18's cell, after phase 18):
+   a launch of phase 18's cell, after phase 18; the windowed prefills'
+   ``zamba2_*`` and ``mixtral_*`` keys after phase 20):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
    two random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
@@ -211,7 +219,8 @@ Phases, in order; any failure exits non-zero:
    port's within 1e-4, ``flash_attention`` launched for every attention
    block, decode equal to forward within 2e-3 for the five architectures
    of ``tests/test_models.py::test_decode_matches_forward``, and the
-   mixtral ring buffer past its window on the ``"torch"`` backend; (e)
+   mixtral ring buffer past its window against the windowed forward on
+   the kernel backend; (e)
    ``python -m repro_torch.launch.decode_lm --arch qwen2-1.5b --batch 4
    --prompt-len 16 --gen 32`` in process, whose tokens equal (c)'s.
 18. LM training — ``repro_torch.launch.train`` at qwen2-1.5b's published
@@ -253,6 +262,36 @@ Phases, in order; any failure exits non-zero:
    more step under ``torch.profiler``, the phase's wall; the kernels line's
    ``flash_attention`` and ``flash_attention_bwd_long`` entries gain
    ``launches_mesh_train``.
+20. windowed LM — the sliding window and head size 80 at full width,
+   float32 weights drawn on the card with the data seed, bf16 activations,
+   the kernel backend, each counted run under
+   ``set_sync_debug_mode("error")`` with the counts zeroed before and read
+   after: (a) zamba2-2.7b at its published width and depth (54 layers,
+   d_model 2,560, 32 heads of 80, window 4,096) prefilling 1 x 32,768
+   tokens (``prefill_32k``'s sequence, its batch of 32 cut to 1): exactly
+   9 ``flash_attention`` launches, on the wgmma path with the window,
+   finite logits, the kernel's bf16 logits within 1.25 x the bf16
+   ``"torch"`` backend's mean |diff| of the float32 ``"torch"`` forward;
+   wall, tokens/s, peak memory and the device's busy share (one more
+   forward under ``torch.profiler``); (b) mixtral-8x7b at full width
+   (d_model 4,096, 32/8 heads of 128, 8 experts of 14,336) with its 32
+   layers cut to 2 (46.7 B parameters do not fit one card), the same
+   checks with 2 launches; (c) one zamba2-2.7b training step at full
+   width over 1 x 4,096 tokens (``train_4k``'s, batch cut to 1), its 9
+   units cut to 7, the most that fit beside the plain AdamW's
+   temporaries (``tools/train_depth.py``: 7 peak at 80.0 GB, 8 and 9 run
+   out of memory):
+   exactly 14 forward launches with the logsumexp and 7 long-backward
+   launches on the wgmma route at hd 80, finite losses and gradient
+   norms, the first step's loss within 1e-2 relative and gradient norm
+   within 2 % of the ``"torch"`` backend's.  Then each prefill's first
+   launch is checked row by row against the plain version on its own
+   inputs, one head at a time, and timed (events, ``torch.profiler``, the
+   plain version, SDPA with the window's boolean mask, the operations
+   bound over the 4,026,597,376 visible pairs); the ``flash_attention``
+   entry gains ``launches_{zamba2,mixtral}_prefill``,
+   ``launches_zamba2_train`` and the ``zamba2_*`` / ``mixtral_*`` times,
+   ``flash_attention_bwd_long`` gains ``launches_zamba2_train``.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -350,6 +389,21 @@ FA_CASES = (
     (4, 2048, 2048, 12, 2, 128, True, "bfloat16"),
 )
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the sliding window and head size 80 (B, T, S, H, K, hd, window, dtype):
+# on each path a window below T, at T and above T (T > S there): short,
+# simt (hd 80 in float32 below T) and wgmma (hd 128 just past a tile, hd
+# 80 at T: zamba2's heads at train_4k's length)
+FA_WINDOW_CASES = (
+    (1024, 17, 17, 8, 8, 16, 5, "float32"),
+    (64, 32, 32, 4, 4, 64, 32, "bfloat16"),
+    (64, 20, 12, 8, 2, 32, 40, "float32"),
+    (1, 500, 500, 4, 2, 80, 100, "float32"),
+    (1, 257, 257, 4, 1, 16, 257, "bfloat16"),
+    (1, 300, 200, 4, 2, 32, 500, "float32"),
+    (2, 1000, 1000, 8, 2, 128, 129, "bfloat16"),
+    (1, 4096, 4096, 32, 32, 80, 4096, "bfloat16"),
+    (1, 700, 500, 4, 2, 64, 1000, "bfloat16"),
+)
 # the short-path backward (B, T, S, H, K, hd, causal, dtype): FraudGT's
 # training shape (a batch of 256 edges), its inference chunk, GQA with
 # T > S, the short-path cases of tests/test_torch_cuda.py (a ragged B past
@@ -413,8 +467,32 @@ FA_LONG_BWD_CASES = (
     (1, 257, 257, 8, 1, 128, True, "bfloat16"),
     (1, 257, 257, 4, 4, 64, True, "bfloat16"),
 )
+# the backward under a window and at hd 80 (B, T, S, H, K, hd, window,
+# dtype): on each route a window below T, at T and above T (T > S on all
+# but the chunked route):
+# the short backward's ring and chunked routes, the long backward's simt
+# route (hd 80 in float32 above T) and its wgmma route (hd 128, hd 64 just
+# past a tile, and zamba2's training launch: 32 heads of 80 at T = 4,096
+# under its window of 4,096, which masks nothing there)
+FA_WINDOW_BWD_CASES = (
+    (256, 17, 17, 8, 8, 16, 5, "float32"),
+    (64, 20, 12, 8, 2, 32, 40, "float32"),
+    (64, 32, 32, 4, 4, 64, 32, "bfloat16"),
+    (20, 32, 32, 8, 8, 16, 9, "float32"),
+    (20, 32, 32, 8, 8, 16, 32, "float32"),
+    (20, 32, 32, 8, 8, 16, 60, "float32"),
+    (1, 512, 512, 8, 2, 16, 100, "float32"),
+    (1, 257, 257, 4, 1, 16, 257, "bfloat16"),
+    (1, 300, 200, 4, 2, 80, 500, "float32"),
+    (1, 2048, 2048, 12, 2, 128, 512, "bfloat16"),
+    (2, 1000, 1000, 8, 2, 64, 129, "bfloat16"),
+    (1, 4096, 4096, 32, 32, 80, 4096, "bfloat16"),
+    (1, 700, 500, 4, 2, 64, 1000, "bfloat16"),
+)
 # T and S whose wgmma-route tile loops the .cu must give as ops.bwd_tiles
+# (and, under FA_TILE_WINDOWS, the forward's as ops.fwd_tiles)
 FA_BWD_TILE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 257, 1000, 4096)
+FA_TILE_WINDOWS = (None, 1, 64, 100, 128, 129, 1000, 4096, 5000)
 # phase 9: the oracle's random graphs (nodes, edges, t_max) and their
 # seeds, sized so GFPReference takes under a minute for the 12 full_deep
 # patterns on every edge of the three; the Fig. 10 protocol's seeds
@@ -534,8 +612,8 @@ LM_CLI_ARGS = ("--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16", "--gen",
 # set_sync_debug_mode("error"), TRAIN_PROFILE_STEPS more under
 # torch.profiler; every smoke config trained TRAIN_SMOKE_STEPS steps on the
 # card and on the CPU port from one checkpoint, at TRAIN_SMOKE_SEQ tokens
-# (at the window where an architecture has one below it: the kernel has
-# none, ROADMAP A15); the launcher with TRAIN_CLI_ARGS in process
+# (past the window of 32 of mixtral's and zamba2's smoke configs: the
+# windowed kernels both ways); the launcher with TRAIN_CLI_ARGS in process
 TRAIN_CELL = (4, 4096)
 TRAIN_WARM = 2
 TRAIN_STEPS = 6
@@ -561,6 +639,22 @@ MESH_CELL = (1, 4096)
 MESH_STEPS = 2
 MESH_LOSS_ATOL = 1e-4
 MESH_PARAM_ATOL = 5e-3
+# phase 20: the sliding window (4,096) and head size 80 at full width.
+# zamba2-2.7b (src/repro/configs/registry.py's published width and all 54
+# layers) and mixtral-8x7b (full width, its 32 layers cut to
+# WIN_MIXTRAL_LAYERS: 46.7 B parameters do not fit one card) each prefill
+# prefill_32k's sequence of WIN_PREFILL_T tokens, its batch of 32 cut to 1,
+# after a warm-up forward over WIN_WARM_T; one zamba2 training step over
+# train_4k's sequence (WIN_TRAIN, its batch of 256 cut to 1) with its 9
+# units cut to WIN_TRAIN_UNITS, the most that fit beside the plain AdamW's
+# temporaries (D9): tools/train_depth.py on an NVIDIA H100 80GB HBM3 at
+# 700 W peaked at 32.1, 41.7, 60.8 and 80.0 GB at 2, 3, 5 and 7 units, and
+# 8 and 9 ran out of memory
+WIN_PREFILL_T = 32768
+WIN_WARM_T = 4096
+WIN_MIXTRAL_LAYERS = 2
+WIN_TRAIN = (1, 4096)
+WIN_TRAIN_UNITS = 7
 
 
 def log(msg: str) -> None:
@@ -611,24 +705,33 @@ def wd_bound_ms(b: int, d: int):
     return bound_ms(b * (4 * d + 12), b * d)
 
 
-def fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+def visible_pairs(t: int, s: int, causal: bool, window=None) -> int:
+    """The (row, key) pairs of one head that the mask lets through: key j <
+    S of row i < T, j <= i when causal, i - j < window under a window
+    (4,026,597,376 over 32 heads at T = S = 32,768 and a window of 4,096)."""
+    if not causal:
+        return t * s
+    return sum(min(i + 1, s) - (max(0, i - window + 1) if window else 0) for i in range(t))
+
+
+def fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype, window=None):
     """q, k, v read once and o written once; 4 * hd flops per (row, key)
-    pair that the mask lets through."""
+    pair that the mask (and the window) lets through."""
     size = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * t * h * hd + 2 * b * s * kvh * hd) * size
-    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    pairs = visible_pairs(t, s, causal, window)
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_OPS_PER_S
     return bound_ms(nbytes, 4 * hd * pairs * b * h, peak)
 
 
-def fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype):
+def fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype, window=None):
     """The backward's bytes: q, k, v, o, dO and the float32 lse read once,
     dQ, dK, dV written once; its operations: 10 * hd flops per (row, key)
     pair the mask lets through (the scores again, dP, dV, dQ and dK, two
     flops a multiply-add each)."""
     size = 2 if dtype == "bfloat16" else 4
     nbytes = (4 * b * t * h * hd + 4 * b * s * kvh * hd) * size + 4 * b * h * t
-    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    pairs = visible_pairs(t, s, causal, window)
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_OPS_PER_S
     return bound_ms(nbytes, 10 * hd * pairs * b * h, peak)
 
@@ -1073,7 +1176,7 @@ def phase_window_degree(device, report):
     return rows[-1]
 
 
-def fa_plain(q, k, v, causal):
+def fa_plain(q, k, v, causal, window=None):
     """flash_attention's plain version on (B, T, H, hd) / (B, S, K, hd):
     the K/V heads repeated, then the explicit-op reference."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -1081,7 +1184,7 @@ def fa_plain(q, k, v, causal):
     b, t, h, hd = q.shape
     s = k.shape[1]
     flat = lambda x, n: x.repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
-    out = flash_attention_ref(flat(q, t), flat(k, s), flat(v, s), causal=causal)
+    out = flash_attention_ref(flat(q, t), flat(k, s), flat(v, s), causal=causal, window=window)
     return out.reshape(b, h, t, hd).transpose(1, 2)
 
 
@@ -1094,7 +1197,10 @@ def profiled_device_events(fn, tries: int = PROFILE_TRIES):
     records no device kernel is made again, up to ``tries`` times, and
     after that the list is empty and the caller reports "not measured".
     Whether the kernels ran is shown by the wrappers' launch counts, not
-    by the profiler."""
+    by the profiler.  The events are read raw from the profiler's results
+    (``kineto_results.events()``): building ``prof.events()``' event tree
+    takes about 30 s of host time for 400,000 events (measured on the
+    CPU), and a zamba2 prefill of 32,768 tokens launches 159,000 kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1105,8 +1211,8 @@ def profiled_device_events(fn, tries: int = PROFILE_TRIES):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = [(ev.name, ev.device_time_total) for ev in prof.events()
-                  if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        events = [(ev.name(), ev.duration_ns() / 1e3) for ev in prof.profiler.kineto_results.events()
+                  if ev.device_type() == torch.autograd.DeviceType.CUDA]
         if events:
             return events, wall
         log(f"torch.profiler recorded no device kernel (attempt {attempt} of {tries})")
@@ -1141,7 +1247,7 @@ def kernel_device_ms(fn, reps: int, match: str = "flash_fwd_kernel", before=None
     return sum(us) / 1e3 / (len(us) / per_call), len(us) // per_call
 
 
-def fa_row(q, k, v, causal, reps) -> dict:
+def fa_row(q, k, v, causal, reps, window=None) -> dict:
     """flash_attention against its plain version (max |diff|, within the
     dtype's tolerance; in bfloat16 also each output row's max |diff|
     within that tolerance of the row's largest |value|, since late causal
@@ -1150,7 +1256,8 @@ def fa_row(q, k, v, causal, reps) -> dict:
     the bound: ``ms`` under CUDA events over wrapper calls, ``kernel_ms``
     the kernel's own mean device time under ``torch.profiler`` (over the
     ``kernel_launches_profiled`` of the ``reps`` launches it recorded).
-    The library call is one ``F.scaled_dot_product_attention``."""
+    The library call is one ``F.scaled_dot_product_attention`` (under a
+    window, with the window's boolean mask)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1161,8 +1268,8 @@ def fa_row(q, k, v, causal, reps) -> dict:
     path = fa_ops.plan(b, t, s, h, kvh, hd, q.dtype, causal)
     if fa_ops.kernel_plan(b, t, s, h, kvh, hd, q.dtype, causal) != path:
         raise AssertionError(f"ops.plan and the .cu entry choose different paths at {tuple(q.shape)}")
-    got = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
-    ref = fa_plain(q, k, v, causal).float()
+    got = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, window=window)
+    ref = fa_plain(q, k, v, causal, window).float()
     diff = (got.float() - ref).abs().amax(-1)  # (B, T, H): per output row
     scale = ref.abs().amax(-1)
     err = float(diff.max())
@@ -1172,24 +1279,43 @@ def fa_row(q, k, v, causal, reps) -> dict:
     del got, ref, diff, scale
     if not err <= FA_TOL[dtype] or (dtype == "bfloat16" and not row_rel <= FA_TOL[dtype]):
         raise AssertionError(f"flash_attention differs from its plain version at {tuple(q.shape)}, "
-                             f"{tuple(k.shape)}, causal={causal}: {err} ({ref_abs})")
+                             f"{tuple(k.shape)}, causal={causal}, window={window}: {err} ({ref_abs})")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    bound, by = fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
-    run = lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s)
+    bound, by = fa_bound_ms(b, t, s, h, kvh, hd, causal, dtype, window)
+    run = lambda: fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, window=window)
     kernel_ms, seen = kernel_device_ms(run, reps)
-    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
-            "plan": path, "max_abs_err": err, **ref_abs,
+    if window is None:
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
+    else:
+        mask = window_mask(t, s, window, q.device)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh)
+    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "window": window,
+            "dtype": dtype, "plan": path, "max_abs_err": err, **ref_abs,
             "ms": cuda_ms(run, reps),
             "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
-            "plain_ms": cuda_ms(lambda: fa_plain(q, k, v, causal), max(3, reps // 10)),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=h != kvh), reps),
+            "plain_ms": cuda_ms(lambda: fa_plain(q, k, v, causal, window), max(3, reps // 10)),
+            "library_ms": cuda_ms(library, reps),
             "bound_ms": bound, "bound_by": by}
+
+
+def window_regime(row) -> str:
+    """Where a case's window lies against its T: below, at or above."""
+    return "below T" if row["window"] < row["T"] else "at T" if row["window"] == row["T"] else "above T"
+
+
+def window_mask(t: int, s: int, window: int, device):
+    """The (T, S) boolean mask of the causal window: key j of row i iff
+    j <= i and i - j < window."""
+    import torch
+
+    j, i = torch.arange(s, device=device)[None, :], torch.arange(t, device=device)[:, None]
+    return (j <= i) & (i - j < window)
 
 
 def phase_flash_attention(device, report):
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cases = list(FA_CASES)
     for seed in range(8):  # tests/test_flash_attention.py::test_hypothesis_random
@@ -1207,7 +1333,32 @@ def phase_flash_attention(device, report):
         row = fa_row(q, k, v, causal, 20)
         rows.append(row)
         log("kernel timing: flash_attention " + json.dumps(row))
+    for b, t, s, h, kvh, hd, window, dtype in FA_WINDOW_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, t, h, hd), generator=gen, device=device).to(dt)
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
+        row = fa_row(q, k, v, True, 20, window=window)
+        rows.append(row)
+        log("kernel timing: flash_attention (window, hd 80) " + json.dumps(row))
+        del q, k, v
     report["flash_attention_shapes"] = rows
+    windowed = {(r["plan"], window_regime(r)) for r in rows if r["window"] is not None}
+    wanted = {(p, w) for p in fa_ops.PATHS for w in ("below T", "at T", "above T")}
+    if windowed != wanted:
+        raise AssertionError(f"the windowed cases missed {sorted(wanted - windowed)}")
+    if not {("wgmma", 80), ("simt", 80)} <= {(r["plan"], r["hd"]) for r in rows}:
+        raise AssertionError("the hd-80 cases did not reach both the wgmma and the simt path")
+    tiles = 0
+    for t in FA_BWD_TILE_LENGTHS:
+        for s in FA_BWD_TILE_LENGTHS:
+            for window in FA_TILE_WINDOWS:
+                if window is not None and t > s + window - 1:
+                    continue
+                if fa_ops.kernel_fwd_tiles(t, s, True, window) != fa_ops.fwd_tiles(t, s, True, window):
+                    raise AssertionError(f"the .cu's wgmma forward tiles differ from ops.fwd_tiles at T {t}, "
+                                         f"S {s}, window {window}")
+                tiles += 1
+    log(f"kernel: flash_attention's wgmma forward tiles equal ops.fwd_tiles at {tiles} (T, S, window)")
     reached = {r["plan"] for r in rows}
     if not {"short", "wgmma"} <= reached:
         raise AssertionError(f"the flash_attention cases reached only the paths {sorted(reached)}")
@@ -1217,7 +1368,7 @@ def phase_flash_attention(device, report):
     return worst
 
 
-def fa_bwd_plain(q, k, v, o, do, lse, causal):
+def fa_bwd_plain(q, k, v, o, do, lse, causal, window=None):
     """The backward's plain version in float32 on (B, T, H, hd) / (B, S, K,
     hd) operands: K/V heads repeated, dK and dV summed over each group
     before any rounding to the operands' type."""
@@ -1228,12 +1379,13 @@ def fa_bwd_plain(q, k, v, o, do, lse, causal):
     g = h // kvh
     flat = lambda x, n: x.float().repeat_interleave(h // x.shape[2], 2).transpose(1, 2).reshape(b * h, n, hd)
     dq, dk, dv = flash_attention_bwd_ref(flat(q, t), flat(k, s), flat(v, s), flat(o, t), flat(do, t),
-                                         lse.reshape(b * h, t), causal=causal)
+                                         lse.reshape(b * h, t), causal=causal, window=window)
     fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
     return dq.reshape(b, h, t, hd).transpose(1, 2), fold(dk), fold(dv)
 
 
-def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0, flush_l2: bool = False) -> dict:
+def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0, flush_l2: bool = False,
+               window=None) -> dict:
     """The backward kernel (short or long path, ``ops.bwd_plan``'s, which
     must equal the ``.cu`` entry's; on the short path also the route and
     stage count of ``ops.short_bwd_route``, which must equal the ``.cu``'s,
@@ -1271,10 +1423,10 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0,
             raise AssertionError(f"ops.short_bwd_route and the .cu choose different routes at {tuple(q.shape)}")
         grid = fa_ops.kernel_short_bwd_grid(b, t, s, h, kvh, hd, q.dtype)
     if o is None:
-        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True)
-    run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        o, lse = fa_ops.flash_attention(q, k, v, causal=causal, block_k=s, return_lse=True, window=window)
+    run = lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     got, again = run(), run()
-    want = fa_bwd_plain(q, k, v, o, do, lse, causal)
+    want = fa_bwd_plain(q, k, v, o, do, lse, causal, window)
     err = max(float((x.float() - z).abs().max()) for x, z in zip(got, want))
     # the max |diff| over the largest |value| of dQ, dK and dV together: on
     # a training launch dO is the mean loss's gradient (about 1e-8), where
@@ -1285,19 +1437,23 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0,
     rel = max(float((x.float() - z).abs().max()) for x, z in zip(got, want)) / max(scale, 1e-30)
     if dtype == "bfloat16" and path != "short" and not rel <= 2e-2:
         raise AssertionError(f"flash_attention_bwd differs from its plain version by {rel} of an output's scale "
-                             f"at {tuple(q.shape)}, {tuple(k.shape)}, causal={causal}")
+                             f"at {tuple(q.shape)}, {tuple(k.shape)}, causal={causal}, window={window}")
     rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (rtol32, FA_BWD_TOL)
     for name, x, y, z in zip("qkv", got, again, want):
         if not torch.equal(x, y):
             raise AssertionError(f"two launches of flash_attention_bwd differ in d{name} at {tuple(q.shape)}")
         if not bool(((x.float() - z).abs() <= atol + rtol * z.abs()).all()):
             raise AssertionError(f"flash_attention_bwd differs from its plain version in d{name} at "
-                                 f"{tuple(q.shape)}, {tuple(k.shape)}, causal={causal}: {err}")
+                                 f"{tuple(q.shape)}, {tuple(k.shape)}, causal={causal}, window={window}: {err}")
     del got, again, want
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
+    if window is None:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != kvh)
+    else:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=window_mask(t, s, window, q.device),
+                                                 enable_gqa=h != kvh)
     do_t = do.transpose(1, 2)
-    bound, by = fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype)
+    bound, by = fa_bwd_bound_ms(b, t, s, h, kvh, hd, causal, dtype, window)
     kernel_ms, seen = kernel_device_ms(run, reps, match="flash_bwd_kernel", per_call=1 if path == "short" else 3)
     flushed = {}
     if flush_l2:
@@ -1306,12 +1462,12 @@ def fa_bwd_row(q, k, v, do, causal, reps, o=None, lse=None, rtol32: float = 0.0,
                    "l2_flushed_kernel_ms": kernel_device_ms(run, reps, match="flash_bwd_kernel", before=flush.max,
                                                             per_call=1 if path == "short" else 3)[0]}
         del flush
-    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "dtype": dtype,
+    return {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": causal, "window": window, "dtype": dtype,
             "bwd_plan": path, "route": route, "stages": stages, "grid": grid, **flushed,
             "chunk_heads": fa_ops.bwd_chunk_heads(b, t, s, h, kvh, hd, q.dtype), "max_abs_err": err,
             "max_rel_err": rel,
             "ms": cuda_ms(run, reps), "kernel_ms": kernel_ms, "kernel_launches_profiled": seen,
-            "plain_ms": cuda_ms(lambda: fa_bwd_plain(q, k, v, o, do, lse, causal), max(3, reps // 10)),
+            "plain_ms": cuda_ms(lambda: fa_bwd_plain(q, k, v, o, do, lse, causal, window), max(3, reps // 10)),
             "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do_t, retain_graph=True),
                                   reps),
             "bound_ms": bound, "bound_by": by}
@@ -1358,21 +1514,39 @@ def phase_flash_attention_bwd(device, report):
             log(f"kernel timing: flash_attention_bwd ({row['route'] or row['bwd_plan']}) " + json.dumps(row))
             del q, do, k, v
             torch.cuda.empty_cache()
+    for b, t, s, h, kvh, hd, window, dtype in FA_WINDOW_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((b, t, h, hd), generator=gen, device=device).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=device).to(dt) for _ in range(2))
+        long = fa_ops.bwd_plan(b, t, s, h, kvh, hd, dt, True) != "short"
+        row = fa_bwd_row(q, k, v, do, True, 20, rtol32=FA_BWD_TOL if long else 0.0, window=window)
+        rows.append(row)
+        log(f"kernel timing: flash_attention_bwd ({row['route'] or row['bwd_plan']}, window, hd 80) "
+            + json.dumps(row))
+        del q, do, k, v
+        torch.cuda.empty_cache()
     report["flash_attention_bwd_shapes"] = rows
+    windowed = {(r["route"] or r["bwd_plan"], window_regime(r)) for r in rows if r["window"] is not None}
+    wanted = {(p, w) for p in ("ring", "chunked", "simt", "wgmma") for w in ("below T", "at T", "above T")}
+    if windowed != wanted:
+        raise AssertionError(f"the windowed backward cases missed {sorted(wanted - windowed)}")
     reached = {r["bwd_plan"] for r in rows}
     if reached != set(fa_ops.BWD_PATHS):
         raise AssertionError(f"the backward cases reached only the paths {sorted(reached)}")
     routes = {r["route"] for r in rows if r["bwd_plan"] == "short"}
     if routes != set(fa_ops.SHORT_BWD_ROUTES):
         raise AssertionError(f"the short backward's cases reached only the routes {sorted(routes)}")
+    tiles = 0
     for t in FA_BWD_TILE_LENGTHS:
         for s in FA_BWD_TILE_LENGTHS:
-            for causal in (True, False):
-                if fa_ops.kernel_bwd_tiles(t, s, causal) != fa_ops.bwd_tiles(t, s, causal):
+            for causal, window in [(False, None)] + [(True, w) for w in FA_TILE_WINDOWS]:
+                if window is not None and t > s + window - 1:
+                    continue
+                if fa_ops.kernel_bwd_tiles(t, s, causal, window) != fa_ops.bwd_tiles(t, s, causal, window):
                     raise AssertionError(f"the .cu's wgmma tile loops differ from ops.bwd_tiles at T {t}, S {s}, "
-                                         f"causal={causal}")
-    log(f"kernel: flash_attention_bwd's wgmma tile loops equal ops.bwd_tiles at {len(FA_BWD_TILE_LENGTHS) ** 2 * 2} "
-        f"(T, S, mask)")
+                                         f"causal={causal}, window {window}")
+                tiles += 1
+    log(f"kernel: flash_attention_bwd's wgmma tile loops equal ops.bwd_tiles at {tiles} (T, S, mask, window)")
     worst = {p: max((r["max_abs_err"] for r in rows if r["dtype"] == "float32" and (r["bwd_plan"] == "short") == (p == "short")),
                     default=0.0) for p in ("short", "long")}
     log(f"kernel: flash_attention_bwd within {FA_BWD_TOL} (float32; the long path also {FA_BWD_TOL} relative) "
@@ -2543,15 +2717,15 @@ def phase_lm(report, zero_launches, read_launches):
             if not row["decode_vs_forward_max_abs"] <= 2e-3:
                 raise AssertionError(f"{name}: decode differs from forward on the card: {row}")
         smoke[name] = row
-    # tests/test_models.py::test_sliding_window_decode_ring_buffer, on the torch backend
+    # tests/test_models.py::test_sliding_window_decode_ring_buffer, the windowed forward on the kernel backend
     c = dataclasses.replace(smoke_config("mixtral-8x7b"), dtype="float32", attn_window=8)
     c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=16.0))
     p_dev = M.init_params(c, SEED, device=device)
     toks_s = torch.from_numpy(lm_smoke_batch(c, 1, 20, SEED)["tokens"]).to(device)
     with torch.inference_mode():
-        full, _ = M.forward(p_dev, {"tokens": toks_s}, c, attn_backend="torch")
+        full, _ = M.forward(p_dev, {"tokens": toks_s}, c)
         ring = float((decode_all(p_dev, c, toks_s, c.attn_window, device) - full).abs().max())
-    smoke["mixtral-8x7b ring buffer (window 8, T 20, torch backend)"] = {"decode_vs_forward_max_abs": ring}
+    smoke["mixtral-8x7b ring buffer (window 8, T 20, kernel backend)"] = {"decode_vs_forward_max_abs": ring}
     out["smoke"] = smoke
     log("LM smoke configs on the card: " + json.dumps(smoke))
     if not ring <= 2e-3:
@@ -2711,9 +2885,9 @@ def phase_train(report, zero_launches, read_launches):
     bwd_fn = fa_ops.flash_attention_bwd
     bwd_args = {}
 
-    def capture_bwd(q, k, v, o, do, lse, causal=True):
+    def capture_bwd(q, k, v, o, do, lse, causal=True, window=None):
         bwd_args.setdefault("args", (q, k, v, o, do, lse, causal))
-        return bwd_fn(q, k, v, o, do, lse, causal=causal)
+        return bwd_fn(q, k, v, o, do, lse, causal=causal, window=window)
 
     losses, norms, walls = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -2809,7 +2983,7 @@ def phase_train(report, zero_launches, read_launches):
     root = ROOT / "build" / "train_smoke"
     for name in sorted(ARCHS):
         c = dataclasses.replace(smoke_config(name), dtype="float32")
-        seq = min(TRAIN_SMOKE_SEQ, c.attn_window or TRAIN_SMOKE_SEQ)
+        seq = TRAIN_SMOKE_SEQ
         p_cpu = M.init_params(c, SEED, device="cpu")
         as_np = lambda tree: M.tree_map(lambda a: a.numpy(), tree)
         shutil.rmtree(root, ignore_errors=True)
@@ -2994,6 +3168,270 @@ def phase_mesh(report, zero_launches, read_launches):
     if not (loss_diff <= MESH_LOSS_ATOL and max(diffs) <= MESH_PARAM_ATOL):
         raise AssertionError(f"the sharded step differs from the plain step: loss {loss_diff}, params {max(diffs)}")
     return sharded["launches"][0]
+
+
+def fa_window_row(q, k, v, window, reps) -> dict:
+    """flash_attention at a long windowed launch (the LM prefills of phase
+    20, 32,768 tokens) against its plain version on the same inputs, one
+    query head at a time (the plain version's score matrix of one head is
+    4.3 GB in float32; all 32 at once would not fit): each output row's max
+    |diff| within FA_TOL of the row's largest |value| (bf16), and the max
+    |diff|.  Times: the kernel by CUDA events (``ms``) and under
+    torch.profiler (``kernel_ms``), the plain version summed over the heads
+    (``plain_ms``), one ``F.scaled_dot_product_attention`` with the
+    window's boolean mask over the repeated kv heads (``library_ms``; the
+    memory-efficient backend, null with the reason when the library
+    refuses), and the bound over the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    path = fa_ops.plan(b, t, s, h, kvh, hd, q.dtype, True)
+    if fa_ops.kernel_plan(b, t, s, h, kvh, hd, q.dtype, True) != path:
+        raise AssertionError(f"ops.plan and the .cu entry choose different paths at {tuple(q.shape)}")
+    tiles = (fa_ops.fwd_tiles(t, s, True, window), fa_ops.kernel_fwd_tiles(t, s, True, window))
+    if tiles[0] != tiles[1]:
+        raise AssertionError(f"the .cu's forward tiles differ from ops.fwd_tiles at T {t}, window {window}")
+    got = fa_ops.flash_attention(q, k, v, window=window)
+    err, row_rel, plain_ms = 0.0, 0.0, 0.0
+    for hh in range(h):
+        one = lambda x, i: x[:, :, i:i + 1].contiguous()
+        qh, kh, vh = one(q, hh), one(k, hh // g), one(v, hh // g)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = fa_plain(qh, kh, vh, True, window).float()
+        stop.record()
+        diff = (got[:, :, hh:hh + 1].float() - ref).abs().amax(-1)
+        scale = ref.abs().amax(-1)
+        err = max(err, float(diff.max()))
+        row_rel = max(row_rel, float((diff / scale.clamp_min(torch.finfo(torch.float32).tiny)).max()))
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop)
+        del ref, diff, scale
+    del got
+    torch.cuda.empty_cache()
+    if not (err <= FA_TOL[dtype] and row_rel <= FA_TOL[dtype]):
+        raise AssertionError(f"flash_attention differs from its plain version at {tuple(q.shape)}, window "
+                             f"{window}: max |diff| {err}, per row {row_rel}")
+    run = lambda: fa_ops.flash_attention(q, k, v, window=window)
+    kernel_ms, seen = kernel_device_ms(run, reps)
+    bound, by = fa_bound_ms(b, t, s, h, kvh, hd, True, dtype, window)
+    row = {"B": b, "T": t, "S": s, "H": h, "K": kvh, "hd": hd, "causal": True, "window": window, "dtype": dtype,
+           "plan": path, "key_tiles_per_block_max": max(e - f for f, e in tiles[0]),
+           "visible_pairs": visible_pairs(t, s, True, window) * b * h, "max_abs_err": err,
+           "max_row_rel_err": row_rel, "ms": cuda_ms(run, reps), "kernel_ms": kernel_ms,
+           "kernel_launches_profiled": seen, "plain_ms": plain_ms, "plain": "the plain version one head at a time",
+           "bound_ms": bound, "bound_by": by}
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = q.transpose(1, 2), k.repeat_interleave(g, 2).transpose(1, 2), v.repeat_interleave(g, 2).transpose(1, 2)
+    mask = window_mask(t, s, window, q.device)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps)
+        row["library"] = "F.scaled_dot_product_attention, memory-efficient backend, the window's boolean mask"
+    except RuntimeError as e:  # the library refuses the shape: not measured
+        row["library_ms"] = None
+        row["library"] = f"not measured: {type(e).__name__}: {str(e)[:200]}"
+    del qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_prefill_window(name: str, cfg, zero_launches, read_launches) -> tuple:
+    """One windowed prefill of phase 20 at full width: ``cfg``'s float32
+    weights drawn on the card with the data seed, 1 x WIN_PREFILL_T tokens
+    in bf16 through the kernel backend under set_sync_debug_mode("error"),
+    its counts zeroed before and read after (one flash_attention launch an
+    attention block, all on the wgmma path with the window); finite
+    logits; the bf16 kernel logits' mean |diff| from the float32 "torch"
+    forward within LM_BF16_ERR_RATIO of the bf16 "torch" backend's; the
+    device's busy share over one more forward under torch.profiler.
+    Returns the record and the first launch's arguments."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.device import allowed_sync, h2d
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+
+    t_part = time.perf_counter()
+    device = torch.device("cuda")
+    t = WIN_PREFILL_T
+    h, kvh, hd, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_window
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    plans = (fa_ops.plan(1, t, t, h, kvh, hd, torch.bfloat16, True, window),
+             fa_ops.kernel_plan(1, t, t, h, kvh, hd, torch.bfloat16, True))
+    if plans != ("wgmma", "wgmma"):
+        raise AssertionError(f"{name}'s prefill launch is planned on {plans}, not the wgmma path")
+    out = {"arch": name, "n_layers": cfg.n_layers, "n_params": M.n_params(cfg), "batch": 1, "tokens": t,
+           "heads": [h, kvh, hd], "window": window, "plan": plans[0], "expected_flash_launches": n_attn}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    toks = h2d(np.random.default_rng(SEED).integers(0, cfg.vocab, (1, t)).astype(np.int32), device)
+    batch = {"tokens": toks}
+    fa_fn = fa_ops.flash_attention
+    fa_args = {}
+
+    def capture_fa(q, k, v, **kw):
+        fa_args.setdefault("args", (q, k, v, kw.get("window")))
+        return fa_fn(q, k, v, **kw)
+
+    with torch.inference_mode():
+        M.forward(params, {"tokens": toks[:, :WIN_WARM_T]}, cfg)  # warm up: cuBLAS, the kernel's first launch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention = capture_fa
+        zero_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            logits, _ = M.forward(params, batch, cfg)
+            with allowed_sync():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            fa_ops.flash_attention = fa_fn
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        prof = device_profile(lambda: M.forward(params, batch, cfg))
+        # the bf16 backends against the float32 forward on the torch backend
+        l32, _ = M.forward(params, batch, dataclasses.replace(cfg, dtype="float32"), attn_backend="torch")
+        err_k = float((logits.float() - l32).abs().mean())
+        del logits
+        lt, _ = M.forward(params, batch, cfg, attn_backend="torch")
+        err_t = float((lt.float() - l32).abs().mean())
+        scale32 = float(l32.abs().mean())
+        del lt, l32
+    del params
+    torch.cuda.empty_cache()
+    out.update({"wall_s": wall, "tokens_per_s": t / wall, "peak_mem_bytes": int(peak), "launches": launches,
+                "sync_debug": "error", "logits_shape": shape, "logits_finite": finite,
+                "logits32_mean_abs": scale32, "kernel_vs_float32_mean_abs": err_k,
+                "torch_vs_float32_mean_abs": err_t, "profile": prof,
+                "device_busy_share": prof.get("device_busy_share"), "part_s": time.perf_counter() - t_part})
+    log(f"windowed LM prefill, {name}: " + json.dumps(out))
+    if launches["flash_attention"] != n_attn or launches["flash_attention_lse"] != 0:
+        raise AssertionError(f"{name}'s prefill launched flash_attention {launches['flash_attention']} times, "
+                             f"not {n_attn}")
+    if fa_args["args"][3] != window:
+        raise AssertionError(f"{name}'s prefill passed the window {fa_args['args'][3]}, not {window}")
+    if not finite or shape != (1, t, cfg.vocab):
+        raise AssertionError(f"{name}'s prefill logits of shape {shape} are not all finite")
+    if not err_k <= LM_BF16_ERR_RATIO * err_t:
+        raise AssertionError(f"{name}: the kernel backend's bf16 logits are further from float32 than "
+                             f"{LM_BF16_ERR_RATIO} x the torch backend's: {err_k} against {err_t}")
+    return out, fa_args["args"]
+
+
+def phase_windowed_lm(report, zero_launches, read_launches):
+    """Phase 20: the sliding window and head size 80 at full width.  (a)
+    zamba2-2.7b at its published width and depth (54 layers: 9 units of 5
+    Mamba2 layers and the shared attention block, 32 heads of 80, window
+    4,096) prefilling 1 x WIN_PREFILL_T tokens, 9 windowed flash_attention
+    launches at hd 80; (b) mixtral-8x7b at full width (d_model 4,096, 32/8
+    heads of 128, 8 experts of 14,336, window 4,096) with its depth cut to
+    WIN_MIXTRAL_LAYERS, 2 windowed launches; each as
+    ``lm_prefill_window`` checks it; (c) one zamba2-2.7b training step at
+    full width over WIN_TRAIN tokens with the depth cut to WIN_TRAIN_UNITS
+    units, under set_sync_debug_mode("error") after a warm-up step: 2 x
+    n_attn forward launches with the logsumexp and n_attn long-backward
+    launches on the wgmma route at hd 80, finite loss and gradient norm,
+    the "torch" backend's loss within 1e-2 relative and gradient norm
+    within 2 % at the same weights.  Returns the launch counts and the
+    first prefill launches' arguments."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import allowed_sync
+    from repro_torch.distributed.optimizer import AdamWConfig, _global_norm, adamw_init
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    device = torch.device("cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    out = {}
+    zamba = get_config("zamba2-2.7b")
+    out["zamba2_prefill"], zamba_args = lm_prefill_window("zamba2-2.7b", zamba, zero_launches, read_launches)
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=WIN_MIXTRAL_LAYERS)
+    out["mixtral_prefill"], mixtral_args = lm_prefill_window("mixtral-8x7b", mixtral, zero_launches, read_launches)
+
+    # (c) a zamba2 training step at full width, the depth cut to WIN_TRAIN_UNITS units
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(zamba, n_layers=WIN_TRAIN_UNITS * len(zamba.unit))
+    b, t = WIN_TRAIN
+    h, kvh, hd, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_window
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+    plans = (fa_ops.bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True, window),
+             fa_ops.kernel_bwd_plan(b, t, t, h, kvh, hd, torch.bfloat16, True))
+    if plans != ("wgmma", "wgmma"):
+        raise AssertionError(f"zamba2's training launch is planned on {plans}, not the wgmma backward route")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    batches = [T.synthetic_batch(cfg, b, t, i, device) for i in range(2)]
+    loss_t, g_t = loss_and_grads(params, batches[0], cfg, "torch")
+    gn_t = float(_global_norm(g_t))
+    del g_t
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    step_fn = T.make_train_step(cfg, AdamWConfig(lr=1e-3))
+    torch.cuda.reset_peak_memory_stats()
+    # the first step (it warms up) is held to the torch backend at the same
+    # weights; the second runs under sync-debug "error" with its counts read
+    params, opt, loss0, gn0 = step_fn(params, opt, batches[0])
+    loss0, gn0 = float(loss0), float(gn0)
+    zero_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        params, opt, loss, gn = step_fn(params, opt, batches[1])
+        launches = read_launches()
+        with allowed_sync():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    peak = torch.cuda.max_memory_allocated()
+    loss, gn = float(loss), float(gn)
+    del params, opt
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = {"flash_attention": 2 * n_attn, "flash_attention_lse": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "flash_attention_bwd_long": n_attn}
+    train = {"arch": "zamba2-2.7b", "units": WIN_TRAIN_UNITS, "n_layers": cfg.n_layers, "n_params": M.n_params(cfg),
+             "batch": b, "tokens": t, "window": window, "bwd_plan": plans[0], "remat": True, "attn_backend": "kernel",
+             "s_per_step": wall, "tokens_per_s": b * t / wall, "peak_mem_bytes": int(peak),
+             "losses": [loss0, loss], "grad_norms": [gn0, gn], "launches": launches, "expected_launches": want,
+             "sync_debug": "error",
+             "torch_backend_first_step": {"loss": float(loss_t), "grad_norm": gn_t,
+                                          "loss_rel_diff": abs(float(loss_t) - loss0) / abs(float(loss_t)),
+                                          "grad_norm_rel_diff": abs(gn_t - gn0) / gn_t},
+             "part_s": time.perf_counter() - t_part}
+    out["zamba2_train"] = train
+    log("windowed LM training step, zamba2-2.7b: " + json.dumps(train))
+    if any(launches[k_] != v for k_, v in want.items()):
+        raise AssertionError(f"zamba2's training step launched {launches}, not {want}")
+    if not np.isfinite([loss0, gn0, loss, gn]).all():
+        raise AssertionError(f"zamba2's training steps' losses {train['losses']} or norms {train['grad_norms']} "
+                             f"are not finite")
+    tb = train["torch_backend_first_step"]
+    if not (tb["loss_rel_diff"] <= 1e-2 and tb["grad_norm_rel_diff"] <= 2e-2):
+        raise AssertionError(f"zamba2's step differs between the backends: {tb}")
+    report["windowed_lm"] = out
+    return out, zamba_args, mixtral_args
 
 
 def same_trees(a, b) -> bool:
@@ -3514,6 +3952,31 @@ def main() -> int:
         mesh_launches["flash_attention_bwd_long"]
     log(f"card: {card}")
     mark(19)
+
+    # ---- 20. the windowed LM: zamba2-2.7b and mixtral-8x7b at full width ----
+    t0 = time.perf_counter()
+    win, zamba_args, mixtral_args = phase_windowed_lm(report, zero_launches, read_launches)
+    report["windowed_lm"]["phase_s"] = time.perf_counter() - t0
+    for key, args in (("zamba2", zamba_args), ("mixtral", mixtral_args)):
+        q, k, v, window = args
+        row = fa_window_row(q, k, v, window, 10)
+        del q, k, v
+        log(f"kernel timing: flash_attention on the {key} prefill path " + json.dumps(row))
+        report[f"flash_attention_{key}_shape"] = row
+        fa_entry.update({
+            f"launches_{key}_prefill": win[f"{key}_prefill"]["launches"]["flash_attention"],
+            **{f"{key}_{k_}": row[k_] for k_ in ("max_abs_err", "ms", "kernel_ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "plan")},
+            f"{key}_shape": {k_: row[k_] for k_ in ("B", "T", "S", "H", "K", "hd", "window", "dtype")},
+        })
+    del zamba_args, mixtral_args
+    train_w = win["zamba2_train"]["launches"]
+    fa_entry.update({"launches_zamba2_train": train_w["flash_attention"],
+                     "launches_zamba2_train_lse": train_w["flash_attention_lse"]})
+    next(e for e in kernels if e["name"] == "flash_attention_bwd_long")["launches_zamba2_train"] = \
+        train_w["flash_attention_bwd_long"]
+    log(f"card: {card}")
+    mark(20)
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

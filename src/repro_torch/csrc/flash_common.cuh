@@ -12,6 +12,62 @@ namespace flash {
 constexpr float kNeg = -1e30f;
 constexpr int kDPL = 8;  // head dims per lane on the CUDA-core paths
 
+// lanes of a row's group on the CUDA-core paths: hd / 8 rounded up to a
+// power of two, so that the xor shuffles stay inside the group (16 at hd
+// 80, zamba2-2.7b's, of which the last 6 hold no dims and add zeros)
+template <int HD>
+__host__ __device__ constexpr int group_lanes() {
+  return HD / kDPL <= 2 ? 2 : HD / kDPL <= 4 ? 4 : HD / kDPL <= 8 ? 8 : 16;
+}
+
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Visibility, the reference's own (src/repro/models/layers.py:151-152,
+// 163-164): key j is visible to row i iff j < S, j <= i when causal, and
+// i - j < window when a window is given (window 0: none; a window only
+// comes with the causal mask).  The two helpers below give the tiles a
+// block visits, exactly those that hold a visible pair.
+
+// the `tile`-key tiles [*first, *end) that rows [r0, r0 + rows) (those
+// below T) see: from the tile holding r0 - window + 1, to the one holding
+// the last row's last key
+__host__ __device__ inline void key_tile_range(int r0, int rows, int t_len, int s_len, int causal, int window,
+                                               int tile, int* first, int* end) {
+  const int r1 = r0 + rows < t_len ? r0 + rows : t_len;  // past the last row
+  const int k_end = causal && r1 < s_len ? r1 : s_len;
+  const int k_first = window > 0 && r0 - window + 1 > 0 ? r0 - window + 1 : 0;
+  *first = k_first / tile;
+  const int e = ceil_div(k_end, tile);
+  *end = e > *first ? e : *first;
+}
+
+// the `tile`-row tiles [*first, *end) whose rows see a key of keys [j0,
+// j0 + keys) (those below S): causal, from the tile holding j0 to the one
+// holding the last key + window - 1; every tile when full; none (both
+// ceil(T / tile)) when no row does
+__host__ __device__ inline void row_tile_range(int j0, int keys, int t_len, int s_len, int causal, int window,
+                                               int tile, int* first, int* end) {
+  const int n = ceil_div(t_len, tile);
+  if (!causal) {
+    *first = 0;
+    *end = n;
+    return;
+  }
+  if (j0 >= t_len) {
+    *first = *end = n;
+    return;
+  }
+  *first = j0 / tile;
+  const int j1 = j0 + keys < s_len ? j0 + keys : s_len;  // past the last key
+  const int e = window > 0 && ceil_div(j1 - 1 + window, tile) < n ? ceil_div(j1 - 1 + window, tile) : n;
+  *end = e > *first ? e : *first;
+}
+
+// the pair (row, key) is visible: the mask every path applies element-wise
+__host__ __device__ __forceinline__ bool visible(int row, int key, int s_len, int causal, int window) {
+  return key < s_len && (!causal || key <= row) && (window == 0 || row - key < window);
+}
+
 template <typename T>
 struct Io;
 

@@ -124,7 +124,8 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a (B, L, heads, hd) bf16 tensor as a 4-d map, box (64 dims, 1 head, rows, 1)
+// a (B, L, heads, hd) bf16 tensor as a 4-d map, box (64 dims, 1 head, rows, 1);
+// dims past hd arrive as zeros
 inline bool make_map(CUtensorMap* map, const void* ptr, int b, int len, int heads, int hd, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
@@ -138,5 +139,13 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int b, int len, int head
 }
 
 constexpr int kErrTensorMap = 10001;  // returned when a tensor map cannot be encoded
+
+// hd rounded up to whole 64-dim boxes: the shared-memory tiles' and the
+// accumulators' dims (128 at hd 80, whose second box TMA fills with zeros
+// past dim 80, since the tensor map declares 80)
+template <int HD>
+__host__ __device__ constexpr int box_dims() {
+  return (HD + 63) / 64 * 64;
+}
 
 }  // namespace flash

@@ -1,7 +1,8 @@
 // The backward of flash_attention's long paths (every shape that is not
 // the short path's: T or S above 32, or a short shape whose slabs do not
 // fit): the gradients dQ, dK, dV of o = softmax(q k^T / sqrt(hd)) v,
-// causal or full, GQA, T != S, float32 or bfloat16, hd 16/32/64/128.
+// causal (optionally under a sliding window) or full, GQA, T != S,
+// float32 or bfloat16, hd 16/32/64/80/128.
 // qwen2-1.5b's training launch is here: B = 4, T = S = 4,096, H = 12
 // query heads over K = 2 kv heads of 128, bf16, causal.
 //
@@ -14,7 +15,8 @@
 // What it computes, per batch element, query head h and row i, with P
 // recomputed from the forward's row logsumexp (lse, float32, (B, H, T)):
 //   p_ij  = exp(scale * q_i . k_j - lse_i) over the visible keys, else 0
-//           (key j visible to row i iff j < S, and j <= i when causal)
+//           (key j visible to row i iff j < S, j <= i when causal, and
+//           i - j < window under a window)
 //   D_i   = dO_i . O_i
 //   dS_ij = p_ij (dO_i . v_j - D_i)
 //   dQ_i  = scale * sum_j dS_ij k_j
@@ -41,7 +43,7 @@
 // cost 5; that is the price of the fixed summation order.
 //
 // Two routes for passes 2 and 3, fixed by the dtype and head size:
-//   "wgmma" (bf16 at hd 64 or 128): the FlashAttention-3 backward (Shah
+//   "wgmma" (bf16 at hd 64, 80 or 128): the FlashAttention-3 backward (Shah
 //          et al., 2024) with its dQ atomics replaced by a pass of its
 //          own.  Only wgmma reaches the tensor cores' full rate, and they
 //          idle while a tile loads, so both passes are warp-specialised:
@@ -78,10 +80,19 @@
 //          around the special-function unit to it.
 //          Both passes start with their heaviest tiles (causal: the
 //          earliest key tiles, the latest query tiles), and their tile
-//          loops are bwd_first_qtile and bwd_key_tiles, which the .cu
-//          entry flash_attention_bwd_tiles reports.
+//          loops are row_tile_range and key_tile_range
+//          (flash_common.cuh), which the .cu entry
+//          flash_attention_bwd_tiles reports: under a window a dK/dV
+//          block stops at the last row that sees its keys and a dQ block
+//          starts at its first visible key tile, and only tiles that
+//          cross the window's lower edge take the masked loop.
+//          Head size 80 runs the hd-128 layout over tensor maps that
+//          declare 80 dims: TMA fills dims 80-127 with zeros, the score
+//          products take the 5 k-steps of the 80 dims, the dV, dK and dQ
+//          products both 64-dim boxes, and the epilogues store 80 dims.
 //   "simt" (the rest: float32, and bf16 at hd 16 or 32): the CUDA cores,
-//          a lane group of hd / 8 lanes per row holding 8 dims each, the
+//          a lane group of hd / 8 lanes per row (rounded up to a power of
+//          two: 16 at hd 80, 6 of them idle) holding 8 dims each, the
 //          other side staged 32 rows at a time into shared memory as
 //          float32; scores formed as the forward's simt path forms them
 //          (q scaled first, 8-dim partial products, xor shuffles).
@@ -104,12 +115,12 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kLongThreads)
 flash_bwd_kernel_rowdot(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dsum,
                         int n_rows, int t_len, int n_heads) {
-  constexpr int L = HD / kBwdDPL;
+  constexpr int L = group_lanes<HD>();  // lanes a row; the first HD / 8 hold its dims
   const int r = blockIdx.x * (kLongThreads / L) + threadIdx.x / L;
   const int sub = threadIdx.x % L;
   const bool ok = r < n_rows;
   float a[kBwdDPL], b[kBwdDPL];
-  if (ok) {
+  if (ok && sub < HD / kBwdDPL) {
     Io<T>::load8(o + (size_t)r * HD + sub * kBwdDPL, a);
     Io<T>::load8(dout + (size_t)r * HD + sub * kBwdDPL, b);
   } else {
@@ -129,35 +140,40 @@ __global__ void __launch_bounds__(kLongThreads)
 flash_bwd_kernel_simt_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ dsum, T* __restrict__ dq, int t_len, int s_len, int n_heads,
-                         int group, int kv_heads, int causal, float scale, int q_tiles) {
-  constexpr int L = HD / kBwdDPL;
-  constexpr int R = kLongThreads / L;  // query rows a block
+                         int group, int kv_heads, int causal, int window, float scale, int q_tiles) {
+  constexpr int LD = HD / kBwdDPL;      // chunks of 8 dims a row
+  constexpr int L = group_lanes<HD>();  // lanes a row, the last L - LD idle
+  constexpr int R = kLongThreads / L;   // query rows a block
   __shared__ __align__(16) float ks[kSimtRows * HD];
   __shared__ __align__(16) float vs[kSimtRows * HD];
   const int tile = blockIdx.x % q_tiles;
   const int bh = blockIdx.x / q_tiles;
   const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
   const int sub = threadIdx.x % L;
+  const bool lane_ok = sub < LD;  // idle lanes hold zeros and store nothing
+  const int sub_c = lane_ok ? sub : 0;
   const int i_raw = tile * R + threadIdx.x / L;
   const bool ok = i_raw < t_len;
   const int i = ok ? i_raw : t_len - 1;  // lanes past the last row compute on it and store nothing
-  const size_t off = (((size_t)b * t_len + i) * n_heads + h) * HD + sub * kBwdDPL;
+  const size_t off = (((size_t)b * t_len + i) * n_heads + h) * HD + sub_c * kBwdDPL;
   float qf[kBwdDPL], dof[kBwdDPL], acc[kBwdDPL];
-  Io<T>::load8(q + off, qf);
-  Io<T>::load8(dout + off, dof);
 #pragma unroll
-  for (int x = 0; x < kBwdDPL; ++x) {
-    qf[x] *= scale;
-    acc[x] = 0.f;
+  for (int x = 0; x < kBwdDPL; ++x) qf[x] = dof[x] = acc[x] = 0.f;
+  if (lane_ok) {
+    Io<T>::load8(q + off, qf);
+    Io<T>::load8(dout + off, dof);
   }
+#pragma unroll
+  for (int x = 0; x < kBwdDPL; ++x) qf[x] *= scale;
   const float lr = lse[(size_t)bh * t_len + i];
   const float dd = dsum[(size_t)bh * t_len + i];
-  const int t_last = min(t_len - 1, tile * R + R - 1);
-  const int kv_end = causal ? min(s_len, t_last + 1) : s_len;
-  for (int j0 = 0; j0 < kv_end; j0 += kSimtRows) {
+  int kt_first, kt_end;  // the key tiles the block's rows see
+  key_tile_range(tile * R, R, t_len, s_len, causal, window, kSimtRows, &kt_first, &kt_end);
+  const int kv_end = kt_end * kSimtRows < s_len ? kt_end * kSimtRows : s_len;
+  for (int j0 = kt_first * kSimtRows; j0 < kv_end; j0 += kSimtRows) {
     __syncthreads();  // every row is done with the previous tile
-    for (int c = threadIdx.x; c < kSimtRows * L; c += kLongThreads) {
-      const int jj = c / L, ch = c % L, j = j0 + jj;
+    for (int c = threadIdx.x; c < kSimtRows * LD; c += kLongThreads) {
+      const int jj = c / LD, ch = c % LD, j = j0 + jj;
       float kx[kBwdDPL], vx[kBwdDPL];
       if (j < s_len) {
         const size_t ko = (((size_t)b * s_len + j) * kv_heads + kh) * HD + ch * kBwdDPL;
@@ -174,18 +190,18 @@ flash_bwd_kernel_simt_dq(const T* __restrict__ q, const T* __restrict__ k, const
     const int n = min(kSimtRows, kv_end - j0);
     for (int jj = 0; jj < n; ++jj) {
       float kx[kBwdDPL], vx[kBwdDPL];
-      Io<float>::load8(ks + jj * HD + sub * kBwdDPL, kx);
-      Io<float>::load8(vs + jj * HD + sub * kBwdDPL, vx);
+      Io<float>::load8(ks + jj * HD + sub_c * kBwdDPL, kx);
+      Io<float>::load8(vs + jj * HD + sub_c * kBwdDPL, vx);
       const float sc = group_dot<L>(qf, kx);
       const float dp = group_dot<L>(dof, vx);
       const int j = j0 + jj;
-      const float p = (!causal || j <= i) ? expf(sc - lr) : 0.f;
+      const float p = visible(i, j, s_len, causal, window) ? expf(sc - lr) : 0.f;
       const float ds = p * (dp - dd);
 #pragma unroll
       for (int x = 0; x < kBwdDPL; ++x) acc[x] = fmaf(ds, kx[x], acc[x]);
     }
   }
-  if (ok) {
+  if (ok && lane_ok) {
 #pragma unroll
     for (int x = 0; x < kBwdDPL; ++x) acc[x] *= scale;
     Io<T>::store8(dq + off, acc);
@@ -198,9 +214,11 @@ __global__ void __launch_bounds__(kLongThreads)
 flash_bwd_kernel_simt_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                           const T* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int t_len,
-                          int s_len, int n_heads, int group, int kv_heads, int causal, float scale, int k_tiles) {
-  constexpr int L = HD / kBwdDPL;
-  constexpr int R = kLongThreads / L;  // keys a block
+                          int s_len, int n_heads, int group, int kv_heads, int causal, int window, float scale,
+                          int k_tiles) {
+  constexpr int LD = HD / kBwdDPL;      // chunks of 8 dims a row
+  constexpr int L = group_lanes<HD>();  // lanes a row, the last L - LD idle
+  constexpr int R = kLongThreads / L;   // keys a block
   __shared__ __align__(16) float qs[kSimtRows * HD];
   __shared__ __align__(16) float dos[kSimtRows * HD];
   __shared__ float ls[kSimtRows], dsm[kSimtRows];
@@ -208,23 +226,31 @@ flash_bwd_kernel_simt_dkv(const T* __restrict__ q, const T* __restrict__ k, cons
   const int bkh = blockIdx.x / k_tiles;
   const int b = bkh / kv_heads, kh = bkh % kv_heads;
   const int sub = threadIdx.x % L;
+  const bool lane_ok = sub < LD;  // idle lanes hold zeros and store nothing
+  const int sub_c = lane_ok ? sub : 0;
   const int j_raw = tile * R + threadIdx.x / L;
   const bool ok = j_raw < s_len;
   const int j = ok ? j_raw : s_len - 1;
-  const size_t off = (((size_t)b * s_len + j) * kv_heads + kh) * HD + sub * kBwdDPL;
+  const size_t off = (((size_t)b * s_len + j) * kv_heads + kh) * HD + sub_c * kBwdDPL;
   float kf[kBwdDPL], vf[kBwdDPL], dka[kBwdDPL], dva[kBwdDPL];
-  Io<T>::load8(k + off, kf);
-  Io<T>::load8(v + off, vf);
 #pragma unroll
-  for (int x = 0; x < kBwdDPL; ++x) dka[x] = dva[x] = 0.f;
-  const int i_begin = causal ? tile * R : 0;  // the first row that sees any of the block's keys
+  for (int x = 0; x < kBwdDPL; ++x) kf[x] = vf[x] = dka[x] = dva[x] = 0.f;
+  if (lane_ok) {
+    Io<T>::load8(k + off, kf);
+    Io<T>::load8(v + off, vf);
+  }
+  // the rows that see any of the block's keys: from its first key (causal)
+  // to its last key + window - 1
+  const int i_begin = causal ? tile * R : 0;
+  const int j_last = min(s_len, tile * R + R) - 1;
+  const int i_end = window > 0 && j_last + window < t_len ? j_last + window : t_len;
   for (int gi = 0; gi < group; ++gi) {
     const int h = kh * group + gi;
     const size_t bh = (size_t)b * n_heads + h;
-    for (int i0 = i_begin; i0 < t_len; i0 += kSimtRows) {
+    for (int i0 = i_begin; i0 < i_end; i0 += kSimtRows) {
       __syncthreads();  // every key is done with the previous rows
-      for (int c = threadIdx.x; c < kSimtRows * L; c += kLongThreads) {
-        const int ii = c / L, ch = c % L, i = i0 + ii;
+      for (int c = threadIdx.x; c < kSimtRows * LD; c += kLongThreads) {
+        const int ii = c / LD, ch = c % LD, i = i0 + ii;
         float qx[kBwdDPL], dx[kBwdDPL];
         if (i < t_len) {
           const size_t qo = (((size_t)b * t_len + i) * n_heads + h) * HD + ch * kBwdDPL;
@@ -243,16 +269,16 @@ flash_bwd_kernel_simt_dkv(const T* __restrict__ q, const T* __restrict__ k, cons
         dsm[c] = i < t_len ? dsum[bh * t_len + i] : 0.f;
       }
       __syncthreads();
-      const int n = min(kSimtRows, t_len - i0);
+      const int n = min(kSimtRows, i_end - i0);
       for (int ii = 0; ii < n; ++ii) {
         float qx[kBwdDPL], qsc[kBwdDPL], dx[kBwdDPL];
-        Io<float>::load8(qs + ii * HD + sub * kBwdDPL, qx);
-        Io<float>::load8(dos + ii * HD + sub * kBwdDPL, dx);
+        Io<float>::load8(qs + ii * HD + sub_c * kBwdDPL, qx);
+        Io<float>::load8(dos + ii * HD + sub_c * kBwdDPL, dx);
 #pragma unroll
         for (int x = 0; x < kBwdDPL; ++x) qsc[x] = qx[x] * scale;
         const float sc = group_dot<L>(qsc, kf);
         const float dp = group_dot<L>(dx, vf);
-        const float p = (!causal || j <= i0 + ii) ? expf(sc - ls[ii]) : 0.f;
+        const float p = visible(i0 + ii, j, s_len, causal, window) ? expf(sc - ls[ii]) : 0.f;
         const float ds = p * (dp - dsm[ii]);
 #pragma unroll
         for (int x = 0; x < kBwdDPL; ++x) {
@@ -262,7 +288,7 @@ flash_bwd_kernel_simt_dkv(const T* __restrict__ q, const T* __restrict__ k, cons
       }
     }
   }
-  if (ok) {
+  if (ok && lane_ok) {
 #pragma unroll
     for (int x = 0; x < kBwdDPL; ++x) dka[x] *= scale;
     Io<T>::store8(dk + off, dka);
@@ -280,23 +306,6 @@ constexpr int kRowTile = 128;     // query rows of a dQ block, 64 a consumer war
 constexpr int kKeyStage = 128;    // keys of a dQ ring stage
 constexpr int kStatFloats = 2 * kRowStage;  // a row tile's lse * log2(e), then its D
 
-__host__ __device__ inline int bwd_ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// the first 64-row query tile whose rows see a key of the 128-key tile kt;
-// every later tile sees one too; ceil(T / 64) (no tile) when none does
-__host__ __device__ inline int bwd_first_qtile(int kt, int t_len, int causal) {
-  if (!causal) return 0;
-  const int j0 = kt * kKeyTile;
-  return j0 < t_len ? j0 / kRowStage : bwd_ceil_div(t_len, kRowStage);
-}
-
-// how many 128-key tiles the rows of the 128-row query tile mt see; they
-// are the first ones
-__host__ __device__ inline int bwd_key_tiles(int mt, int t_len, int s_len, int causal) {
-  const int end = (mt + 1) * kRowTile < t_len ? (mt + 1) * kRowTile : t_len;  // past the tile's last row
-  const int n_keys = causal && end < s_len ? end : s_len;
-  return bwd_ceil_div(n_keys, kKeyStage);
-}
 
 // ---- wgmma route, pass 1: each row's lse * log2(e) and D = rowsum(dO * O),
 // (B, T, H, hd) rows -> (B, H, n_q, 2, 64) float32, rows past T zeros ----
@@ -305,14 +314,14 @@ __global__ void __launch_bounds__(kLongThreads)
 flash_bwd_kernel_rowdot_tiled(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse, float* __restrict__ stats, int n_rows, int t_len,
                               int n_heads, int n_q) {
-  constexpr int L = HD / kBwdDPL;
+  constexpr int L = group_lanes<HD>();  // lanes a row; the first HD / 8 hold its dims
   const int r = blockIdx.x * (kLongThreads / L) + threadIdx.x / L;  // over (B, n_q * 64, H)
   const int sub = threadIdx.x % L;
   const int t_pad = n_q * kRowStage;
   const int h = r % n_heads, i = (r / n_heads) % t_pad, e = r / (n_heads * t_pad);
   const bool in = r < n_rows && i < t_len;
   float a[kBwdDPL], b[kBwdDPL];
-  if (in) {
+  if (in && sub < HD / kBwdDPL) {
     const size_t off = (((size_t)e * t_len + i) * n_heads + h) * HD + sub * kBwdDPL;
     Io<__nv_bfloat16>::load8(o + off, a);
     Io<__nv_bfloat16>::load8(dout + off, b);
@@ -329,7 +338,8 @@ flash_bwd_kernel_rowdot_tiled(const __nv_bfloat16* __restrict__ o, const __nv_bf
   }
 }
 
-// acc (64 x N) = A B^T on the tensor cores, hd / 16 steps of m64nNk16:
+// acc (64 x N) = A B^T on the tensor cores, hd / 16 steps of m64nNk16 (5
+// at hd 80: the zero dims past 80 are not summed):
 // A the warpgroup's 64 rows (from row a_row0) of a K-major tile of a_rows
 // rows at a, B a K-major tile of N rows at bt (b_rows rows a box column)
 template <int HD, int N>
@@ -347,15 +357,16 @@ __device__ __forceinline__ void ss_products(float* acc, uint32_t a, int a_rows, 
   }
 }
 
-// acc (64 x hd) += A B on the tensor cores: A (64 x 16 KS) in registers as
-// KS k-steps of 16, B the first 16 KS rows of an MN-major tile of b_rows
-// rows at bt (8-row groups of 1024 bytes, a k-step two of them)
+// acc (64 x box_dims(hd)) += A B on the tensor cores: A (64 x 16 KS) in
+// registers as KS k-steps of 16, B the first 16 KS rows of an MN-major tile
+// of b_rows rows at bt (8-row groups of 1024 bytes, a k-step two of them);
+// at hd 80 the second box's dims past 80 are zeros and sum to zeros
 template <int HD, int KS>
 __device__ __forceinline__ void rs_products(float* acc, const uint32_t (*a)[4], uint32_t bt, int b_rows) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c)
+    for (int c = 0; c < box_dims<HD>() / 64; ++c)
       wgmma_rs_n64_tb(acc + 32 * c, a[kk], smem_desc(bt + c * b_rows * 128 + kk * 2048, 1024, 1024));
   }
 }
@@ -383,8 +394,8 @@ __device__ __forceinline__ float bwd_exp2(float x) {
 // Q, dO and row-stat stages, then the barriers; every tile 1024-aligned
 template <int HD>
 struct DkvSmem {
-  static constexpr int kKvBytes = kKeyTile * HD * 2;    // K or V
-  static constexpr int kRowBytes = kRowStage * HD * 2;  // a Q or dO stage
+  static constexpr int kKvBytes = kKeyTile * box_dims<HD>() * 2;    // K or V
+  static constexpr int kRowBytes = kRowStage * box_dims<HD>() * 2;  // a Q or dO stage
   static constexpr int kK = 0;
   static constexpr int kV = kKvBytes;
   static constexpr int kQ = 2 * kKvBytes;                       // stage st at kQ + st * kRowBytes
@@ -402,9 +413,10 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                            const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int t_len, int s_len, int n_heads, int group,
-                           int kv_heads, int causal, float scale, int n_bkh) {
+                           int kv_heads, int causal, int window, float scale, int n_bkh) {
   using L = DkvSmem<HD>;
-  constexpr int CB = HD / 64;  // 128-byte-wide boxes across hd
+  constexpr int HP = box_dims<HD>();  // the accumulators' dims: hd over whole boxes
+  constexpr int CB = HP / 64;         // 128-byte-wide boxes across hd
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -419,9 +431,10 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
   const int bkh = blockIdx.x % n_bkh;
   const int b = bkh / kv_heads, kh = bkh % kv_heads;
   const int j0 = kt * kKeyTile;
-  const int n_q = bwd_ceil_div(t_len, kRowStage);
-  const int q_first = bwd_first_qtile(kt, t_len, causal);
-  const int per_head = n_q - q_first;
+  const int n_q = ceil_div(t_len, kRowStage);
+  int q_first, q_end;  // the 64-row query tiles whose rows see the block's keys
+  row_tile_range(j0, kKeyTile, t_len, s_len, causal, window, kRowStage, &q_first, &q_end);
+  const int per_head = q_end - q_first;
   const int n_iters = group * per_head;  // (query head, query tile) stages, head-major
 
   if (threadIdx.x == 0) {
@@ -463,9 +476,9 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
     const int kw0 = j0 + 64 * cw;
     const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
     const float sl2 = scale * kLog2eBwd;
-    float dk_acc[HD / 2], dv_acc[HD / 2];
+    float dk_acc[HP / 2], dv_acc[HP / 2];
 #pragma unroll
-    for (int x = 0; x < HD / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+    for (int x = 0; x < HP / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
     // per stage, in two groups: S^T = K Q^T and dP^T = V dO^T (64 keys x
     // 64 rows each); P^T is formed while dP^T runs and dV += P^T dO while
     // dS^T is formed; then dK += dS^T Q
@@ -477,7 +490,8 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
       const int st = it % kBwdStages;
       const uint32_t qst = sq + st * L::kRowBytes, dost = sdo + st * L::kRowBytes;
       const float* stat = stat_ptr + st * kStatFloats;
-      const bool need_mask = i0 + kRowStage > t_len || kw0 + 64 > s_len || (causal && kw0 + 63 > i0);
+      const bool need_mask = i0 + kRowStage > t_len || kw0 + 64 > s_len || (causal && kw0 + 63 > i0) ||
+                             (window > 0 && i0 + 63 - kw0 >= window);
       mbar_wait(bar_full + 8 * st, (it / kBwdStages) & 1);
       wgmma_fence();
       ss_products<HD, 64>(s_acc, sk, kKeyTile, 64 * cw, qst, kRowStage);
@@ -503,14 +517,14 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
           for (int e = 0; e < 4; ++e) {
             const int idx = 4 * i + e;
             const int row = i0 + 8 * i + 2 * quad + (e & 1), key = key0 + 8 * (e >> 1);
-            const bool vis = row < t_len && key < s_len && (!causal || key <= row);
+            const bool vis = row < t_len && visible(row, key, s_len, causal, window);
             s_acc[idx] = vis ? bwd_exp2(s_acc[idx] * sl2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
           }
         }
       }
       pack_a<64>(s_acc, pa);  // P^T in bf16, the stage's rows as k
       wgmma_fence();
-      fence_regs<HD / 2>(dv_acc);
+      fence_regs<HP / 2>(dv_acc);
       rs_products<HD, 4>(dv_acc, pa, dost, kRowStage);  // dV += P^T dO, B MN-major
       wgmma_commit();
       wgmma_wait1();  // dP^T done
@@ -526,12 +540,12 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
       }
       pack_a<64>(p_acc, da);
       wgmma_fence();
-      fence_regs<HD / 2>(dk_acc);
+      fence_regs<HP / 2>(dk_acc);
       rs_products<HD, 4>(dk_acc, da, qst, kRowStage);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait0();
-      fence_regs<HD / 2>(dv_acc);
-      fence_regs<HD / 2>(dk_acc);
+      fence_regs<HP / 2>(dv_acc);
+      fence_regs<HP / 2>(dk_acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * st);
     }
@@ -546,6 +560,7 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
       for (int c = 0; c < CB; ++c) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (64 * c + 8 * i >= HD) continue;  // the zero dims past hd 80
           const int idx = 32 * c + 4 * i + 2 * r;
           const int d = 64 * c + 8 * i + 2 * quad;
           *reinterpret_cast<__nv_bfloat162*>(dk + o + d) =
@@ -561,8 +576,8 @@ flash_bwd_kernel_wgmma_dkv(const __grid_constant__ CUtensorMap tm_q, const __gri
 // ring's K and V stages, then the barriers; every tile 1024-aligned
 template <int HD>
 struct DqSmem {
-  static constexpr int kRowBytes = kRowTile * HD * 2;  // Q or dO
-  static constexpr int kKvBytes = kKeyStage * HD * 2;  // a K or V stage
+  static constexpr int kRowBytes = kRowTile * box_dims<HD>() * 2;  // Q or dO
+  static constexpr int kKvBytes = kKeyStage * box_dims<HD>() * 2;  // a K or V stage
   static constexpr int kQ = 0;
   static constexpr int kDo = kRowBytes;
   static constexpr int kK = 2 * kRowBytes;              // stage st at kK + st * kKvBytes
@@ -578,9 +593,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int t_len, int s_len,
-                          int n_heads, int group, int causal, float scale, int n_mtiles, int n_bh) {
+                          int n_heads, int group, int causal, int window, float scale, int n_mtiles, int n_bh) {
   using L = DqSmem<HD>;
-  constexpr int CB = HD / 64;
+  constexpr int HP = box_dims<HD>();
+  constexpr int CB = HP / 64;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base + L::kQ, sdo = base + L::kDo, sk = base + L::kK, sv = base + L::kV;
@@ -592,7 +608,9 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
   const int bh = blockIdx.x % n_bh;
   const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
   const int m0 = mt * kRowTile;
-  const int n_tiles = bwd_key_tiles(mt, t_len, s_len, causal);
+  int j_first, j_end;  // the 128-key tiles the block's rows see
+  key_tile_range(m0, kRowTile, t_len, s_len, causal, window, kKeyStage, &j_first, &j_end);
+  const int n_tiles = j_end - j_first;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -618,8 +636,10 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
         const uint32_t full = bar_full + 8 * st;
         mbar_expect_tx(full, 2 * L::kKvBytes);
         for (int c = 0; c < CB; ++c) {
-          tma_load_4d(sk + st * L::kKvBytes + c * kKeyStage * 128, &tm_k, full, c * 64, kh, j * kKeyStage, b);
-          tma_load_4d(sv + st * L::kKvBytes + c * kKeyStage * 128, &tm_v, full, c * 64, kh, j * kKeyStage, b);
+          tma_load_4d(sk + st * L::kKvBytes + c * kKeyStage * 128, &tm_k, full, c * 64, kh, (j_first + j) * kKeyStage,
+                      b);
+          tma_load_4d(sv + st * L::kKvBytes + c * kKeyStage * 128, &tm_v, full, c * 64, kh, (j_first + j) * kKeyStage,
+                      b);
         }
       }
     }
@@ -629,7 +649,7 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, quad = lane % 4;
     const int r0 = m0 + 64 * cw;
     const int row0 = r0 + 16 * warp + lane / 4;  // and row0 + 8
-    const int n_q = bwd_ceil_div(t_len, kRowStage);
+    const int n_q = ceil_div(t_len, kRowStage);
     const float sl2 = scale * kLog2eBwd;
     float lse2[2], dd[2];
 #pragma unroll
@@ -639,9 +659,9 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
       lse2[r] = row < t_len ? tile[0] : 0.f;
       dd[r] = row < t_len ? tile[kRowStage] : 0.f;
     }
-    float dq_acc[HD / 2];
+    float dq_acc[HP / 2];
 #pragma unroll
-    for (int x = 0; x < HD / 2; ++x) dq_acc[x] = 0.f;
+    for (int x = 0; x < HP / 2; ++x) dq_acc[x] = 0.f;
     // per key tile, in two groups: S = Q K^T and dP = dO V^T (64 rows x
     // 128 keys each); P is formed while dP runs; then dQ += dS K
     float s_acc[kKeyStage / 2], p_acc[kKeyStage / 2];
@@ -650,8 +670,9 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % kBwdStages;
       const uint32_t kst = sk + st * L::kKvBytes, vst = sv + st * L::kKvBytes;
-      const int kb = j * kKeyStage;
-      const bool need_mask = kb + kKeyStage > s_len || r0 + 64 > t_len || (causal && kb + kKeyStage - 1 > r0);
+      const int kb = (j_first + j) * kKeyStage;
+      const bool need_mask = kb + kKeyStage > s_len || r0 + 64 > t_len || (causal && kb + kKeyStage - 1 > r0) ||
+                             (window > 0 && r0 + 63 - kb >= window);
       mbar_wait(bar_full + 8 * st, (j / kBwdStages) & 1);
       wgmma_fence();
       ss_products<HD, kKeyStage>(s_acc, sq, kRowTile, 64 * cw, kst, kKeyStage);
@@ -672,7 +693,7 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
           for (int e = 0; e < 4; ++e) {
             const int idx = 4 * i + e;
             const int key = kb + 8 * i + 2 * quad + (e & 1), row = row0 + 8 * (e >> 1);
-            const bool vis = row < t_len && key < s_len && (!causal || key <= row);
+            const bool vis = row < t_len && visible(row, key, s_len, causal, window);
             s_acc[idx] = vis ? bwd_exp2(s_acc[idx] * sl2 - lse2[e >> 1]) : 0.f;
           }
         }
@@ -683,11 +704,11 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
       for (int idx = 0; idx < kKeyStage / 2; ++idx) s_acc[idx] *= p_acc[idx] - dd[(idx >> 1) & 1];  // dS
       pack_a<kKeyStage>(s_acc, da);
       wgmma_fence();
-      fence_regs<HD / 2>(dq_acc);
+      fence_regs<HP / 2>(dq_acc);
       rs_products<HD, kKeyStage / 16>(dq_acc, da, kst, kKeyStage);  // dQ += dS K, K MN-major
       wgmma_commit();
       wgmma_wait0();
-      fence_regs<HD / 2>(dq_acc);
+      fence_regs<HP / 2>(dq_acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * st);
     }
@@ -702,6 +723,7 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
       for (int c = 0; c < CB; ++c) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (64 * c + 8 * i >= HD) continue;  // the zero dims past hd 80
           const int idx = 32 * c + 4 * i + 2 * r;
           *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * i + 2 * quad) =
               __floats2bfloat162_rn(dq_acc[idx] * scale, dq_acc[idx + 1] * scale);
@@ -711,18 +733,18 @@ flash_bwd_kernel_wgmma_dq(const __grid_constant__ CUtensorMap tm_q, const __grid
   }
 }
 
-// the route of a long backward: true for the tensor cores (bf16 at hd 64
-// or 128), false for the CUDA cores
+// the route of a long backward: true for the tensor cores (bf16 at hd 64,
+// 80 or 128), false for the CUDA cores
 template <typename T, int HD>
 constexpr bool long_bwd_wgmma() {
-  return std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
+  return std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 80 || HD == 128);
 }
 
 // the wgmma route's three kernels on stream st
 template <int HD>
 int launch_long_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                           const float* lse, void* dq, void* dk, void* dv, float* stats, int b, int t, int s, int h,
-                          int kvh, int causal, float scale, cudaStream_t st) {
+                          int kvh, int causal, int window, float scale, cudaStream_t st) {
   using B16 = __nv_bfloat16;
   CUtensorMap q_rows, do_rows, k_keys, v_keys;  // pass 3: 64-row stages, the block's 128 keys
   CUtensorMap q_tile, do_tile, k_stage, v_stage;  // pass 2: the block's 128 rows, 64-key stages
@@ -732,8 +754,8 @@ int launch_long_bwd_wgmma(const void* q, const void* k, const void* v, const voi
       !make_map(&k_stage, k, b, s, kvh, HD, kKeyStage) || !make_map(&v_stage, v, b, s, kvh, HD, kKeyStage)) {
     return kErrTensorMap;
   }
-  constexpr int L = HD / kBwdDPL;
-  const int n_q = bwd_ceil_div(t, kRowStage);
+  constexpr int L = group_lanes<HD>();
+  const int n_q = ceil_div(t, kRowStage);
   const long long n_rows = (long long)b * n_q * kRowStage * h;
   const int rpb = kLongThreads / L;
   flash_bwd_kernel_rowdot_tiled<HD><<<(unsigned)((n_rows + rpb - 1) / rpb), kLongThreads, 0, st>>>(
@@ -747,12 +769,13 @@ int launch_long_bwd_wgmma(const void* q, const void* k, const void* v, const voi
     return (int)err;
   if ((err = cudaFuncSetAttribute(kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv)) != cudaSuccess)
     return (int)err;
-  const int n_mtiles = bwd_ceil_div(t, kRowTile), n_ktiles = bwd_ceil_div(s, kKeyTile);
+  const int n_mtiles = ceil_div(t, kRowTile), n_ktiles = ceil_div(s, kKeyTile);
   kdq<<<(unsigned)((long long)n_mtiles * b * h), kBwdThreads, smem_dq, st>>>(
-      q_tile, k_stage, v_stage, do_tile, stats, (B16*)dq, t, s, h, h / kvh, causal, scale, n_mtiles, b * h);
+      q_tile, k_stage, v_stage, do_tile, stats, (B16*)dq, t, s, h, h / kvh, causal, window, scale, n_mtiles, b * h);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   kdkv<<<(unsigned)((long long)n_ktiles * b * kvh), kBwdThreads, smem_dkv, st>>>(
-      q_rows, k_keys, v_keys, do_rows, stats, (B16*)dk, (B16*)dv, t, s, h, h / kvh, kvh, causal, scale, b * kvh);
+      q_rows, k_keys, v_keys, do_rows, stats, (B16*)dk, (B16*)dv, t, s, h, h / kvh, kvh, causal, window, scale,
+      b * kvh);
   return (int)cudaGetLastError();
 }
 
@@ -763,11 +786,12 @@ int launch_long_bwd_wgmma(const void* q, const void* k, const void* v, const voi
 template <typename T, int HD>
 int launch_long_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* dsum, int b, int t, int s, int h, int kvh, int causal,
-                    float scale, cudaStream_t st) {
+                    int window, float scale, cudaStream_t st) {
   if constexpr (long_bwd_wgmma<T, HD>()) {
-    return launch_long_bwd_wgmma<HD>(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, scale, st);
+    return launch_long_bwd_wgmma<HD>(q, k, v, o, dout, lse, dq, dk, dv, dsum, b, t, s, h, kvh, causal, window, scale,
+                                     st);
   } else {
-    constexpr int L = HD / kBwdDPL;
+    constexpr int L = group_lanes<HD>();
     const int g = h / kvh;
     const int n_rows = b * t * h;
     const int rpb = kLongThreads / L;
@@ -778,12 +802,12 @@ int launch_long_bwd(const void* q, const void* k, const void* v, const void* o, 
     const int r = kLongThreads / L;
     const int q_tiles = (t + r - 1) / r, k_tiles = (s + r - 1) / r;
     flash_bwd_kernel_simt_dq<T, HD><<<(unsigned)((long long)q_tiles * b * h), kLongThreads, 0, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq, t, s, h, g, kvh, causal, scale,
-        q_tiles);
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq, t, s, h, g, kvh, causal, window,
+        scale, q_tiles);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     flash_bwd_kernel_simt_dkv<T, HD><<<(unsigned)((long long)k_tiles * b * kvh), kLongThreads, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv, t, s, h, g, kvh, causal,
-        scale, k_tiles);
+        window, scale, k_tiles);
     return (int)cudaGetLastError();
   }
 }

@@ -24,7 +24,9 @@
 // fastest at FraudGT's shape, 4 and 8 slower; tools/flash_variants.py,
 // PERF.md), and a score is two interleaved half-sums, so that its product
 // chain is half as deep.  The arithmetic is the Pallas body's with the
-// whole key range as one tile: q scaled first, masked scores NEG,
+// whole key range as one tile: q scaled first, masked scores NEG (the
+// causal mask and a sliding window: keys S and up never, and key j of row
+// i only if j <= i and i - j < window),
 // probabilities of scores <= NEG / 2 zeroed, sums in float32, the output
 // acc / max(l, 1e-30) in q's type.
 //
@@ -68,7 +70,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kShortMaxThreads)
 flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ o, float* __restrict__ lse, int n_b, int t_len, int s_len,
-                       int n_heads, int group, int kv_heads, int causal, float scale, int stages) {
+                       int n_heads, int group, int kv_heads, int causal, int window, float scale, int stages) {
   constexpr int G = HD / kShortDPL;  // lanes per row
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -142,7 +144,7 @@ flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
           float d = d0 + d1;
 #pragma unroll
           for (int off = G / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-          sc[j] = (j < s_len && (!causal || j <= t)) ? d : kNeg;
+          sc[j] = visible(t, j, s_len, causal, window) ? d : kNeg;
           m = fmaxf(m, sc[j]);
         }
       }
@@ -181,7 +183,7 @@ flash_fwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
 
 template <typename T, int HD>
 int launch_short(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s,
-                 int h, int kvh, int causal, float scale, cudaStream_t st) {
+                 int h, int kvh, int causal, int window, float scale, cudaStream_t st) {
   const long long stage = short_stage_bytes(t, s, h, kvh, HD, (int)sizeof(T));
   const int stages = (int)((kSmemMax - kShortHeader) / stage) < kShortStages
                          ? (int)((kSmemMax - kShortHeader) / stage)
@@ -212,7 +214,7 @@ int launch_short(const void* q, const void* k, const void* v, void* o, float* ls
   }
   const int grid = (int)(b < resident ? b : resident);
   kern<<<grid, threads, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, b, t, s, h, h / kvh,
-                                     kvh, causal, scale, stages);
+                                     kvh, causal, window, scale, stages);
   return (int)cudaGetLastError();
 }
 

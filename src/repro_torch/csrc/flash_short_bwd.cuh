@@ -1,6 +1,8 @@
 // The backward of flash_attention's short path (flash_short.cuh): the
 // gradients dQ, dK, dV of o = softmax(q k^T / sqrt(hd)) v for T <= 32 and
-// S <= 32, causal or full, GQA, float32 or bfloat16.  FraudGT's training
+// S <= 32, causal (optionally under a sliding window: the visible keys
+// of row i are max(0, i - window + 1) .. i) or full, GQA, float32 or
+// bfloat16, hd 16, 32, 64 or 128.  FraudGT's training
 // shape is here: B = 256 edges, T = S = 17, H = K = 8, hd 16, float32,
 // causal.
 //
@@ -205,7 +207,8 @@ __global__ void __launch_bounds__(kRingMaxThreads)
 flash_bwd_kernel_ring(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
                       T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int n_b, int t_len, int s_len,
-                      int n_heads, int group, int kv_heads, int causal, float scale, int stages, int lse_bulk) {
+                      int n_heads, int group, int kv_heads, int causal, int window, float scale, int stages,
+                      int lse_bulk) {
   constexpr int L = ring_lanes(HD);  // lanes per row
   constexpr int NC = HD / (4 * L);   // chunks of 4 dims a lane holds
   constexpr int N = 4 * NC;          // dims a lane holds
@@ -294,8 +297,9 @@ flash_bwd_kernel_ring(const T* __restrict__ q, const T* __restrict__ k, const T*
       }
       const float lr = lses[h * t_len + i];
       const int n_keys = causal ? min(i + 1, s_len) : s_len;
+      const int j_first = window > 0 && i - window + 1 > 0 ? i - window + 1 : 0;  // the window's first key
       float2* prow = pds + r * ld;
-      for (int j = 0; j < n_keys; ++j) {
+      for (int j = j_first; j < n_keys; ++j) {
         float kf[N], vf[N];
         load_lane<T, L, NC>(ks + (j * kv_heads + kh) * HD, sub, kf);
         load_lane<T, L, NC>(vs + (j * kv_heads + kh) * HD, sub, vf);
@@ -321,12 +325,13 @@ flash_bwd_kernel_ring(const T* __restrict__ q, const T* __restrict__ k, const T*
       const int j = cs / kv_heads, kh = cs % kv_heads;
       const int c = j * kv_heads + kh;  // the key row in the slabs
       const int i_first = causal ? j : 0;
+      const int i_last = window > 0 && j + window - 1 < t_len - 1 ? j + window - 1 : t_len - 1;  // its last row
       float dka[N], dva[N];
 #pragma unroll
       for (int x = 0; x < N; ++x) dka[x] = dva[x] = 0.f;
       for (int g = 0; g < group; ++g) {
         const int h = kh * group + g;
-        for (int i = t_len - 1; i >= i_first; --i) {
+        for (int i = i_last; i >= i_first; --i) {
           const int r = i * n_heads + h;
           const float2 pd = pds[r * ld + j];  // (p, dS)
           float qf[N], dof[N];
@@ -382,8 +387,8 @@ int ring_config(int t, int s, int h, int kvh, int stages, int* threads, size_t* 
 
 template <typename T, int HD>
 int launch_ring_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-                    void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh, int causal, float scale,
-                    int stages, cudaStream_t st) {
+                    void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh, int causal, int window,
+                    float scale, int stages, cudaStream_t st) {
   int threads = 0;
   size_t smem = 0;
   long long resident = 0;
@@ -393,7 +398,7 @@ int launch_ring_bwd(const void* q, const void* k, const void* v, const void* o, 
   const int lse_bulk = (h * t) % 4 == 0 && reinterpret_cast<uintptr_t>(lse) % 16 == 0;
   flash_bwd_kernel_ring<T, HD><<<grid, threads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, (T*)dq, (T*)dk, (T*)dv, b, t, s, h,
-      h / kvh, kvh, causal, scale, stages, lse_bulk);
+      h / kvh, kvh, causal, window, scale, stages, lse_bulk);
   return (int)cudaGetLastError();
 }
 
@@ -458,7 +463,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
 flash_bwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
                        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int t_len, int s_len,
-                       int n_heads, int group, int kv_heads, int causal, float scale, int hc) {
+                       int n_heads, int group, int kv_heads, int causal, int window, float scale, int hc) {
   constexpr int L = HD / kBwdDPL;  // lanes per row
   extern __shared__ __align__(16) float sm[];
   const int e = blockIdx.x;
@@ -536,7 +541,7 @@ flash_bwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
         Io<float>::load8(vs + (kk * s_len + j) * HD + sub * kBwdDPL, vf);
         const float sc = group_dot<L>(qf, kf);
         const float dp = group_dot<L>(dof, vf);
-        const float p = (!causal || j <= i) ? expf(sc - lr) : 0.f;
+        const float p = visible(i, j, s_len, causal, window) ? expf(sc - lr) : 0.f;
         const float dsij = p * (dp - dd);
 #pragma unroll
         for (int x = 0; x < kBwdDPL; ++x) acc[x] = fmaf(dsij, kf[x], acc[x]);
@@ -576,7 +581,7 @@ flash_bwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
           for (int x = 0; x < kBwdDPL; ++x) qsc[x] = qf[x] * scale;
           const float sc = group_dot<L>(qsc, kf);
           const float dp = group_dot<L>(dof, vf);
-          const float p = (!causal || j <= i) ? expf(sc - lses[r]) : 0.f;
+          const float p = visible(i, j, s_len, causal, window) ? expf(sc - lses[r]) : 0.f;
           const float dsij = p * (dp - ds[r]);
 #pragma unroll
           for (int x = 0; x < kBwdDPL; ++x) {
@@ -614,7 +619,7 @@ flash_bwd_kernel_short(const T* __restrict__ q, const T* __restrict__ k, const T
 template <typename T, int HD>
 int launch_chunked_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                        const float* lse, void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh,
-                       int causal, float scale, cudaStream_t st) {
+                       int causal, int window, float scale, cudaStream_t st) {
   constexpr int L = HD / kBwdDPL;
   const int hc = bwd_chunk_heads(t, s, h, kvh, HD);
   if (hc == 0) return (int)cudaErrorInvalidConfiguration;
@@ -633,7 +638,7 @@ int launch_chunked_bwd(const void* q, const void* k, const void* v, const void* 
     smem_set.store(smem, std::memory_order_relaxed);
   }
   kern<<<b, threads, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse, (T*)dq,
-                                 (T*)dk, (T*)dv, t, s, h, g, kvh, causal, scale, hc);
+                                 (T*)dk, (T*)dv, t, s, h, g, kvh, causal, window, scale, hc);
   return (int)cudaGetLastError();
 }
 
@@ -641,11 +646,12 @@ int launch_chunked_bwd(const void* q, const void* k, const void* v, const void* 
 template <typename T, int HD>
 int launch_short_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                      const float* lse, void* dq, void* dk, void* dv, int b, int t, int s, int h, int kvh,
-                     int causal, float scale, cudaStream_t st) {
+                     int causal, int window, float scale, cudaStream_t st) {
   const int stages = ring_stages(t, s, h, kvh, HD, (int)sizeof(T));
   if (stages > 0)
-    return launch_ring_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, stages, st);
-  return launch_chunked_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, scale, st);
+    return launch_ring_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, window, scale, stages,
+                                  st);
+  return launch_chunked_bwd<T, HD>(q, k, v, o, dout, lse, dq, dk, dv, b, t, s, h, kvh, causal, window, scale, st);
 }
 
 }  // namespace flash

@@ -1,5 +1,5 @@
 // Path B of flash_attention.cu: long bfloat16 sequences on the tensor
-// cores, at hd 64 or 128 (an FA3-shaped forward).
+// cores, at hd 64, 80 or 128 (an FA3-shaped forward).
 //
 // Bound: the operations, 4 * hd flops per visible (row, key) pair against
 // the tensor cores' bf16 peak (989 TFLOP/s on an H100 SXM); only wgmma
@@ -25,8 +25,18 @@
 //     operand layout of the next product, so no shared memory is used;
 //   - O += P V by wgmma with P from registers and V MN-major from shared
 //     memory (m64n64k16, one per 64 dims of hd), then releases the stage.
-// Causal blocks stop at the last key tile their last row sees; only tiles
-// that cross the diagonal or the end of S are masked.  The score scale is
+// Causal blocks stop at the last key tile their last row sees, and under
+// a sliding window start at the tile that holds their first row's first
+// key (first row - window + 1): at zamba2's and mixtral's prefill (T =
+// 32,768, window 4,096) a block visits at most 33 of up to 256 tiles
+// (key_tile_range, reported by the .cu's flash_attention_fwd_tiles).
+// Only tiles that cross the diagonal, the end of S or the window's lower
+// edge are masked.
+// Head size 80 (zamba2-2.7b's) runs the hd-128 layout: its tensor maps
+// declare 80 dims, so TMA fills dims 80-127 of the second 64-dim box
+// with zeros, which add nothing to the scores or the sums; S = Q K^T takes
+// the 5 k-steps of the 80 dims, O += P V both boxes (1.6 x the products
+// needed there), and the epilogue stores the 80 dims.  The score scale is
 // applied to the float32 scores rather than to q (scaling the bf16 q in
 // place would round it again); the two agree to float32 rounding.  Blocks
 // start with the heaviest query tiles, so that the causal tail is short.
@@ -51,9 +61,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct WgSmem {
-  static constexpr int kColBlocks = HD / 64;           // 128-byte-wide boxes across hd
-  static constexpr int kQBytes = kBM * HD * 2;
-  static constexpr int kTileBytes = kBN * HD * 2;      // one K or V tile
+  static constexpr int kColBlocks = box_dims<HD>() / 64;  // 128-byte-wide boxes across hd
+  static constexpr int kQBytes = kBM * box_dims<HD>() * 2;
+  static constexpr int kTileBytes = kBN * box_dims<HD>() * 2;  // one K or V tile
   static constexpr int kBarOff = kQBytes + 2 * kWgStages * kTileBytes;
   static constexpr int kBytes = kBarOff + 64 + 1024;   // barriers, and room to align the base to 1024
 };
@@ -63,8 +73,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int t_len,
-                       int s_len, int n_heads, int group, int causal, float scale_log2, int n_mtiles, int n_bh) {
+                       int s_len, int n_heads, int group, int causal, int window, float scale_log2, int n_mtiles,
+                       int n_bh) {
   using L = WgSmem<HD>;
+  constexpr int HP = box_dims<HD>();  // the accumulator's dims: hd over whole boxes
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;
@@ -78,8 +90,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
   const int bh = blockIdx.x % n_bh;
   const int b = bh / n_heads, h = bh % n_heads, kh = h / group;
   const int m0 = m_tile * kBM;
-  const int n_keys = causal ? min(s_len, m0 + kBM) : s_len;
-  const int n_tiles = (n_keys + kBN - 1) / kBN;
+  int j_first, j_end;  // the key tiles the block's rows see
+  key_tile_range(m0, kBM, t_len, s_len, causal, window, kBN, &j_first, &j_end);
+  const int n_tiles = j_end - j_first;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -98,11 +111,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       for (int c = 0; c < L::kColBlocks; ++c) tma_load_4d(sq + c * kBM * 128, &tm_q, bar_q, c * 64, h, m0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kWgStages;
+        const int kb = (j_first + j) * kBN;
         if (j >= kWgStages) mbar_wait(bar_empty + 8 * st, ((j / kWgStages) - 1) & 1);
         mbar_expect_tx(bar_full + 8 * st, 2 * L::kTileBytes);
         for (int c = 0; c < L::kColBlocks; ++c) {
-          tma_load_4d(sk + st * L::kTileBytes + c * kBN * 128, &tm_k, bar_full + 8 * st, c * 64, kh, j * kBN, b);
-          tma_load_4d(sv + st * L::kTileBytes + c * kBN * 128, &tm_v, bar_full + 8 * st, c * 64, kh, j * kBN, b);
+          tma_load_4d(sk + st * L::kTileBytes + c * kBN * 128, &tm_k, bar_full + 8 * st, c * 64, kh, kb, b);
+          tma_load_4d(sv + st * L::kTileBytes + c * kBN * 128, &tm_v, bar_full + 8 * st, c * 64, kh, kb, b);
         }
       }
     }
@@ -114,9 +128,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
   const int quad = lane % 4;
   const int row0 = m0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and row0 + 8
   const int wg_first_row = m0 + 64 * wg;
-  float o_acc[HD / 2];
+  float o_acc[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < HP / 2; ++i) o_acc[i] = 0.f;
   float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
@@ -138,9 +152,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     wgmma_wait0();
     fence_regs<kBN / 2>(s_acc);
 
-    // scores in base 2; mask where the tile crosses the diagonal or S
-    const int kb = j * kBN;
-    const bool need_mask = kb + kBN > s_len || (causal && kb + kBN - 1 > wg_first_row);
+    // scores in base 2; mask where the tile crosses the diagonal, S or
+    // the window's lower edge (the warpgroup's last row, 63 past its
+    // first, sees no key below its own minus window - 1)
+    const int kb = (j_first + j) * kBN;
+    const bool need_mask = kb + kBN > s_len || (causal && kb + kBN - 1 > wg_first_row) ||
+                           (window > 0 && wg_first_row + 63 - kb >= window);
     float m_new[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i) {
@@ -151,7 +168,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
         if (need_mask) {
           const int key = kb + 8 * i + 2 * quad + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          if (key >= s_len || (causal && key > row)) sv2 = kNeg;
+          if (!visible(row, key, s_len, causal, window)) sv2 = kNeg;
         }
         s_acc[idx] = sv2;
         m_new[e >> 1] = fmaxf(m_new[e >> 1], sv2);
@@ -177,7 +194,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       }
     }
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < HP / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o_acc[4 * i + e] *= alpha[e >> 1];
     }
@@ -191,7 +208,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       pa[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
     }
     wgmma_fence();
-    fence_regs<HD / 2>(o_acc);
+    fence_regs<HP / 2>(o_acc);
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
@@ -203,7 +220,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     }
     wgmma_commit();
     wgmma_wait0();
-    fence_regs<HD / 2>(o_acc);
+    fence_regs<HP / 2>(o_acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_empty + 8 * st);
   }
@@ -229,6 +246,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       for (int c = 0; c < L::kColBlocks; ++c) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (64 * c + 8 * i >= HD) continue;  // the zero dims past hd 80
           const int idx = 32 * c + 4 * i + 2 * r;
           *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * i + 2 * quad) =
               __floats2bfloat162_rn(o_acc[idx] * l_r[r], o_acc[idx + 1] * l_r[r]);
@@ -240,7 +258,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_co
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int s, int h, int kvh,
-                 int causal, float scale, cudaStream_t st) {
+                 int causal, int window, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, b, t, h, HD, kBM) || !make_map(&tk, k, b, s, kvh, HD, kBN) ||
       !make_map(&tv, v, b, s, kvh, HD, kBN)) {
@@ -253,7 +271,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   const int n_mtiles = (t + kBM - 1) / kBM;
   const long long blocks = (long long)n_mtiles * b * h;
   kern<<<(unsigned)blocks, kWgThreads, smem, st>>>(tq, tk, tv, (__nv_bfloat16*)o, lse, t, s, h, h / kvh, causal,
-                                                   scale * kLog2e, n_mtiles, b * h);
+                                                   window, scale * kLog2e, n_mtiles, b * h);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@ of the param layout), the batch over data.  The gradients are
 reduce-scattered to the moments' layout, the update runs on each rank's
 shards with the gradient norm reduced over the mesh, and the new params
 are all-gathered back to their layout.  The reference's dry-run lowering
-(``launch/dryrun.py``) is not ported (ROADMAP A12c).
+has its counterpart in :mod:`repro_torch.launch.dryrun`, a trace of the
+same step on ``meta`` tensors.
 
 On the card every layer's attention runs through the hand-written
 ``flash_attention`` kernels both ways (``loss_fn``'s default

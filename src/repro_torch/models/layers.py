@@ -23,10 +23,10 @@ backward is the hand-written backward kernel at every shape (the short
 path's for T, S <= 32, the long backward otherwise); the torch backend is
 differentiated by autograd, as the reference's train step differentiates
 ``_sdpa``.  The kernel never forms the
-score matrix, so it needs no query chunks.  It has no window: a sliding
-window that masks something (T > ``attn_window``) raises on the kernel
-backend (ROADMAP A15); at T <= window the mask is the causal one and the
-kernel runs.  Decode (``attn_decode``) is torch ops on both backends, as
+score matrix, so it needs no query chunks.  A sliding window
+(``cfg.attn_window``) goes to the kernel as its ``window``, the
+reference's mask (key j visible to row i iff j <= i and i - j < window),
+and the kernel skips the key tiles outside it.  Decode (``attn_decode``) is torch ops on both backends, as
 the reference's is XLA: one query against the cache.
 
 Under a mesh (:mod:`repro_torch.distributed.ctx`) the same functions take
@@ -203,17 +203,12 @@ def attn_apply(p, x, cfg: ModelConfig, positions=None, backend: str = "kernel"):
         raise ValueError(f"attention backend {backend!r}; options: {BACKENDS}")
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if backend == "kernel" and cfg.attn_window is not None and t > cfg.attn_window:
-        raise NotImplementedError(
-            f"flash_attention has no sliding window (ROADMAP A15): {cfg.name} has attn_window="
-            f"{cfg.attn_window} < T = {t}; use attn_backend='torch'"
-        )
     if positions is None:
         positions = ctx.replicate_like(x, torch.arange(t, dtype=torch.int32, device=x.device)[None, :].expand(b, t))
     q, k, v = _qkv(p, x, cfg, positions)
     if backend == "kernel":
         attend = _mesh_attention if ctx.is_dtensor(q) else _kernel_attention
-        return ctx.reshape(attend(q, k, v), (b, t, h * hd)) @ p["wo"].to(x.dtype)
+        return ctx.reshape(attend(q, k, v, cfg.attn_window), (b, t, h * hd)) @ p["wo"].to(x.dtype)
     q = ctx.reshape(q, (b, t, kv, h // kv, hd))
     j = torch.arange(t, device=x.device)[None, :]
     mask = lambda rows: ctx.replicate_like(q, _window_mask(j.T[rows], j, cfg))
@@ -228,16 +223,17 @@ def attn_apply(p, x, cfg: ModelConfig, positions=None, backend: str = "kernel"):
     return ctx.reshape(out, (b, t, h * hd)) @ p["wo"].to(x.dtype)
 
 
-def _kernel_attention(q, k, v):
-    """Causal attention through the hand-written kernels: under autograd
-    (grad enabled and an input that requires it) :class:`FlashAttentionFn`,
-    whose forward writes the logsumexp that its backward kernel takes."""
+def _kernel_attention(q, k, v, window=None):
+    """Causal attention, over a sliding ``window`` where one is given,
+    through the hand-written kernels: under autograd (grad enabled and an
+    input that requires it) :class:`FlashAttentionFn`, whose forward writes
+    the logsumexp that its backward kernel takes."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return fa_ops.FlashAttentionFn.apply(q, k, v, True)
-    return fa_ops.flash_attention(q, k, v, causal=True)
+        return fa_ops.FlashAttentionFn.apply(q, k, v, True, window)
+    return fa_ops.flash_attention(q, k, v, causal=True, window=window)
 
 
-def _mesh_attention(q, k, v):
+def _mesh_attention(q, k, v, window=None):
     """The kernel attention on DTensors q (B,T,H,hd), k/v (B,T,K,hd):
     ``local_map`` hands each rank its batch rows (Shard over the data axes
     when B divides) and its heads (Shard over model when both H and K
@@ -262,8 +258,8 @@ def _mesh_attention(q, k, v):
             pl.append(Shard(2))
         else:
             pl.append(Replicate())
-    fn = local_map(_kernel_attention, out_placements=pl, in_placements=(pl, pl, pl), device_mesh=mesh,
-                   redistribute_inputs=True)
+    fn = local_map(lambda q_, k_, v_: _kernel_attention(q_, k_, v_, window), out_placements=pl,
+                   in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
     return fn(q, k, v)
 
 

@@ -918,3 +918,119 @@ def test_lm_prefill_at_qwen2_widths_runs_the_wgmma_path(cuda):
     # close, and mostly the same next token
     assert float((lg.float() - lt.float()).abs().max()) < 0.5
     assert float((lg.argmax(-1) == lt.argmax(-1)).float().mean()) > 0.5
+
+
+# A sliding window on every path and route, forward and backward, and head
+# size 80 (zamba2-2.7b's) in bf16 (wgmma) and float32 (simt); each (B, T,
+# S, H, K, hd, window, dtype, path) with the path plan names.  Windows
+# below T, at T and above T; the short path on its ring and chunked
+# routes; T > S where every row still sees a key; GQA.
+WINDOW_CASES = [
+    (64, 17, 17, 8, 2, 16, 5, "float32", "short"),
+    (64, 32, 32, 4, 4, 64, 32, "bfloat16", "short"),
+    (64, 20, 12, 8, 2, 32, 40, "float32", "short"),
+    (20, 32, 32, 8, 8, 16, 9, "float32", "short"),  # the short backward's chunked route
+    (2, 300, 300, 4, 2, 32, 64, "float32", "simt"),
+    (1, 257, 257, 4, 1, 16, 257, "bfloat16", "simt"),
+    (1, 300, 200, 4, 2, 64, 500, "float32", "simt"),
+    (1, 1000, 1000, 8, 2, 128, 200, "bfloat16", "wgmma"),
+    (2, 600, 600, 4, 4, 64, 129, "bfloat16", "wgmma"),
+    (1, 4096, 4096, 4, 1, 128, 4096, "bfloat16", "wgmma"),
+    (1, 700, 500, 4, 2, 64, 1000, "bfloat16", "wgmma"),
+    (1, 2048, 2048, 4, 4, 80, 333, "bfloat16", "wgmma"),
+    (1, 200, 200, 4, 2, 80, 50, "float32", "simt"),
+    (1, 1000, 1000, 2, 2, 80, None, "bfloat16", "wgmma"),
+    (1, 300, 300, 2, 1, 80, None, "float32", "simt"),
+    (3, 33, 33, 2, 2, 80, None, "float32", "simt"),
+    (5, 17, 17, 4, 4, 80, 8, "bfloat16", "wgmma"),
+]
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,window,dtype,path", WINDOW_CASES)
+def test_flash_attention_window_and_hd80_match_plain(cuda, b, t, s, h, kvh, hd, window, dtype, path):
+    """The forward kernel within the dtype's tolerance of its plain version
+    (its logsumexp within 1e-5, 1e-4 in bf16), and the backward kernel on
+    the forward's o and lse within 1e-5 (float32) or 2e-2 relative and
+    absolute (bf16) of its plain version, bit-identical across two
+    launches; plan and bwd_plan equal the .cu's choices."""
+    q, k, v, do = _bwd_case(b, t, s, h, kvh, hd, dtype, b + t + s + hd, cuda)
+    assert fa_ops.plan(b, t, s, h, kvh, hd, q.dtype, True) == path
+    assert fa_ops.kernel_plan(b, t, s, h, kvh, hd, q.dtype, True) == path
+    assert fa_ops.kernel_bwd_plan(b, t, s, h, kvh, hd, q.dtype, True) == fa_ops.bwd_plan(
+        b, t, s, h, kvh, hd, q.dtype, True)
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0] + 1, before[1] + 2)
+    g = h // kvh
+    flat = lambda x, n: x.float().cpu().transpose(1, 2).reshape(-1, n, hd)
+    kk, vv = flat(k.repeat_interleave(g, 2), s), flat(v.repeat_interleave(g, 2), s)
+    want_o, want_lse = fa_ops.flash_attention_ref(flat(q, t), kk, vv, return_lse=True, window=window)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(flat(o, t), want_o, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse.cpu().reshape(-1, t), want_lse, rtol=0,
+                               atol=1e-4 if dtype == "bfloat16" else 1e-5)
+    want = flash_attention_bwd_ref(flat(q, t), kk, vv, flat(o, t), flat(do, t), lse.cpu().reshape(-1, t),
+                                   window=window)
+    fold = lambda x: x.reshape(b, kvh, g, s, hd).sum(2).transpose(1, 2)
+    want = (want[0].reshape(b, h, t, hd).transpose(1, 2), fold(want[1]), fold(want[2]))
+    rtol, atol = (2e-2, 2e-2) if dtype == "bfloat16" else (0.0, 1e-5)
+    for name, x, y, z in zip("qkv", got, again, want):
+        assert x.dtype == q.dtype and torch.equal(x, y), name
+        torch.testing.assert_close(x.float().cpu(), z, rtol=rtol, atol=atol, msg=name)
+
+
+def test_flash_attention_window_tiles_match_kernel(cuda):
+    """The wgmma forward's and the long backward's tile loops as the built
+    .cu computes them (``flash_attention_fwd_tiles``,
+    ``flash_attention_bwd_tiles``) equal ``ops.fwd_tiles`` and
+    ``ops.bwd_tiles`` under windows below, at and above T, T > S and T < S,
+    and zamba2's and mixtral's prefill (T = S = 32,768, window 4,096)."""
+    lengths = (1, 63, 64, 127, 129, 257, 1000, 4096)
+    for t in lengths:
+        for s in lengths:
+            for window in (None, 1, 64, 100, 128, 129, 1000, 5000):
+                if window is not None and t > s + window - 1:
+                    continue
+                assert fa_ops.kernel_fwd_tiles(t, s, True, window) == fa_ops.fwd_tiles(t, s, True, window)
+                assert fa_ops.kernel_bwd_tiles(t, s, True, window) == fa_ops.bwd_tiles(t, s, True, window)
+    assert fa_ops.kernel_fwd_tiles(32768, 32768, True, 4096) == fa_ops.fwd_tiles(32768, 32768, True, 4096)
+    assert fa_ops.kernel_bwd_tiles(32768, 32768, True, 4096) == fa_ops.bwd_tiles(32768, 32768, True, 4096)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "zamba2-2.7b"])
+def test_lm_windowed_gradient_on_card_equals_cpu(cuda, name):
+    """``loss_fn``'s gradient in float32 at T = 64 > the smoke configs'
+    window of 32, every attention block through the windowed kernels both
+    ways on the card, within 1e-4 of each leaf's largest |g| of the CPU
+    port's (the plain versions)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+    if cfg.moe is not None:  # room in the experts: no drop in either dispatch
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    assert cfg.attn_window == 32
+    p = LMM.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(9)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))}
+    n_attn = sum(bt in ("attn", "moe_attn", "shared_attn") for bt in cfg.unit) * cfg.n_units
+
+    def grads(params, b):
+        leaves = [a.detach().requires_grad_() for a in LMM.tree_leaves(params)]
+        it = iter(leaves)
+        loss = LMM.loss_fn(LMM.tree_map(lambda _: next(it), params), b, cfg)
+        return float(loss), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    before = (fa_ops.lse_launches, fa_ops.long_bwd_launches)
+    loss_d, g_d = grads(LMM.tree_map(lambda a: a.to(cuda), p), {k: v.to(cuda) for k, v in batch.items()})
+    assert (fa_ops.lse_launches, fa_ops.long_bwd_launches) == (before[0] + 2 * n_attn, before[1] + n_attn)
+    loss_c, g_c = grads(p, batch)
+    assert abs(loss_d - loss_c) <= 1e-5 * abs(loss_c)
+    for gd, gc in zip(g_d, g_c):
+        if gc is None:
+            assert gd is None or not bool(gd.any())
+            continue
+        scale = max(float(gc.abs().max()), 1e-30)
+        assert float((gd.cpu() - gc).abs().max()) <= 1e-4 * scale

@@ -160,6 +160,13 @@ F32, BF16 = torch.float32, torch.bfloat16
         (4096, 4096, 32, 8, 32, BF16, "simt"),
         (4096, 4096, 32, 8, 16, BF16, "simt"),
         (4096, 4096, 32, 8, 128, F32, "simt"),
+        # hd 80 (zamba2-2.7b's) never takes the short path: wgmma in bf16,
+        # simt in float32, at every T
+        (17, 17, 8, 8, 80, F32, "simt"),
+        (17, 17, 8, 8, 80, BF16, "wgmma"),
+        (1, 1, 1, 1, 80, BF16, "wgmma"),
+        (32768, 32768, 32, 32, 80, BF16, "wgmma"),  # zamba2's prefill launch
+        (4096, 4096, 32, 32, 80, F32, "simt"),
     ],
 )
 @pytest.mark.parametrize("causal", [True, False])
@@ -216,12 +223,17 @@ def _bwd_inputs(b, t, s, h, kvh, hd, seed):
     return q, k, v, do
 
 
-def _jax_grads(q, k, v, do, causal):
-    """jax.vjp of the reference's XLA attention at the cotangent do."""
+def _jax_grads(q, k, v, do, causal, window=None):
+    """jax.vjp of the reference's XLA attention at the cotangent do, under
+    the mask the reference's ``attn_apply`` builds (``i - j < window``
+    beside the causal one, ``src/repro/models/layers.py:151-152``)."""
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     j, i = np.arange(s)[None, :], np.arange(t)[:, None]
-    mask = jnp.asarray(j <= i if causal else np.ones((t, s), bool))
+    mask = j <= i if causal else np.ones((t, s), bool)
+    if window is not None:
+        mask = mask & (i - j < window)
+    mask = jnp.asarray(mask)
 
     def f(q, k, v):
         return jax_sdpa(q.reshape(b, t, kvh, h // kvh, hd), k, v, mask).reshape(b, t, h, hd)
@@ -297,6 +309,9 @@ def test_bwd_off_the_short_path_raises():
         (4096, 4096, 12, 2, 128, F32, "simt"),
         (1000, 1000, 8, 2, 16, BF16, "simt"),
         (40, 1, 4, 4, 64, BF16, "wgmma"),
+        (17, 17, 4, 4, 80, BF16, "wgmma"),  # hd 80: no short backward
+        (17, 17, 4, 4, 80, F32, "simt"),
+        (4096, 4096, 32, 32, 80, BF16, "wgmma"),  # zamba2's training launch
     ],
 )
 @pytest.mark.parametrize("causal", [True, False])
@@ -346,16 +361,28 @@ def test_short_bwd_route_at_boundaries(t, s, h, kvh, hd, dtype, route, causal):
 TILE_LENGTHS = (1, 63, 64, 127, 128, 129, 1000, 4096)
 
 
-def _tiles_holding_a_pair(t, s, causal, row_tile, key_tile):
+def _tiles_holding_a_pair(t, s, causal, row_tile, key_tile, window=None):
     """(row tiles, key tiles) bool: the tile pair holds a visible (row, key)
     pair, from the pairs themselves: key j < S visible to row i < T, with
-    j <= i when causal."""
+    j <= i when causal and i - j < window under a window."""
     n_r, n_k = -(-t // row_tile), -(-s // key_tile)
     vis = np.zeros((n_r * row_tile, n_k * key_tile), dtype=bool)
     vis[:t, :s] = True
+    j, i = np.arange(n_k * key_tile)[None, :], np.arange(n_r * row_tile)[:, None]
     if causal:
-        vis &= np.arange(n_k * key_tile)[None, :] <= np.arange(n_r * row_tile)[:, None]
+        vis &= j <= i
+    if window is not None:
+        vis &= i - j < window
     return vis.reshape(n_r, row_tile, n_k, key_tile).any(axis=(1, 3))
+
+
+def _visited(ranges, n):
+    """(len(ranges), n) bool from (first, end) ranges over n tiles."""
+    return np.array([(np.arange(n) >= a) & (np.arange(n) < b) for a, b in ranges]).reshape(len(ranges), n)
+
+
+# windows below the tiles, across them and past T (None: no window)
+TILE_WINDOWS = (None, 1, 100, 129, 5000)
 
 
 @pytest.mark.parametrize("t", TILE_LENGTHS)
@@ -365,16 +392,111 @@ def test_bwd_tiles_cover_exactly_the_visible_pairs(t, s):
     query tiles that hold a visible pair with its keys, and each dQ block
     (128 rows) exactly the 128-key tiles that hold one with its rows, so
     every visible pair is summed and no tile without one is loaded; T > S,
-    T < S and T = S, causal and full."""
-    for causal in (True, False):
-        first_q, n_keys = fa_ops.bwd_tiles(t, s, causal)
-        dkv = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_STAGE, fa_ops.BWD_KEY_TILE)  # (query, key tiles)
-        assert len(first_q) == dkv.shape[1]
-        for kt, first in enumerate(first_q):
-            visited = np.arange(dkv.shape[0]) >= first
-            assert (visited == dkv[:, kt]).all(), (t, s, causal, kt)
-        dq = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_TILE, fa_ops.BWD_KEY_STAGE)
-        assert len(n_keys) == dq.shape[0]
-        for mt, n in enumerate(n_keys):
-            visited = np.arange(dq.shape[1]) < n
-            assert (visited == dq[mt]).all(), (t, s, causal, mt)
+    T < S and T = S, causal and full, and causal under windows."""
+    cases = [(True, None), (False, None)] + [(True, w) for w in TILE_WINDOWS[1:] if t <= s + w - 1]
+    for causal, window in cases:
+        q_ranges, k_ranges = fa_ops.bwd_tiles(t, s, causal, window)
+        dkv = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_STAGE, fa_ops.BWD_KEY_TILE, window)
+        assert len(q_ranges) == dkv.shape[1]
+        assert (_visited(q_ranges, dkv.shape[0]) == dkv.T).all(), (t, s, causal, window)
+        dq = _tiles_holding_a_pair(t, s, causal, fa_ops.BWD_ROW_TILE, fa_ops.BWD_KEY_STAGE, window)
+        assert len(k_ranges) == dq.shape[0]
+        assert (_visited(k_ranges, dq.shape[1]) == dq).all(), (t, s, causal, window)
+
+
+@pytest.mark.parametrize("t", TILE_LENGTHS)
+@pytest.mark.parametrize("s", TILE_LENGTHS)
+def test_fwd_tiles_cover_exactly_the_visible_pairs(t, s):
+    """``fwd_tiles``: each 128-row block of the wgmma forward visits
+    exactly the 128-key tiles that hold a visible pair with its rows, with
+    and without a window; at zamba2's and mixtral's prefill (T = S =
+    32,768, window 4,096) a block visits at most 33 of 256 tiles."""
+    for causal, window in [(True, None), (False, None)] + [(True, w) for w in TILE_WINDOWS[1:] if t <= s + w - 1]:
+        ranges = fa_ops.fwd_tiles(t, s, causal, window)
+        want = _tiles_holding_a_pair(t, s, causal, fa_ops.FWD_ROW_TILE, fa_ops.FWD_KEY_TILE, window)
+        assert (_visited(ranges, want.shape[1]) == want).all(), (t, s, causal, window)
+    long = fa_ops.fwd_tiles(32768, 32768, True, 4096)
+    assert max(b - a for a, b in long) == 33 and long[-1] == (223, 256)
+
+
+# (B, T, S, H, K, hd, window): windows below T, at T and above T, on the
+# short and long shapes, GQA, T > S where every row still sees a key
+WINDOW_SHAPES = [
+    (2, 17, 17, 8, 2, 16, 5),
+    (1, 70, 70, 4, 1, 16, 70),
+    (1, 100, 60, 2, 2, 32, 200),
+    (1, 130, 130, 2, 1, 64, 33),
+]
+
+
+def _numpy_attention(q, k, v, window):
+    """An independent float64 softmax attention under the causal mask and
+    the window: o (B, T, H, hd) and the logsumexp (B, H, T)."""
+    b, t, h, hd = q.shape
+    s, g = k.shape[1], h // k.shape[2]
+    kk, vv = np.repeat(k, g, axis=2).astype(np.float64), np.repeat(v, g, axis=2).astype(np.float64)
+    sc = np.einsum("bthd,bshd->bhts", q.astype(np.float64), kk) / np.sqrt(hd)
+    j, i = np.arange(s)[None, :], np.arange(t)[:, None]
+    sc = np.where((j <= i) & (i - j < window), sc, -np.inf)
+    m = sc.max(-1, keepdims=True)
+    w = np.exp(sc - m)
+    lse = (m + np.log(w.sum(-1, keepdims=True)))[..., 0]
+    return np.einsum("bhts,bshd->bthd", w / w.sum(-1, keepdims=True), vv), lse
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,hd,window", WINDOW_SHAPES)
+def test_window_plain_equals_numpy_and_jax(b, t, s, h, kvh, hd, window):
+    """The windowed plain forward (and its logsumexp) against an
+    independent numpy softmax and the reference's ``_sdpa`` under its
+    windowed mask; the windowed plain backward and ``FlashAttentionFn``
+    against ``jax.vjp`` of that attention, within the backward's 1e-5."""
+    q, k, v, do = _bwd_inputs(b, t, s, h, kvh, hd, seed=b + t + s + hd + window)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = flash_attention(tq, tk, tv, window=window, return_lse=True)
+    want, want_lse = _numpy_attention(q, k, v, window)
+    np.testing.assert_allclose(out.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    j, i = np.arange(s)[None, :], np.arange(t)[:, None]
+    mask = jnp.asarray((j <= i) & (i - j < window))
+    ref = jax_sdpa(jnp.asarray(q).reshape(b, t, kvh, h // kvh, hd), jnp.asarray(k), jnp.asarray(v), mask)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref).reshape(b, t, h, hd), rtol=2e-5, atol=2e-5)
+    grads = fa_ops.flash_attention_bwd(tq, tk, tv, out, torch.from_numpy(do), lse, window=window)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    fa_ops.FlashAttentionFn.apply(*leaves, True, window).backward(torch.from_numpy(do))
+    for name, got, leaf, r in zip("qkv", grads, leaves, _jax_grads(q, k, v, do, True, window)):
+        np.testing.assert_allclose(got.numpy(), r, rtol=0, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(leaf.grad.numpy(), r, rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("b,t,s,h,kvh,causal", [(1, 20, 20, 4, 2, True), (2, 40, 40, 2, 2, False),
+                                                 (1, 70, 50, 2, 1, True)])
+def test_hd80_plain_equals_jax(b, t, s, h, kvh, causal):
+    """Head size 80 (zamba2-2.7b's) on the plain versions: the forward
+    against the JAX oracle (scale 1/sqrt(80)), the backward against torch
+    autograd of the plain forward, within 1e-5."""
+    q, k, v, do = _bwd_inputs(b, t, s, h, kvh, 80, seed=t + s)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention(tq, tk, tv, causal=causal, block_k=s, return_lse=True)
+    np.testing.assert_allclose(out.detach().numpy(), _jax(q, k, v, causal, jnp.float32), rtol=2e-5, atol=2e-5)
+    out.backward(torch.from_numpy(do))
+    grads = fa_ops.flash_attention_bwd(*(torch.from_numpy(x) for x in (q, k, v)), out.detach(),
+                                       torch.from_numpy(do), lse.detach(), causal=causal)
+    for name, got, leaf in zip("qkv", grads, (tq, tk, tv)):
+        np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_window_refusals():
+    """A window comes only with the causal mask, must be a positive int,
+    and every row must see a key (T <= S + window - 1); the forward and
+    the backward refuse the rest on either device."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 40, 40, 4, 2, 16, 1))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=False, window=8)
+    for bad in (0, -3, 2.5, True):
+        with pytest.raises(ValueError, match="positive int"):
+            flash_attention(q, k, v, window=bad)
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention(q, k[:, :10], v[:, :10], window=30)  # row 39 sees keys 10.. of 10
+    flash_attention(q, k[:, :10], v[:, :10], window=31)  # row 39 sees key 9
+    with pytest.raises(ValueError, match="see no key"):
+        fa_ops.flash_attention_bwd(q, k[:, :10], v[:, :10], q, q, torch.zeros(1, 4, 40), window=30)

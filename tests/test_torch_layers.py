@@ -109,18 +109,18 @@ def test_mlp_apply():
 
 
 def test_unported_raise():
-    """What is left unported names its ROADMAP item: a sliding window that
-    masks something has no kernel (A15; the torch backend takes it, and a
-    window the sequence fits in runs the kernel).  The LM's meshes are
-    ported (A12b): they take the CUDA card unless given the CPU, and need
-    an initialised process group; neither falls back."""
+    """Nothing is left unported here: a sliding window that masks
+    something runs the kernel (its plain version on the CPU) and equals
+    the torch backend, as does a window the sequence fits in.  The LM's
+    meshes (A12b) take the CUDA card unless given the CPU, and need an
+    initialised process group; neither falls back."""
     _, cfg = _cfgs(attn_window=8)
-    p = L.attn_init(torch.Generator(), cfg)
-    x = torch.zeros((1, 9, 64))
-    with pytest.raises(NotImplementedError, match="A15"):
-        L.attn_apply(p, x, cfg)
-    assert L.attn_apply(p, x, cfg, backend="torch").shape == x.shape
-    assert L.attn_apply(p, x[:, :8], cfg).shape == (1, 8, 64)
+    p = L.attn_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 9, 64)).astype(np.float32))
+    with torch.no_grad():
+        torch.testing.assert_close(L.attn_apply(p, x, cfg), L.attn_apply(p, x, cfg, backend="torch"),
+                                   rtol=1e-5, atol=1e-5)
+        assert L.attn_apply(p, x[:, :8], cfg).shape == (1, 8, 64)
     from repro_torch.launch import mesh
 
     for make in (mesh.make_production_mesh, mesh.make_local_mesh):

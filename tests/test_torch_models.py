@@ -162,34 +162,62 @@ def test_decode_matches_forward(name, backend):
 
 def test_sliding_window_decode_ring_buffer():
     """Decoding past the window with a ring cache equals a full forward
-    with the window mask (the torch backend: the kernel has no window)."""
+    with the window mask; the kernel backend's windowed forward equals the
+    torch backend's and the reference's."""
     cfg_j, cfg = _cfgs("mixtral-8x7b", moe_capacity=16.0, attn_window=8)
     pj, p = _weights(cfg_j, cfg, seed=2)
     b, t = 1, 20  # t > window
     toks = torch.from_numpy(_batch(cfg, b, t, 2)["tokens"])
     with torch.no_grad():
         full, _ = M.forward(p, {"tokens": toks}, cfg, attn_backend="torch")
-        with pytest.raises(NotImplementedError, match="A15"):
-            M.forward(p, {"tokens": toks}, cfg)
+        kernel, _ = M.forward(p, {"tokens": toks}, cfg)
         cache = M.cache_init(cfg, b, cfg.attn_window, device="cpu")  # ring capacity = window
         dec = [M.decode_step(p, cache, {"tokens": toks[:, i : i + 1]}, cfg)[0][:, 0] for i in range(t)]
     np.testing.assert_allclose(torch.stack(dec, 1).numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
     want, _ = JM.forward(pj, {"tokens": jnp.asarray(toks.numpy())}, cfg_j)
     np.testing.assert_allclose(full.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(kernel.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(kernel.numpy(), full.numpy(), **TOL)
 
 
 def test_window_within_the_sequence_runs_the_kernel():
-    """Where T <= attn_window the window masks nothing: the kernel backend
-    runs and equals the torch backend and the reference."""
+    """Where T <= attn_window the window masks nothing, and where T > it
+    the kernel takes the window: at both the kernel backend equals the
+    torch backend and the reference."""
     name = "zamba2-2.7b"  # a window of 32 in its smoke config
     cfg, p, batch, logits_j, _, _ = _reference(name)
     assert cfg.attn_window == 32
     with torch.no_grad():
         got, _ = M.forward(p, _torch(batch), cfg, attn_backend="kernel")
-        longer = {"embeds" if cfg.precomputed_embeddings else "tokens": torch.zeros((1, 33), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="A15"):
-            M.forward(p, longer, cfg, attn_backend="kernel")
     np.testing.assert_allclose(got.numpy(), logits_j, **TOL)
+    cfg_j, _ = _cfgs(name)
+    pj, _ = _weights(cfg_j, cfg)
+    longer = _batch(cfg, 1, 64, 5)  # T = 64 > 32
+    want, _ = jax.jit(lambda p_, b_: JM.forward(p_, b_, cfg_j))(pj, {k: jnp.asarray(v) for k, v in longer.items()})
+    with torch.no_grad():
+        got, _ = M.forward(p, _torch(longer), cfg, attn_backend="kernel")
+        got_t, _ = M.forward(p, _torch(longer), cfg, attn_backend="torch")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), got_t.numpy(), **TOL)
+
+
+def test_head_size_80_matches_reference():
+    """zamba2's full-width head size (2,560 / 32 = 80) at smoke depth: a
+    variant of its smoke config with d_model 160 over 2 heads of 80, at
+    T = 64 past its window of 32; the kernel backend's forward and loss
+    equal the reference's."""
+    cfg_j, cfg = _cfgs("zamba2-2.7b", d_model=160, n_heads=2, n_kv_heads=2, d_head=None)
+    assert cfg.head_dim == 80 and cfg.attn_window == 32
+    pj, p = _weights(cfg_j, cfg, seed=4)
+    batch = _batch(cfg, 2, 64, 4)
+    bj = {k: jnp.asarray(v) for k, v in batch.items()}
+    logits_j, _ = jax.jit(lambda p_, b_: JM.forward(p_, b_, cfg_j))(pj, bj)
+    loss_j = jax.jit(lambda p_, b_: JM.loss_fn(p_, b_, cfg_j))(pj, bj)
+    with torch.no_grad():
+        logits, _ = M.forward(p, _torch(batch), cfg)
+        loss = M.loss_fn(p, _torch(batch), cfg)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j), **TOL)
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
 
 
 @pytest.mark.parametrize("backend", L.BACKENDS)

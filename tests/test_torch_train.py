@@ -97,6 +97,26 @@ def test_loss_gradient_matches_jax_grad(name, backend):
     _each_leaf(lambda g, w, path: _leaf_close(g, w, f"{name} {backend} {path}"), got_tree, want)
 
 
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "zamba2-2.7b"])
+def test_windowed_loss_gradient_matches_jax_grad(name):
+    """``loss_fn``'s gradient on the kernel backend at T = 64, past the
+    smoke configs' window of 32, so that the window masks keys in both the
+    forward and the backward: equal to ``jax.grad`` of the reference's."""
+    cfg_j, cfg = _cfgs(name)
+    assert cfg.attn_window == 32
+    pj = JM.init_params(cfg_j, jax.random.key(3))
+    bj = JT.synthetic_batch(cfg_j, BATCH, 64, 1)
+    want = jax.jit(jax.grad(lambda p_, b_: JM.loss_fn(p_, b_, cfg_j)))(pj, bj)
+    p = lm_params_from_reference(pj, cfg, device="cpu")
+    leaves = [a.requires_grad_() for a in M.tree_leaves(p)]
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in bj.items()}
+    loss = M.loss_fn(p, batch, cfg, remat=True, attn_backend="kernel")
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(a) if g is None else g for a, g in zip(leaves, got)])
+    got_tree = M.tree_map(lambda _: next(it), p)
+    _each_leaf(lambda g, w, path: _leaf_close(g, w, f"{name} window {path}"), got_tree, want)
+
+
 _REF_RUN = {}
 
 

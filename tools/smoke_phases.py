@@ -7,6 +7,7 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases flash,lm           # the LM path alone
     python3 tools/smoke_phases.py --phases bwd,train          # the LM's training alone
     python3 tools/smoke_phases.py --phases mesh               # the LM's (1, 1) mesh step alone
+    python3 tools/smoke_phases.py --phases windowed           # zamba2 and mixtral with the window
 
 Builds the kernels, prints the card line, and runs, in order:
 
@@ -31,7 +32,11 @@ Builds the kernels, prints the card line, and runs, in order:
   the card against the CPU port; the launcher), then the long backward at
   a launch of the cell;
 - ``mesh``: phase 19 (the sharded train step on a (1, 1) NCCL mesh at
-  qwen2-1.5b's full width against the plain step, its launches counted).
+  qwen2-1.5b's full width against the plain step, its launches counted);
+- ``windowed``: phase 20 (zamba2-2.7b at 54 layers and mixtral-8x7b at
+  full width, 2 layers, prefilling 32,768 tokens through the windowed
+  kernels; a zamba2 training step at ``--train-units`` units, 3 by
+  default), then ``flash_attention`` at both prefills' first launches.
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -54,6 +59,7 @@ def main() -> int:
     ap.add_argument("--phases", default="bwd,sharded,fit")
     ap.add_argument("--scale", type=float, default=282.0)
     ap.add_argument("--fit-rows", type=int, default=None, help="training edges of the fit (0: all)")
+    ap.add_argument("--train-units", type=int, default=None, help="zamba2 units of phase 20's training step")
     ap.add_argument("--out", default=str(ROOT / "build" / "smoke_phases.json"))
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -74,6 +80,8 @@ def main() -> int:
 
     if args.fit_rows is not None:
         cs.FGT_FIT_ROWS = args.fit_rows or None
+    if args.train_units is not None:
+        cs.WIN_TRAIN_UNITS = args.train_units
     with concurrent.futures.ThreadPoolExecutor(len(cs.KERNELS)) as pool:
         list(pool.map(build.load, cs.KERNELS))
     report = {"card": cs.card_line(), "walls_s": {}}
@@ -113,6 +121,13 @@ def main() -> int:
               + json.dumps(report["flash_attention_bwd_train_shape"]), flush=True)
     if "mesh" in phases:
         timed("mesh", lambda: cs.phase_mesh(report, zero, read))
+    if "windowed" in phases:
+        _, *prefills = timed("windowed", lambda: cs.phase_windowed_lm(report, zero, read))
+        for key, (q, k, v, window) in zip(("zamba2", "mixtral"), prefills):
+            report[f"flash_attention_{key}_shape"] = cs.fa_window_row(q, k, v, window, 10)
+            print(f"kernel timing: flash_attention on the {key} prefill path "
+                  + json.dumps(report[f"flash_attention_{key}_shape"]), flush=True)
+        del prefills, q, k, v
     ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
