@@ -257,7 +257,8 @@ def distribute_tree(tree, placements, mesh):
     def place(t, pl):
         if isinstance(t, DTensor):
             return t.redistribute(mesh, pl)
-        t = t.to(mesh.device_type)
+        if not t.is_meta:  # a meta tensor stays one: shapes only (the dry run)
+            t = t.to(mesh.device_type)
         full = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
         return full.redistribute(mesh, pl)
 

@@ -5,9 +5,11 @@ JAX package's ``repro.launch.hlo_analysis``, at the H100's peaks.
 they read HLO text, summing the result shapes of every all-reduce /
 all-gather / reduce-scatter / all-to-all / collective-permute (async
 ``-start`` forms counted once, ``-done`` skipped).  The port's dry run
-(:mod:`repro_torch.launch.dryrun`) traces its steps on ``meta`` tensors
-and has no HLO, so it passes no collective text and models no
-collective; the parser stays for HLO that comes from elsewhere.
+(:mod:`repro_torch.launch.dryrun`) has no HLO: it counts the per-rank
+result bytes of the functional collectives in a trace of its sharded
+step under the same kind names (``_COLL``) and hands ``roofline`` the
+same per-kind dict with its ``"total"``; the parser stays for HLO that
+comes from elsewhere (the tests read the reference's with it).
 ``roofline`` is the reference's, over :data:`HW`.
 
 Hardware constants: one NVIDIA H100 SXM, its data sheet's peaks (dense,

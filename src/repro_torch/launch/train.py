@@ -64,13 +64,13 @@ __all__ = [
 ]
 
 
-def _loss_and_grads(params, batch, cfg):
+def _loss_and_grads(params, batch, cfg, attn_backend: str = "kernel"):
     """``loss_fn`` (remat on) and its gradient tree; a leaf the loss does
     not use gets a zero gradient, as ``jax.grad`` gives it."""
     leaves = tree_leaves(params)
     req = [a.detach().requires_grad_() for a in leaves]
     it = iter(req)
-    loss = loss_fn(tree_map(lambda _: next(it), params), batch, cfg, remat=True)
+    loss = loss_fn(tree_map(lambda _: next(it), params), batch, cfg, remat=True, attn_backend=attn_backend)
     if ctx.is_dtensor(loss):  # the data-parallel partial sums: one all-reduce
         loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
     got = torch.autograd.grad(loss, req, allow_unused=True)
@@ -139,7 +139,7 @@ def _mesh_norm(shards, mesh):
     return torch.sqrt(total.full_tensor())
 
 
-def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh):
+def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, attn_backend: str = "kernel"):
     """``train_step(params, opt, batch) -> (params, opt, loss, grad_norm)``
     on DTensors placed by :func:`place_state` and :func:`place_batch`:
     :func:`make_train_step`'s step under the mesh (``ctx`` set to its data
@@ -150,7 +150,11 @@ def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh):
     rank's shards (``adamw_apply``, the norm reduced over the mesh), and
     the new params are all-gathered to the params' layout, so the
     placements that come out equal those that went in.  Loss and norm
-    come back as plain 0-d tensors, equal on every rank.  No host sync."""
+    come back as plain 0-d tensors, equal on every rank.  No host sync.
+    ``attn_backend="torch"`` runs each rank's heads through the torch
+    backend's plain ops under the same placements, so the step moves the
+    same data between ranks without the kernels (the dry run traces it so
+    on ``meta`` tensors)."""
     if opt_cfg.compress:
         raise ValueError("int8 gradient compression has no sharded step (the reference's mesh step has none)")
     data, model = mesh_axes(mesh)
@@ -159,7 +163,7 @@ def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh):
         saved = ctx.mesh_and_axes()
         ctx.set_axes(mesh, data, model)
         try:
-            loss, grads = _loss_and_grads(params, batch, cfg)
+            loss, grads = _loss_and_grads(params, batch, cfg, attn_backend)
         finally:
             ctx.set_axes(*saved)
         p_l, g_l = _leaves(params), _leaves(grads)

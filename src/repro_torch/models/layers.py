@@ -187,10 +187,10 @@ def _sdpa(q, k, v, mask):
 Q_CHUNK = 1024  # the torch backend takes queries in chunks above this T
 
 
-def _window_mask(i, j, cfg: ModelConfig):
+def _window_mask(i, j, window=None):
     mask = j <= i
-    if cfg.attn_window is not None:
-        mask = mask & (i - j < cfg.attn_window)
+    if window is not None:
+        mask = mask & (i - j < window)
     return mask
 
 
@@ -198,29 +198,39 @@ def attn_apply(p, x, cfg: ModelConfig, positions=None, backend: str = "kernel"):
     """Training/prefill attention: full-sequence causal, optionally
     sliding-window.  x (B, T, d).  The torch backend takes T > Q_CHUNK in
     chunks of Q_CHUNK queries (the score temporary is (B, H, Q_CHUNK, T)),
-    as the reference's scan over query chunks does."""
+    as the reference's scan over query chunks does.  On DTensors either
+    backend runs on each rank's heads through :func:`_mesh_attention`."""
     if backend not in BACKENDS:
         raise ValueError(f"attention backend {backend!r}; options: {BACKENDS}")
     b, t, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, hd = cfg.n_heads, cfg.head_dim
     if positions is None:
         positions = ctx.replicate_like(x, torch.arange(t, dtype=torch.int32, device=x.device)[None, :].expand(b, t))
     q, k, v = _qkv(p, x, cfg, positions)
-    if backend == "kernel":
-        attend = _mesh_attention if ctx.is_dtensor(q) else _kernel_attention
-        return ctx.reshape(attend(q, k, v, cfg.attn_window), (b, t, h * hd)) @ p["wo"].to(x.dtype)
-    q = ctx.reshape(q, (b, t, kv, h // kv, hd))
-    j = torch.arange(t, device=x.device)[None, :]
-    mask = lambda rows: ctx.replicate_like(q, _window_mask(j.T[rows], j, cfg))
-    if t <= Q_CHUNK:
-        out = _sdpa(q, k, v, mask(slice(None)))
+    attend = _kernel_attention if backend == "kernel" else _torch_attention
+    if ctx.is_dtensor(q):
+        out = _mesh_attention(q, k, v, cfg.attn_window, attend)
     else:
-        assert t % Q_CHUNK == 0, "pad sequence to the attention chunk"
-        out = torch.cat([
-            _sdpa(q[:, c:c + Q_CHUNK], k, v, mask(slice(c, c + Q_CHUNK)))
-            for c in range(0, t, Q_CHUNK)
-        ], dim=1)
-    return ctx.reshape(out, (b, t, h * hd)) @ p["wo"].to(x.dtype)
+        out = attend(q, k, v, cfg.attn_window).reshape(b, t, h * hd)
+    return out @ p["wo"].to(x.dtype)
+
+
+def _torch_attention(q, k, v, window=None):
+    """The torch backend on plain tensors q (B,T,H,hd), k/v (B,T,K,hd):
+    :func:`_sdpa` under the causal (windowed) mask, over query chunks of
+    ``Q_CHUNK`` where T is longer.  Returns (B, T, K, H // K, hd)."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(b, t, kv, h // kv, hd)
+    j = torch.arange(t, device=q.device)[None, :]
+    mask = lambda rows: _window_mask(j.T[rows], j, window)
+    if t <= Q_CHUNK:
+        return _sdpa(q, k, v, mask(slice(None)))
+    assert t % Q_CHUNK == 0, "pad sequence to the attention chunk"
+    return torch.cat([
+        _sdpa(q[:, c:c + Q_CHUNK], k, v, mask(slice(c, c + Q_CHUNK)))
+        for c in range(0, t, Q_CHUNK)
+    ], dim=1)
 
 
 def _kernel_attention(q, k, v, window=None):
@@ -233,14 +243,17 @@ def _kernel_attention(q, k, v, window=None):
     return fa_ops.flash_attention(q, k, v, causal=True, window=window)
 
 
-def _mesh_attention(q, k, v, window=None):
-    """The kernel attention on DTensors q (B,T,H,hd), k/v (B,T,K,hd):
+def _mesh_attention(q, k, v, window=None, attend=_kernel_attention):
+    """Attention on DTensors q (B,T,H,hd), k/v (B,T,K,hd) -> (B, T, H * hd):
     ``local_map`` hands each rank its batch rows (Shard over the data axes
     when B divides) and its heads (Shard over model when both H and K
-    divide the model size, else every head), and the kernels run on those
-    local tensors; the logsumexp the forward writes for the backward is
-    per rank and so carries the same placement.  The kernel never sees a
-    DTensor."""
+    divide the model size, else every head), and ``attend`` (the kernels,
+    or the torch backend's plain ops) runs on those local tensors; the
+    logsumexp the kernel's forward writes for the backward is per rank and
+    so carries the same placement.  Neither backend sees a DTensor, and
+    both move the same data between ranks.  Each rank merges its heads
+    into the output's last dim itself, so no DTensor view splits that dim
+    again in the backward (one whose shards would cut a head raises)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -258,7 +271,8 @@ def _mesh_attention(q, k, v, window=None):
             pl.append(Shard(2))
         else:
             pl.append(Replicate())
-    fn = local_map(lambda q_, k_, v_: _kernel_attention(q_, k_, v_, window), out_placements=pl,
+    merged = lambda q_, k_, v_: attend(q_, k_, v_, window).reshape(q_.shape[0], q_.shape[1], -1)
+    fn = local_map(merged, out_placements=pl,
                    in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
     return fn(q, k, v)
 

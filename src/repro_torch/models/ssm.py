@@ -310,8 +310,10 @@ def slstm_apply(p, x, cfg: ModelConfig):
     zeros = torch.zeros((bsz, hh, hd), dtype=torch.float32, device=x.device)
     state = (zeros, zeros, zeros, torch.full((bsz, hh, hd), -1e30, dtype=torch.float32, device=x.device))
     hs = []
-    for i in range(t):
-        state = _slstm_step(p, cfg, state, xp[:, i])
+    # the steps' inputs split once: under autograd their gradient is then one
+    # stack, where a view xp[:, i] per step would add T zero-padded copies of xp
+    for xt in xp.unbind(1):
+        state = _slstm_step(p, cfg, state, xt)
         hs.append(state[0])
     y = torch.stack(hs, dim=1).reshape(bsz, t, d).to(x.dtype)
     return y @ p["wout"].to(x.dtype)
