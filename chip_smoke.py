@@ -111,12 +111,13 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-20 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-21 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
    of phase 16's first backward launch, after phase 16; the LM's
    ``flash_attention`` keys after phase 17; the long backward's entry, at
    a launch of phase 18's cell, after phase 18; the windowed prefills'
-   ``zamba2_*`` and ``mixtral_*`` keys after phase 20):
+   ``zamba2_*`` and ``mixtral_*`` keys after phase 20, the seven
+   full-width prefills' keys after phase 21):
 9. oracle — every ``full_deep`` pattern mined on the card with each
    kernel backend equals the port's ``GFPReference`` on every edge of
    two random graphs (512 nodes, 5,120 edges, t_max 4,096); then the
@@ -292,6 +293,34 @@ Phases, in order; any failure exits non-zero:
    entry gains ``launches_{zamba2,mixtral}_prefill``,
    ``launches_zamba2_train`` and the ``zamba2_*`` / ``mixtral_*`` times,
    ``flash_attention_bwd_long`` gains ``launches_zamba2_train``.
+21. full-width LM — the seven registry architectures that phases 17-20
+   run only at their smoke configs, at published width, one at a time:
+   musicgen-medium (48 layers, 24 heads of 64, 4 codebook heads over
+   precomputed frame embeddings), granite-8b (36 layers, 32 / 8 heads of
+   128), mistral-nemo-12b (40 layers, 32 / 8 heads of 128 over d_model
+   5,120), deepseek-coder-33b (56 / 8 heads: a group of 7), chameleon-34b
+   (64 / 8, ``qk_norm``), moonshot-v1-16b-a3b (64 experts, top-6, vocab
+   163,840) and xlstm-125m (12 layers, head size 192); the last three of
+   the attention models cut to 16, 12 and 16 layers, the most whose
+   float32 weights stay under 40 GB.  Each: float32 weights drawn on the
+   card with the data seed, a 4 x 2,048 bf16 prefill through the kernel
+   backend under ``set_sync_debug_mode("error")`` with the counts zeroed
+   before and read after (one ``flash_attention`` launch an attention
+   block, 0 for xlstm-125m, each planned ``"wgmma"`` by ``ops.plan`` and
+   the ``.cu``), finite logits of (B, T, V) or musicgen's (B, T, 4, V);
+   the wall, tokens/s, peak memory, the device's busy share over one more
+   forward under ``torch.profiler`` and xlstm's sLSTM share of the wall;
+   at 1 x 1,024 tokens the kernel's bf16 logits within 1.25 x the bf16
+   ``"torch"`` backend's mean |diff| of the float32 ``"torch"`` forward;
+   float32 decode against the forward over 2 x 12 tokens within 2e-3 (MoE
+   at capacity 16); ``decode_lm.generate`` serving 4 requests at 4,096
+   slots (prompt 16, 8 new tokens) twice with identical tokens (musicgen
+   through ``decode_step`` over frame embeddings, identical codes); the
+   weights freed, then the prefill's first launch checked against the
+   plain version (each output row within 2^-7 of its scale) and timed
+   (events, ``torch.profiler``, plain, SDPA, the operations bound); the
+   ``flash_attention`` entry gains ``launches_<arch>_prefill`` and the
+   ``<arch>_*`` times.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -655,6 +684,30 @@ WIN_WARM_T = 4096
 WIN_MIXTRAL_LAYERS = 2
 WIN_TRAIN = (1, 4096)
 WIN_TRAIN_UNITS = 7
+
+# phase 21: the seven registry architectures that phases 17-20 run only at
+# their smoke configs, at published width (src/repro/configs/registry.py),
+# in this order; each prefills LM_PREFILL (prefill_32k's batch of 32 and
+# its 32,768 tokens cut as phase 17 cuts them) after a warm-up forward over
+# WIDE_WARM_T tokens a sequence, holds its bf16 logits to the float32
+# "torch" forward at 1 x LM_F32_T and decode to forward at LM_DECODE, and
+# serves WIDE_SERVE (requests, cache slots, prompt, new tokens) twice; its
+# prefill's first flash_attention launch is held to the plain version,
+# each output row within WIDE_ROW_TOL of the row's largest |value| (the
+# worst row of phase 17's launch: one bf16 step at the top of a binade),
+# and timed WIDE_FA_REPS times
+WIDE_ARCHS = ("musicgen-medium", "granite-8b", "mistral-nemo-12b", "deepseek-coder-33b", "chameleon-34b",
+              "moonshot-v1-16b-a3b", "xlstm-125m")
+# depths cut to the most layers whose float32 weights stay under 40 GB,
+# which leaves room for the float32 reference forward, the casts at each
+# use and moonshot's 163,840-wide logits (M.n_params): 62 -> 16 layers
+# (35.8 GB), 48 -> 12 (37.5 GB), 48 -> 16 (39.2 GB); the others run at
+# their published depth (mistral-nemo-12b's 40 layers are 49.0 GB)
+WIDE_LAYERS = {"deepseek-coder-33b": 16, "chameleon-34b": 12, "moonshot-v1-16b-a3b": 16}
+WIDE_WARM_T = 512
+WIDE_ROW_TOL = 2.0 ** -7
+WIDE_FA_REPS = 10
+WIDE_SERVE = (4, 4096, 16, 8)
 
 
 def log(msg: str) -> None:
@@ -2484,20 +2537,24 @@ def lm_smoke_batch(cfg, b: int, t: int, seed: int) -> dict:
 
 
 def decode_all(params, cfg, toks, cache_len: int, device):
-    """Decode ``toks`` (B, T) one token a step from an empty cache: the
-    (B, T, V) logits of the steps."""
+    """Decode ``toks`` (B, T), or the audio stub's frames (B, T, d), one
+    step at a time from an empty cache: the logits of the steps, (B, T, V)
+    or (B, T, n_codebooks, V)."""
     import torch
     from repro_torch.models import model as M
 
+    key = "embeds" if cfg.precomputed_embeddings else "tokens"
     cache = M.cache_init(cfg, toks.shape[0], cache_len, device=device)
-    return torch.stack([M.decode_step(params, cache, {"tokens": toks[:, i : i + 1]}, cfg)[0][:, 0]
+    return torch.stack([M.decode_step(params, cache, {key: toks[:, i : i + 1]}, cfg)[0][:, 0]
                         for i in range(toks.shape[1])], dim=1)
 
 
-def lm_serve(cfg, params, nreq: int, cache_len: int, calls: int, device):
-    """``decode_lm.generate`` serving ``nreq`` requests of LM_SERVE's prompt
-    and new tokens from a ``cache_len``-slot cache, ``calls`` times, then
-    LM_PROFILE_STEPS decode steps on a fresh cache of that length timed and
+def lm_serve(cfg, params, nreq: int, cache_len: int, calls: int, device, plen: int = LM_SERVE[1],
+             ngen: int = LM_SERVE[2], profile: bool = True):
+    """``decode_lm.generate`` serving ``nreq`` requests of ``plen`` prompt
+    and ``ngen`` new tokens (LM_SERVE's by default) from a
+    ``cache_len``-slot cache, ``calls`` times, then LM_PROFILE_STEPS decode
+    steps on a fresh cache of that length timed and, with ``profile``,
     under ``torch.profiler`` (decode attention reads every slot, live or
     not, so a step costs the same at any position).  ``step_bound_ms``:
     the float32 weights and the bf16 KV cache read once, over the card's
@@ -2508,7 +2565,6 @@ def lm_serve(cfg, params, nreq: int, cache_len: int, calls: int, device):
     from repro_torch.launch import decode_lm
     from repro_torch.models import model as M
 
-    _, plen, ngen = LM_SERVE
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (nreq, plen)).astype(np.int32)  # as decode_lm.main
     served, walls = [], []
     for _ in range(calls):
@@ -2531,7 +2587,7 @@ def lm_serve(cfg, params, nreq: int, cache_len: int, calls: int, device):
         steps()
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / LM_PROFILE_STEPS
-        step_prof = device_profile(steps)
+        step_prof = device_profile(steps) if profile else None
         del cache
     w_bytes = sum(a.numel() * a.element_size() for a in M.tree_leaves(params))
     cell = {"requests": nreq, "prompt": plen, "new_tokens": ngen, "cache_len": cache_len, "kv_cache_bytes": kv_bytes,
@@ -3434,6 +3490,239 @@ def phase_windowed_lm(report, zero_launches, read_launches):
     return out, zamba_args, mixtral_args
 
 
+def frames_serve(cfg, params, nreq: int, cache_len: int, plen: int, ngen: int, calls: int, device):
+    """The audio stub's serving, which ``decode_lm.generate`` cannot do (it
+    takes tokens; both packages' command lines refuse the stub):
+    ``decode_lm.make_serve_step`` over ``plen + ngen`` precomputed frame
+    embeddings drawn with the data seed, ``calls`` times from a fresh
+    ``cache_len``-slot cache, each step's argmax codes (B, n_codebooks)
+    fetched to the host from the prompt's last step on, as ``generate``
+    fetches its tokens.  Returns the cell and the calls' codes."""
+    import numpy as np
+    import torch
+    from repro_torch.device import h2d, to_host
+    from repro_torch.launch import decode_lm
+    from repro_torch.models import model as M
+
+    frames = h2d(np.random.default_rng(SEED).normal(size=(nreq, plen + ngen, cfg.d_model)).astype(np.float32), device)
+    step = decode_lm.make_serve_step(cfg)
+    served, walls = [], []
+    with torch.inference_mode():
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            cache = M.cache_init(cfg, nreq, cache_len, device=device)
+            codes = []
+            for i in range(plen + ngen):
+                tok, cache = step(params, cache, {"embeds": frames[:, i : i + 1]})
+                if i >= plen - 1:
+                    codes.append(to_host(tok))
+            walls.append(time.perf_counter() - t0)
+            served.append(np.stack(codes, axis=1))
+            del cache
+    cell = {"requests": nreq, "prompt_frames": plen, "new_frames": ngen, "cache_len": cache_len,
+            "entry": "decode_lm.make_serve_step over {'embeds': ...}", "walls_s": walls,
+            "frames_per_s": nreq * ngen / min(walls), "ms_per_step": 1e3 * min(walls) / (plen + ngen),
+            "identical": all(np.array_equal(served[0], x) for x in served), "codes_shape": list(served[0].shape),
+            "first_codes": served[0][0, :4].tolist()}
+    return cell, served
+
+
+def lm_wide(name: str, zero_launches, read_launches) -> dict:
+    """One architecture of phase 21 at its published width, its depth cut
+    to WIDE_LAYERS where one card forces it (the cut and its reason in the
+    record): (a) float32 weights drawn on the card with the data seed, a
+    warm-up forward over WIDE_WARM_T tokens a sequence, then LM_PREFILL in
+    bf16 through the kernel backend under set_sync_debug_mode("error"),
+    its counts zeroed before and read after: one flash_attention launch
+    an attention block, each planned "wgmma" by ``ops.plan`` and the .cu;
+    finite logits of (B, T, V), or (B, T, n_codebooks, V); the wall,
+    tokens/s, peak memory and the device's busy share over one more
+    forward under torch.profiler; the sLSTM blocks' share of the wall
+    (CUDA events around each, no sync); at 1 x LM_F32_T the kernel's
+    bf16 logits' mean |diff| from the float32 "torch" forward within
+    LM_BF16_ERR_RATIO of the bf16 "torch" backend's; (c) float32
+    decode against the forward at LM_DECODE within 2e-3 (MoE at capacity
+    16, where nothing drops), then serving WIDE_SERVE twice with identical
+    tokens (``lm_serve``; the audio stub through ``frames_serve``), the
+    peak memory; (d) the weights freed; (b) the prefill's first
+    flash_attention launch against the plain version on its own inputs,
+    each output row within WIDE_ROW_TOL of its scale, timed by ``fa_row``
+    beside its bound and SDPA.  Returns the record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import allowed_sync, h2d
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+
+    t_part = time.perf_counter()
+    device = torch.device("cuda")
+    published = get_config(name)
+    cfg = dataclasses.replace(published, n_layers=WIDE_LAYERS[name]) if name in WIDE_LAYERS else published
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dec32 = cfg32  # decode against forward: with room in the experts, nothing drops in either
+    if cfg.moe is not None:
+        dec32 = dataclasses.replace(cfg32, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    b, t = LM_PREFILL
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_attn = sum(bt in B.ATTN_TYPES for bt in cfg.unit) * cfg.n_units
+    out = {"arch": name, "n_layers": cfg.n_layers, "published_layers": published.n_layers,
+           "n_params": M.n_params(cfg), "batch": b, "tokens": t, "heads": [h, kvh, hd],
+           "expected_flash_launches": n_attn}
+    if name in WIDE_LAYERS:
+        out["cut"] = (f"{published.n_layers} -> {cfg.n_layers} layers: the most whose float32 weights stay under "
+                      f"40 GB (all {published.n_layers}: {4 * M.n_params(published) / 1e9:.1f} GB)")
+    if n_attn:
+        plans = (fa_ops.plan(b, t, t, h, kvh, hd, torch.bfloat16, True),
+                 fa_ops.kernel_plan(b, t, t, h, kvh, hd, torch.bfloat16, True))
+        if plans != ("wgmma", "wgmma"):
+            raise AssertionError(f"{name}'s prefill launch is planned on {plans}, not the wgmma path")
+        out["plan"] = plans[0]
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["weights_bytes"] = sum(a.numel() * a.element_size() for a in M.tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    key = "embeds" if cfg.precomputed_embeddings else "tokens"
+    if cfg.precomputed_embeddings:  # the EnCodec frontend is a stub: frame embeddings come in
+        x = h2d(rng.normal(size=(b, t, cfg.d_model)).astype(np.float32), device)
+    else:
+        x = h2d(rng.integers(0, cfg.vocab, (b, t)).astype(np.int32), device)
+    want_shape = (b, t, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks else (b, t, cfg.vocab)
+    fa_fn = fa_ops.flash_attention
+    fa_args = {}
+
+    def capture_fa(q, k, v, **kw):
+        fa_args.setdefault("args", (q, k, v, kw.get("causal", True)))
+        return fa_fn(q, k, v, **kw)
+
+    slstm = B._MIXERS["slstm"]
+    spans = []
+
+    def timed_slstm(p, xx, c):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = slstm[0](p, xx, c)
+        stop.record()
+        spans.append((start, stop))
+        return y
+
+    with torch.inference_mode():
+        M.forward(params, {key: x[:, :WIDE_WARM_T]}, cfg)  # warm up: cuBLAS at these widths
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.flash_attention = capture_fa
+        B._MIXERS["slstm"] = (timed_slstm, slstm[1])
+        zero_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            logits, _ = M.forward(params, {key: x}, cfg)
+            with allowed_sync():
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            fa_ops.flash_attention = fa_fn
+            B._MIXERS["slstm"] = slstm
+        peak = torch.cuda.max_memory_allocated()
+        shape = tuple(logits.shape)
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        slstm_s = sum(a.elapsed_time(z) for a, z in spans) / 1e3
+        prof = device_profile(lambda: M.forward(params, {key: x}, cfg))
+        # the bf16 backends against the float32 forward on the torch backend
+        one = {key: x[:1, :LM_F32_T]}
+        l32, _ = M.forward(params, one, cfg32, attn_backend="torch")
+        lk, _ = M.forward(params, one, cfg)
+        err_k = float((lk.float() - l32).abs().mean())
+        del lk
+        lt, _ = M.forward(params, one, cfg, attn_backend="torch")
+        err_t = float((lt.float() - l32).abs().mean())
+        scale32 = float(l32.abs().mean())
+        del lt, l32
+        # float32 decode against the forward
+        db, dtn = LM_DECODE
+        xs = x[:db, :dtn]
+        full, _ = M.forward(params, {key: xs}, dec32)
+        dec = decode_all(params, dec32, xs, dtn, device)
+        dec_diff = float((dec - full).abs().max())
+        dec_ok = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
+        del full, dec
+    torch.cuda.empty_cache()
+    nreq, slots, plen, ngen = WIDE_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.precomputed_embeddings:
+        serve, served = frames_serve(cfg, params, nreq, slots, plen, ngen, 2, device)
+        serve_shape = (nreq, ngen + 1, cfg.n_codebooks)
+    else:
+        serve, served = lm_serve(cfg, params, nreq, slots, 2, device, plen=plen, ngen=ngen, profile=False)
+        serve_shape = (nreq, plen + ngen)
+    serve["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    del params, x
+    torch.cuda.empty_cache()
+    out.update({"wall_s": wall, "tokens_per_s": b * t / wall, "peak_mem_bytes": int(peak), "launches": launches,
+                "sync_debug": "error", "logits_shape": shape, "logits_finite": finite,
+                "slstm_s": slstm_s, "slstm_share_of_wall": slstm_s / wall, "slstm_blocks": len(spans),
+                "logits32_mean_abs": scale32, "kernel_vs_float32_mean_abs": err_k, "torch_vs_float32_mean_abs": err_t,
+                "bf16_err_ratio": err_k / err_t if err_t else None, "profile": prof,
+                "device_busy_share": prof.get("device_busy_share"),
+                "decode_shape": list(LM_DECODE), "decode_vs_forward_max_abs": dec_diff, "serve": serve})
+    row = None
+    if "args" in fa_args:
+        q, k, v, causal = fa_args.pop("args")
+        if (tuple(q.shape), tuple(k.shape)) != ((b, t, h, hd), (b, t, kvh, hd)):
+            raise AssertionError(f"{name}'s first launch took q {tuple(q.shape)} and k {tuple(k.shape)}")
+        row = fa_row(q, k, v, causal, WIDE_FA_REPS)
+        del q, k, v
+        torch.cuda.empty_cache()
+        out["fa_launch"] = row
+    out["part_s"] = time.perf_counter() - t_part
+    log(f"full-width LM, {name}: " + json.dumps(out))
+    if launches["flash_attention"] != n_attn or launches["flash_attention_lse"] != 0:
+        raise AssertionError(f"{name}'s prefill launched flash_attention {launches['flash_attention']} times, "
+                             f"not {n_attn}")
+    if not finite or shape != want_shape:
+        raise AssertionError(f"{name}'s prefill logits of shape {shape} (want {want_shape}) are not all finite")
+    if not err_k <= LM_BF16_ERR_RATIO * err_t:
+        raise AssertionError(f"{name}: the kernel backend's bf16 logits are further from float32 than "
+                             f"{LM_BF16_ERR_RATIO} x the torch backend's: {err_k} against {err_t}")
+    if not dec_ok:
+        raise AssertionError(f"{name}: decode differs from forward by more than 2e-3: {dec_diff}")
+    if not serve["identical"] or served[0].shape != serve_shape:
+        raise AssertionError(f"{name}: two serving calls gave different tokens, or of shape {served[0].shape}")
+    if row is not None and not row["max_row_rel_err"] <= WIDE_ROW_TOL:
+        raise AssertionError(f"{name}: a row of the prefill's first launch is {row['max_row_rel_err']} of its "
+                             f"scale from the plain version, past {WIDE_ROW_TOL}")
+    if "slstm" in cfg.unit and len(spans) != cfg.unit.count("slstm") * cfg.n_units:
+        raise AssertionError(f"{name}: {len(spans)} sLSTM blocks timed in the prefill")
+    return out
+
+
+def phase_wide_lm(report, zero_launches, read_launches):
+    """Phase 21: the seven registry architectures that phases 17-20 run
+    only at their smoke configs, at published width, one at a time in
+    WIDE_ARCHS' order (``lm_wide``).  Returns the records by
+    architecture."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    out = {}
+    try:
+        for name in WIDE_ARCHS:
+            out[name] = lm_wide(name, zero_launches, read_launches)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    report["wide_lm"] = {"archs": out}
+    return out
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -3977,6 +4266,23 @@ def main() -> int:
         train_w["flash_attention_bwd_long"]
     log(f"card: {card}")
     mark(20)
+
+    # ---- 21. the seven other registry architectures at published width ----
+    t0 = time.perf_counter()
+    wide = phase_wide_lm(report, zero_launches, read_launches)
+    report["wide_lm"]["phase_s"] = time.perf_counter() - t0
+    for name, rec in wide.items():
+        key = name.split("-")[0]
+        fa_entry[f"launches_{key}_prefill"] = rec["launches"]["flash_attention"]
+        row = rec.get("fa_launch")
+        if row is not None:
+            fa_entry.update({
+                **{f"{key}_{k_}": row[k_] for k_ in ("max_abs_err", "max_row_rel_err", "ms", "kernel_ms", "plain_ms",
+                                                     "library_ms", "bound_ms", "bound_by", "plan")},
+                f"{key}_shape": {k_: row[k_] for k_ in ("B", "T", "S", "H", "K", "hd", "causal", "dtype")},
+            })
+    log(f"card: {card}")
+    mark(21)
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

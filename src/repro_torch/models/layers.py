@@ -406,11 +406,20 @@ def _moe_experts(p, hbuf, dtype):
 
 
 def _moe_combine(ybuf, st, sg, keep, slot, t: int):
-    """Each token's gated sum of its kept choices' expert outputs: an
-    ``index_add_`` (the reference's ``segment_sum``)."""
+    """Each token's gated sum of its kept choices' expert outputs (the
+    reference's ``segment_sum``): every token has k sorted pairs, gathered
+    in their sorted order into (T, k, d) and added from zero one choice at
+    a time, the order in which a sequential segment sum adds them.  No
+    atomics: ``index_add_``'s on the card add in a varying order, and
+    serving a MoE gave different tokens from one call to the next."""
     contrib = ybuf[torch.clamp(slot, max=ybuf.shape[0] - 1)] * sg[:, None].to(ybuf.dtype)
     contrib = torch.where(keep[:, None], contrib, 0.0)
-    return torch.zeros((t, ybuf.shape[1]), dtype=contrib.dtype, device=ybuf.device).index_add_(0, st, contrib)
+    k = st.shape[0] // t
+    per_token = contrib[torch.argsort(st, stable=True)].reshape(t, k, -1)
+    y = torch.zeros((t, ybuf.shape[1]), dtype=contrib.dtype, device=ybuf.device)
+    for j in range(k):
+        y = y + per_token[:, j]
+    return y
 
 
 def _moe_row(p, x, cfg: ModelConfig):

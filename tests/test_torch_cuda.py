@@ -305,6 +305,12 @@ def test_fit_on_card_equals_cpu(cuda):
         # (a group of 6), its prefill launch and ragged tiles
         (1, 2048, 2048, 12, 2, 128, True, "bfloat16"),
         (2, 1000, 1000, 12, 2, 128, False, "bfloat16"),
+        # wgmma path at the other published widths' heads: a GQA group of 7
+        # (deepseek-coder-33b's 56 / 8), of 8 (chameleon-34b's 64 / 8), and
+        # musicgen-medium's 24 heads of 64
+        (1, 1000, 1000, 7, 1, 128, True, "bfloat16"),
+        (1, 1000, 1000, 8, 1, 128, True, "bfloat16"),
+        (2, 1000, 1000, 24, 24, 64, True, "bfloat16"),
     ],
 )
 def test_flash_attention_matches_plain(cuda, b, t, s, h, kvh, hd, causal, dtype):
@@ -1034,3 +1040,30 @@ def test_lm_windowed_gradient_on_card_equals_cpu(cuda, name):
             continue
         scale = max(float(gc.abs().max()), 1e-30)
         assert float((gd.cpu() - gc).abs().max()) <= 1e-4 * scale
+
+
+def test_moe_apply_on_card_is_deterministic(cuda):
+    """The MoE layer at moonshot-v1-16b-a3b's routing (64 experts, top-6,
+    capacity 1.25, where tokens drop) in bf16 on the card: two calls on one
+    input give the same bits (the combine adds each token's choices in
+    order, without atomics), and the float32 layer is within 1e-5 of the
+    output's scale of the CPU port's."""
+    import dataclasses
+
+    from repro_torch.models import layers as LML
+
+    cfg = smoke_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=64, top_k=6, d_expert_ff=64))
+    p = LML.moe_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4096, cfg.d_model)).astype(np.float32))
+    pd = {k: v.to(cuda) for k, v in p.items()}
+    with torch.inference_mode():
+        _, _, _, _, _, keep, _ = LML._moe_route(pd, x.to(cuda), cfg)
+        assert not bool(keep.all())
+        xb = x.to(cuda, torch.bfloat16)
+        first, _ = LML.moe_apply(pd, xb, cfg)
+        for _ in range(3):
+            assert torch.equal(LML.moe_apply(pd, xb, cfg)[0], first)
+        y32, _ = LML.moe_apply(pd, x.to(cuda), cfg)
+        y_cpu, _ = LML.moe_apply(p, x, cfg)
+    assert float((y32.cpu() - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())

@@ -46,13 +46,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _cfgs(name, moe_capacity=None, **kw):
-    """The reference's and the port's float32 smoke configs of ``name``."""
+def _cfgs(name, moe_capacity=None, moe=None, **kw):
+    """The reference's and the port's float32 smoke configs of ``name``,
+    with ``kw`` and the MoE fields in ``moe`` replaced."""
+    moe = dict(moe or {}, **({} if moe_capacity is None else {"capacity_factor": moe_capacity}))
     out = []
     for smoke in (jax_smoke_config, smoke_config):
         cfg = dataclasses.replace(smoke(name), dtype="float32", **kw)
-        if moe_capacity is not None:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=moe_capacity))
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
         out.append(cfg)
     return out
 
@@ -220,6 +222,116 @@ def test_head_size_80_matches_reference():
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
 
 
+# The published configs' features that the smoke configs drop (d_model 64, 4
+# heads of 16, at most 2 kv heads, 4 experts of top-2), put back at small
+# width over one unit: (smoke config overrides, MoE overrides, (B, T))
+FULL_WIDTH = {
+    # hd 64 over 4 codebook heads, the frames' embeddings as input
+    "musicgen-medium": (dict(d_model=128, n_heads=2, n_kv_heads=2, d_head=None), None, (2, 16)),
+    # a GQA group of 7 (56 / 8 at full width)
+    "deepseek-coder-33b": (dict(d_model=112, n_heads=7, n_kv_heads=1, d_head=16), None, (2, 16)),
+    # a group of 8 with qk_norm ahead of the attention
+    "chameleon-34b": (dict(d_model=128, n_heads=8, n_kv_heads=1, d_head=16), None, (2, 16)),
+    # d_head set apart from d_model / n_heads: q width 128 against d_model 64
+    "mistral-nemo-12b": (dict(d_model=64, n_heads=4, n_kv_heads=1, d_head=32), None, (2, 16)),
+    # a group of 4
+    "granite-8b": (dict(d_model=128, n_heads=8, n_kv_heads=2, d_head=16), None, (2, 16)),
+    # 64 experts, top-6, at the default capacity 1.25, where tokens drop
+    "moonshot-v1-16b-a3b": ({}, dict(n_experts=64, top_k=6, d_expert_ff=16), (2, 64)),
+    # head size 192 in the mLSTM's chunk math and the sLSTM's step
+    "xlstm-125m": (dict(d_model=768, n_heads=4, n_kv_heads=4, d_head=None), None, (2, 128)),
+}
+_FULL_WIDTH = {}
+
+
+def _full_width(name):
+    """The reference's forward and loss on ``name``'s full-width case, once."""
+    if name not in _FULL_WIDTH:
+        kw, moe, (b, t) = FULL_WIDTH[name]
+        cfg_j, cfg = _cfgs(name, moe=moe, **kw)
+        pj, p = _weights(cfg_j, cfg, seed=7)
+        batch = _batch(cfg, b, t, 7)
+        bj = {k: jnp.asarray(v) for k, v in batch.items()}
+        logits, aux = jax.jit(lambda p_, b_: JM.forward(p_, b_, cfg_j))(pj, bj)
+        loss = jax.jit(lambda p_, b_: JM.loss_fn(p_, b_, cfg_j))(pj, bj)
+        _FULL_WIDTH[name] = (cfg_j, cfg, pj, p, batch, np.asarray(logits), float(aux), float(loss))
+    return _FULL_WIDTH[name]
+
+
+def _inputs(cfg, batch, i):
+    """Step ``i``'s decode input: a token, or the audio stub's frame."""
+    key = "embeds" if cfg.precomputed_embeddings else "tokens"
+    return {key: batch[key][:, i : i + 1]}
+
+
+@pytest.mark.parametrize("backend", L.BACKENDS)
+@pytest.mark.parametrize("name", sorted(FULL_WIDTH))
+def test_full_width_forward_and_loss_match_reference(name, backend):
+    """``JM.forward`` and ``JM.loss_fn`` at the case's full-width features:
+    logits, aux and loss within TOL on either backend; musicgen's logits
+    are (B, T, 4, V); moonshot's tokens drop at capacity 1.25 (its logits
+    differ from those at capacity 16)."""
+    cfg_j, cfg, _, p, batch, logits_j, aux_j, loss_j = _full_width(name)
+    assert cfg.head_dim == cfg_j.head_dim and (cfg.n_heads, cfg.n_kv_heads) == (cfg_j.n_heads, cfg_j.n_kv_heads)
+    with torch.no_grad():
+        logits, aux = M.forward(p, _torch(batch), cfg, attn_backend=backend)
+        loss = M.loss_fn(p, _torch(batch), cfg, attn_backend=backend)
+    b, t = next(iter(batch.values())).shape[:2]
+    want_shape = (b, t, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks else (b, t, cfg.vocab)
+    assert logits.shape == logits_j.shape == want_shape
+    np.testing.assert_allclose(logits.numpy(), logits_j, **TOL)
+    np.testing.assert_allclose(float(aux), aux_j, **TOL)
+    np.testing.assert_allclose(float(loss), loss_j, rtol=1e-5)
+    if cfg.moe is not None:
+        roomy = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+        with torch.no_grad():
+            undropped, _ = M.forward(p, _torch(batch), roomy, attn_backend=backend)
+        assert not torch.allclose(logits, undropped, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(FULL_WIDTH))
+def test_full_width_decode_steps_match_reference(name):
+    """``JM.decode_step`` at the case's full-width features: every step's
+    logits and every cache tensor after it, within TOL, over 10 steps."""
+    cfg_j, cfg, pj, p, _, _, _, _ = _full_width(name)
+    b, t = 2, 10
+    batch = _batch(cfg, b, t, 8)
+    cache_j = JM.cache_init(cfg_j, b, t)
+    cache = lm_cache_from_reference(cache_j, device="cpu")
+    step_j = jax.jit(lambda p_, c_, x_: JM.decode_step(p_, c_, x_, cfg_j))
+    for i in range(t):
+        x = _inputs(cfg, batch, i)
+        logits_j, cache_j = step_j(pj, cache_j, {k: jnp.asarray(v) for k, v in x.items()})
+        with torch.no_grad():
+            logits, _ = M.decode_step(p, cache, _torch(x), cfg)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j), **TOL)
+        want = jax.tree_util.tree_leaves(dict(cache_j))
+        got = jax.tree_util.tree_leaves(M.tree_map(lambda a: a.numpy(), cache))
+        assert len(want) == len(got)
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g, np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(FULL_WIDTH))
+def test_full_width_decode_matches_forward(name):
+    """Token-by-token decode == the full-sequence forward on both backends
+    (``tests/test_models.py::test_decode_matches_forward`` at the case's
+    full-width features), within 2e-3 over 2 x 12 steps; MoE at capacity
+    16, where nothing drops."""
+    _, cfg, _, p, _, _, _, _ = _full_width(name)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    b, t = 2, 12
+    x = _torch(_batch(cfg, b, t, 9))
+    x.pop("labels")
+    with torch.no_grad():
+        cache = M.cache_init(cfg, b, t, device="cpu")
+        dec = torch.stack([M.decode_step(p, cache, _inputs(cfg, x, i), cfg)[0][:, 0] for i in range(t)], 1)
+        for backend in L.BACKENDS:
+            full, _ = M.forward(p, x, cfg, attn_backend=backend)
+            np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("backend", L.BACKENDS)
 def test_chunked_attention_matches_direct(backend, monkeypatch):
     """T > Q_CHUNK path == direct path, and both == the reference's chunked
@@ -286,6 +398,25 @@ def test_moe_apply_matches_reference(name):
     assert dropped.any() and not dropped.all()  # the default capacity drops tokens
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(keep.numpy(), ~dropped[sorted_pairs])
+
+
+def test_moe_combine_adds_each_token_in_sorted_order():
+    """``_moe_combine`` adds each token's kept choices to zero in the sorted
+    pairs' order, as a sequential ``segment_sum`` (the reference's, at
+    ``src/repro/models/layers.py:458``) adds them: bit for bit against a
+    numpy loop over the pairs, at 64 experts, top-6, where tokens drop."""
+    _, cfg = _cfgs("moonshot-v1-16b-a3b", moe=dict(n_experts=64, top_k=6, d_expert_ff=16))
+    p = L.moe_init(torch.Generator().manual_seed(5), cfg)
+    t, d, e = 64, cfg.d_model, cfg.moe.n_experts
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(t, d)).astype(np.float32))
+    _, _, cap, st, sg, keep, slot = L._moe_route(p, x, cfg)
+    assert not keep.all()
+    ybuf = torch.from_numpy(np.random.default_rng(6).normal(size=(e * cap, d)).astype(np.float32))
+    contrib = torch.where(keep[:, None], ybuf[torch.clamp(slot, max=e * cap - 1)] * sg[:, None], 0.0).numpy()
+    want = np.zeros((t, d), dtype=np.float32)
+    for i, tok in enumerate(st.numpy()):
+        want[tok] += contrib[i]
+    np.testing.assert_array_equal(L._moe_combine(ybuf, st, sg, keep, slot, t).numpy(), want)
 
 
 def test_moe_routing_is_sparse():

@@ -8,6 +8,7 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases bwd,train          # the LM's training alone
     python3 tools/smoke_phases.py --phases mesh               # the LM's (1, 1) mesh step alone
     python3 tools/smoke_phases.py --phases windowed           # zamba2 and mixtral with the window
+    python3 tools/smoke_phases.py --phases wide               # the seven other architectures at full width
 
 Builds the kernels, prints the card line, and runs, in order:
 
@@ -36,7 +37,13 @@ Builds the kernels, prints the card line, and runs, in order:
 - ``windowed``: phase 20 (zamba2-2.7b at 54 layers and mixtral-8x7b at
   full width, 2 layers, prefilling 32,768 tokens through the windowed
   kernels; a zamba2 training step at ``--train-units`` units, 3 by
-  default), then ``flash_attention`` at both prefills' first launches.
+  default), then ``flash_attention`` at both prefills' first launches;
+- ``wide``: phase 21 (musicgen-medium, granite-8b, mistral-nemo-12b,
+  deepseek-coder-33b, chameleon-34b, moonshot-v1-16b-a3b and xlstm-125m
+  at published width, the last three of the attention models at cut
+  depth: a 4 x 2,048 prefill through the kernels, the bf16 and decode
+  checks, serving, each prefill's first launch against the plain
+  version and timed).
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -128,6 +135,8 @@ def main() -> int:
             print(f"kernel timing: flash_attention on the {key} prefill path "
                   + json.dumps(report[f"flash_attention_{key}_shape"]), flush=True)
         del prefills, q, k, v
+    if "wide" in phases:
+        timed("wide", lambda: cs.phase_wide_lm(report, zero, read))
     ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
