@@ -111,7 +111,7 @@ Phases, in order; any failure exits non-zero:
    main paths, max difference from the plain version, kernel / plain /
    bound / library times at the main path's largest launch), the card
    line, and last ``{"ok": true, "device": {...}}``.  The full record
-   goes to ``build/chip_smoke.json``.  Phases 9-21 run between phase 8's
+   goes to ``build/chip_smoke.json``.  Phases 9-22 run between phase 8's
    timing and those last lines (the backward's kernels entry, at the shape
    of phase 16's first backward launch, after phase 16; the LM's
    ``flash_attention`` keys after phase 17; the long backward's entry, at
@@ -321,6 +321,32 @@ Phases, in order; any failure exits non-zero:
    (events, ``torch.profiler``, plain, SDPA, the operations bound); the
    ``flash_attention`` entry gains ``launches_<arch>_prefill`` and the
    ``<arch>_*`` times.
+22. examples — the JAX package's five example scripts as the port's
+   entry points (``repro_torch.examples``), each ``main`` run on the card
+   as a user runs it, at the script's own defaults: ``quickstart``
+   (HI-Small at scale 0.5, 30 trees), ``streaming_detection`` (0.3, 8
+   ticks, and the documented 1.0, 12 ticks), ``train_aml_pipeline`` (0.4,
+   five feature sets of 40 trees, FraudGT for 3 epochs), ``serve_lm``
+   (qwen2-1.5b's and xlstm-125m's smoke configs, 8 requests of 12 + 24
+   tokens, 48 slots) and ``trace_capture`` (0.2, traces under
+   ``build/examples/``), each with its counts zeroed before and read
+   after.  Asserted: the examples' own checks (``roundtrip3`` equal to
+   the port's ``GFPReference``, the incremental ``cycle3`` equal to the
+   batch recompute, the ``full`` F1 above 0, both traces holding
+   ``dispatch:shard0`` ... ``dispatch:shard7`` and
+   ``tick:ingest/plan/mine/score``, the served tokens of (8, 36) with the
+   prompt kept); ``intersect_count`` launched in the mining examples, both
+   ``hist_update`` entries in the pipelines, the attention forward with
+   the logsumexp and the short backward in FraudGT's fit, no attention
+   kernel in serving.  Then each example's function on the card and on
+   the CPU port at one small size (``EXAMPLE_CHECK``): integer outputs
+   equal (portfolio columns, ``roundtrip3``, every tick's counters, alerts
+   and scores, span-name counts), the GBDT fits by phase 6's rule (equal
+   trees and then equal F1, or a first difference at a near tie),
+   FraudGT's card-trained weights scoring the test split on the CPU
+   within 1e-4, serving's float32 smoke logits within 1e-4.  One JSON
+   line an example (wall, printed numbers, launches); every kernels entry
+   gains ``launches_examples``.
 
 It imports torch, numpy and ``repro_torch`` only.
 """
@@ -328,6 +354,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import subprocess
@@ -708,6 +735,29 @@ WIDE_WARM_T = 512
 WIDE_ROW_TOL = 2.0 ** -7
 WIDE_FA_REPS = 10
 WIDE_SERVE = (4, 4096, 16, 8)
+
+# phase 22: the JAX package's five examples as the port's entry points,
+# each run by its main at the script's own defaults (streaming_detection
+# also at its documented --scale 1.0 --batches 12), then the card against
+# the CPU port at one small size each, the same on both sides
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart", ()),
+    ("streaming_detection", "streaming_detection", ()),
+    ("streaming_detection_scale1", "streaming_detection", ("--scale", "1.0", "--batches", "12")),
+    ("train_aml_pipeline", "train_aml_pipeline", ()),
+    ("serve_lm", "serve_lm", ()),
+    ("trace_capture", "trace_capture", ("--out-dir", str(ROOT / "build" / "examples" / "traces"))),
+)
+EXAMPLE_CHECK = {"quickstart": {"scale": 0.1, "trees": 5}, "streaming_detection": {"scale": 0.1, "batches": 4},
+                 "train_aml_pipeline": {"scale": 0.1, "trees": 5, "epochs": 1}, "trace_capture": {"scale": 0.05}}
+EXAMPLE_SERVE = (8, 12, 24, 48)  # serve_lm's batch, prompt, new tokens, cache, as the script's
+EXAMPLE_PROBA_TOL = 1e-4  # phase 7's: FraudGT's probabilities from the same weights, card and CPU
+EXAMPLE_LOGIT_TOL = 1e-4  # phase 17 (d)'s: float32 smoke logits, card and CPU
+# what the returned records hold beside the printed numbers: arrays and
+# objects for the checks, kept out of the example's JSON line
+EXAMPLE_BULKY = ("plan_text", "counts", "roundtrip3_counts", "roundtrip3_oracle", "pipeline", "results",
+                 "fraudgt_proba", "prompts", "tokens", "sharded_counts", "sharded_summary", "exposition", "alerts",
+                 "scores")
 
 
 def log(msg: str) -> None:
@@ -3723,6 +3773,288 @@ def phase_wide_lm(report, zero_launches, read_launches):
     return out
 
 
+class _Tee:
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+@contextlib.contextmanager
+def fresh_obs():
+    """A tracer and a metrics registry of their own, as an example script
+    has in a fresh process, without the earlier phases' spans; the
+    process's own are put back after."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    previous = obs_trace.set_tracer(obs_trace.Tracer()), obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    try:
+        yield
+    finally:
+        obs_trace.set_tracer(previous[0])
+        obs_metrics.set_registry(previous[1])
+
+
+def example_numbers(x):
+    """An example's returned record without the arrays and objects kept
+    for the checks (EXAMPLE_BULKY): its printed numbers."""
+    if isinstance(x, dict):
+        return {k: example_numbers(v) for k, v in x.items() if k not in EXAMPLE_BULKY}
+    if isinstance(x, (list, tuple)):
+        return [example_numbers(v) for v in x]
+    return x
+
+
+def comparable_ticks(ticks) -> list:
+    """An example's tick records without their walls, and with span ids,
+    which run on across a process's runs, as spans since the first tick."""
+    first = ticks[0].get("span_id") if ticks else None
+    return [{**{k: v for k, v in t.items() if k not in ("seconds", "span_id")},
+             **({} if first is None else {"spans_since_first": t["span_id"] - first})} for t in ticks]
+
+
+def gbdt_against_cpu(card, cpu, what: str) -> dict:
+    """Phase 6's rule for one pipeline fitted on the card and on the CPU
+    (``PipelineResult`` each): the trees split alike, or first differ at a
+    near tie of the two gains (``first_split_difference``); where they
+    split alike, F1, precision and recall are equal too."""
+    from repro_torch.ml.gbdt import first_split_difference
+
+    diff = first_split_difference(card.classifier, cpu.classifier, card.n_train)
+    row = {"first_difference": diff, "f1": [card.f1, cpu.f1]}
+    if diff is None and (card.f1, card.precision, card.recall) != (cpu.f1, cpu.precision, cpu.recall):
+        raise AssertionError(f"{what}: the trees split alike on the card and the CPU, but F1, precision or recall "
+                             f"differ: {(card.f1, card.precision, card.recall)} against "
+                             f"{(cpu.f1, cpu.precision, cpu.recall)}")
+    if diff is not None and not diff["near_tie"]:
+        raise AssertionError(f"{what}: the card and the CPU split differently where the gains are no near tie: {diff}")
+    return row
+
+
+def examples_against_cpu(device, zero_launches, read_launches) -> dict:
+    """Phase 22's second half: each example's function on ``device`` (the
+    card) and on the CPU port at EXAMPLE_CHECK's size (EXAMPLE_SERVE for
+    serve_lm), the same inputs on both sides, each run as in a fresh
+    process (``fresh_obs``).  Integer outputs equal (portfolio columns,
+    roundtrip3, every tick's counters, alerts and scores, the traces'
+    span-name counts and part counters); the GBDT fits by
+    ``gbdt_against_cpu``; FraudGT's card-trained weights scoring the test
+    split on the CPU within EXAMPLE_PROBA_TOL of the card; serve_lm's
+    float32 smoke logits within EXAMPLE_LOGIT_TOL.  Returns the record."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.convert import fraudgt_params_numpy
+    from repro_torch.data import generate_aml_dataset
+    from repro_torch.data.loader import temporal_split
+    from repro_torch.examples import quickstart, serve_lm, streaming_detection, trace_capture, train_aml_pipeline
+    from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
+    from repro_torch.models import model as M
+
+    out = {}
+
+    def both(fn):
+        # fn(device, side): the card's run, then the CPU's, each as in a
+        # fresh process, their printing kept out of the log
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            with fresh_obs():
+                card = fn(device, "card")
+            t1 = time.perf_counter()
+            with fresh_obs():
+                cpu = fn(torch.device("cpu"), "cpu")
+            t2 = time.perf_counter()
+        return card, cpu, {"card_s": t1 - t0, "cpu_s": t2 - t1}
+
+    # quickstart: the portfolio's columns, roundtrip3, the full pipeline
+    c = EXAMPLE_CHECK["quickstart"]
+    ds = generate_aml_dataset("HI-Small", seed=0, scale=c["scale"])
+    card, cpu, row = both(lambda d, _: quickstart.run(ds, trees=c["trees"], device=d))
+    if not (np.array_equal(card["counts"], cpu["counts"]) and card["columns"] == cpu["columns"]
+            and np.array_equal(card["roundtrip3_counts"], cpu["roundtrip3_counts"])
+            and card["kernel_calls"] == cpu["kernel_calls"] and card["plan_text"] == cpu["plan_text"]):
+        raise AssertionError("quickstart: the card's portfolio columns, roundtrip3 or plan differ from the CPU's")
+    row.update({**c, "n_edges": card["n_edges"], "counts_equal": True,
+                "gbdt": gbdt_against_cpu(card["pipeline"], cpu["pipeline"], "quickstart's full pipeline")})
+    out["quickstart"] = row
+
+    # streaming_detection: every tick's counters, alerts and scores
+    c = EXAMPLE_CHECK["streaming_detection"]
+    g = generate_aml_dataset("HI-Small", seed=3, scale=c["scale"]).graph
+    card, cpu, row = both(lambda d, _: streaming_detection.run(g, batches=c["batches"], device=d))
+    if (comparable_ticks(card["ticks"]) != comparable_ticks(cpu["ticks"]) or card["totals"] != cpu["totals"]
+            or not all(np.array_equal(card["counts"][n], cpu["counts"][n]) for n in cpu["counts"])):
+        raise AssertionError("streaming_detection: the card's ticks, alerts or counts differ from the CPU's")
+    row.update({**c, "ticks": len(card["ticks"]), "alerts": card["total_alerts"], "equal": True})
+    out["streaming_detection"] = row
+
+    # train_aml_pipeline: five GBDT fits; FraudGT trained on the card, its
+    # weights scoring the test split on the CPU; and, for the record, a
+    # FraudGT trained on the CPU from the same init
+    c = EXAMPLE_CHECK["train_aml_pipeline"]
+    ds = generate_aml_dataset("HI-Small", seed=0, scale=c["scale"])
+    fts = {}
+
+    def train(d, side):
+        fts[side] = FraudGT(FraudGTParams(epochs=c["epochs"]), device=d)
+        return train_aml_pipeline.run(ds, fts[side], trees=c["trees"], device=d)
+
+    card, cpu, row = both(train)
+    row.update(c)
+    row["gbdt"] = {fs: gbdt_against_cpu(card["results"][fs], cpu["results"][fs], f"the {fs} pipeline")
+                   for fs in train_aml_pipeline.FEATURE_SETS}
+    ft = fts["card"]
+    same = FraudGT(ft.p, device="cpu").load_params(fraudgt_params_numpy(ft))
+    same.amount_edges = ft.amount_edges
+    _, test_ids = temporal_split(ds)
+    err = float(np.abs(same.predict_proba(ds.graph, test_ids) - card["fraudgt_proba"]).max())
+    row["fraudgt"] = {"test_edges": int(len(test_ids)), "same_weights_max_abs": err,
+                      "cpu_fit_max_abs": float(np.abs(cpu["fraudgt_proba"] - card["fraudgt_proba"]).max()),
+                      "f1": [card["fraudgt_f1"], cpu["fraudgt_f1"]]}
+    out["train_aml_pipeline"] = row
+    if not err <= EXAMPLE_PROBA_TOL:
+        raise AssertionError(f"train_aml_pipeline: FraudGT's card-trained weights score the test split on the CPU "
+                             f"{err} from the card, past {EXAMPLE_PROBA_TOL}")
+
+    # serve_lm: float32 smoke weights drawn on the CPU, the same on the card
+    b, plen, ngen, cache = EXAMPLE_SERVE
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    rows = {}
+    try:
+        for arch in serve_lm.ARCHS:
+            cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+            p_cpu = M.init_params(cfg, SEED, device="cpu")
+            p_dev = M.tree_map(lambda a: a.to(device), p_cpu)
+            card, cpu, r = both(lambda d, side: serve_lm.serve(arch, cfg, p_dev if side == "card" else p_cpu,
+                                                               b, plen, ngen, cache))
+            toks = torch.from_numpy(card["tokens"])
+            zero_launches()
+            with torch.inference_mode():
+                lg_d, _ = M.forward(p_dev, {"tokens": toks.to(device)}, cfg)
+                lg_c, _ = M.forward(p_cpu, {"tokens": toks}, cfg)
+            r.update({"logits_max_abs": float((lg_d.cpu() - lg_c).abs().max()),
+                      "logits_close": bool(torch.allclose(lg_d.cpu(), lg_c, rtol=EXAMPLE_LOGIT_TOL,
+                                                          atol=EXAMPLE_LOGIT_TOL)),
+                      "tokens_equal": bool(np.array_equal(card["tokens"], cpu["tokens"])),
+                      "forward_launches": read_launches()["flash_attention"]})
+            rows[arch] = r
+            del p_dev, lg_d
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["serve_lm"] = {"shape": [b, plen, ngen, cache], "archs": rows}
+    bad = [a for a, r in rows.items() if not r["logits_close"]]
+    if bad:
+        raise AssertionError(f"serve_lm: the card's float32 logits differ from the CPU's past {EXAMPLE_LOGIT_TOL} "
+                             f"for {bad}: {rows}")
+
+    # trace_capture: the parts' counters and counts, the ticks, the span names
+    c = EXAMPLE_CHECK["trace_capture"]
+    ds = generate_aml_dataset("HI-Small", seed=0, scale=c["scale"])
+    base = ROOT / "build" / "examples" / "check"
+    card, cpu, row = both(lambda d, side: trace_capture.run(ds, out_dir=str(base / side), device=d))
+    keys = ("sharded_kernel_calls", "sharded_host_syncs", "sharded_spans", "streaming_spans", "span_names")
+    if (any(card[k] != cpu[k] for k in keys) or comparable_ticks(card["ticks"]) != comparable_ticks(cpu["ticks"])
+            or not np.array_equal(card["sharded_counts"], cpu["sharded_counts"])):
+        raise AssertionError("trace_capture: the card's counters, ticks or span names differ from the CPU's: "
+                             + json.dumps({k: [card[k], cpu[k]] for k in keys}))
+    row.update({**c, "span_names": card["span_names"], "equal": True})
+    out["trace_capture"] = row
+    return out
+
+
+def phase_examples(device, report, zero_launches, read_launches) -> dict:
+    """Phase 22: the JAX package's five example scripts as the port's
+    entry points (``repro_torch.examples``), each ``main`` run on the card
+    as a user runs it, at the script's own defaults (EXAMPLE_RUNS), its
+    launch counts zeroed before and read after; each example's own checks
+    (roundtrip3 equal to the oracle, the incremental cycle3 equal to the
+    batch recompute, the full pipeline's F1 above 0, both traces holding
+    ``dispatch:shard0..7`` and ``tick:ingest/plan/mine/score`` and no span
+    of another run, the served tokens of (8, 36) with the prompt kept) and
+    the kernels each reaches:
+    ``intersect_count`` in the mining examples, both ``hist_update``
+    entries in the pipelines, the attention forward with the logsumexp
+    and the short backward in FraudGT's fit, and no attention kernel in
+    serving.  One JSON line an example: wall, printed numbers, launches.
+    Then ``examples_against_cpu``.  Returns each run's launch counts."""
+    import importlib
+    import io
+
+    import numpy as np
+
+    runs, launches = {}, {}
+    for label, name, argv in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with fresh_obs(), contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            got = mod.main(list(argv))
+        wall = time.perf_counter() - t0
+        launches[label] = read_launches()
+        row = {"example": name, "argv": list(argv), "wall_s": wall, "launches": launches[label],
+               "printed": example_numbers(got)}
+        runs[label] = {**row, "output_lines": len(buf.getvalue().splitlines())}
+        log(f"example {label}: " + json.dumps(row, default=str))
+        ln = launches[label]
+        mining = name in ("quickstart", "streaming_detection", "trace_capture")
+        pipeline = name in ("quickstart", "train_aml_pipeline")
+        if mining and not ln["intersect_count"] > 0:
+            raise AssertionError(f"{label} launched intersect_count no time")
+        if pipeline and not ln["hist_update"] > ln["hist_update_rows"] > 0:
+            raise AssertionError(f"{label} did not launch both hist_update entries: {ln}")
+        if name == "train_aml_pipeline":
+            if not (ln["flash_attention"] > 0 and ln["flash_attention_lse"] > 0 and ln["flash_attention_bwd"] > 0):
+                raise AssertionError(f"{label}: FraudGT did not train through the attention kernels: {ln}")
+        elif ln["flash_attention"] or ln["flash_attention_bwd"]:
+            raise AssertionError(f"{label} launched flash_attention: {ln}")
+        if name == "quickstart":
+            if not (np.array_equal(got["roundtrip3_counts"], got["roundtrip3_oracle"]) and got["f1"] > 0):
+                raise AssertionError(f"quickstart: roundtrip3 differs from the oracle or F1 is {got['f1']}")
+        if name == "streaming_detection" and not got["cycle3_equal"]:
+            raise AssertionError(f"{label}: the incremental cycle3 differs from the batch recompute")
+        if name == "train_aml_pipeline" and not got["pipelines"]["full"]["f1"] > 0:
+            raise AssertionError("train_aml_pipeline: the full feature set detected nothing")
+        if name == "serve_lm":
+            for arch, r in got.items():
+                p = r["prompts"].shape[1]
+                if r["tokens"].shape != (8, 36) or not np.array_equal(r["tokens"][:, :p], r["prompts"]):
+                    raise AssertionError(f"serve_lm {arch}: tokens of shape {r['tokens'].shape}, or the prompt lost")
+        if name == "trace_capture":
+            want = {"sharded_mine": ({f"dispatch:shard{k}" for k in range(8)}, got["sharded_spans"]),
+                    "streaming": ({"tick:ingest", "tick:plan", "tick:mine", "tick:score"}, got["streaming_spans"])}
+            for key, (names, n_spans) in want.items():
+                with open(got["paths"][key]) as f:
+                    events = json.load(f)["traceEvents"]
+                held = {e["name"] for e in events}
+                if not names <= held:
+                    raise AssertionError(f"trace_capture: {key}'s trace lacks {sorted(names - held)}")
+                if len(events) != n_spans:
+                    raise AssertionError(f"trace_capture: {key}'s trace holds {len(events)} spans, not {n_spans}")
+            if "tick" in got["span_names"]["sharded_mine"]:
+                raise AssertionError("trace_capture: the sharded mine's trace holds a streaming tick")
+    t0 = time.perf_counter()
+    check = examples_against_cpu(device, zero_launches, read_launches)
+    check["phase_s"] = time.perf_counter() - t0
+    log("examples, the card against the CPU port: " + json.dumps(check, default=str))
+    report["examples"] = {"runs": runs, "against_cpu": check}
+    return launches
+
+
 def same_trees(a, b) -> bool:
     """Bit-equal splits, gains and leaves."""
     import numpy as np
@@ -4283,6 +4615,25 @@ def main() -> int:
             })
     log(f"card: {card}")
     mark(21)
+
+    # ---- 22. the JAX package's five examples as the port's entry points ----
+    t0 = time.perf_counter()
+    ex = phase_examples(device, report, zero_launches, read_launches)
+    report["examples"]["phase_s"] = time.perf_counter() - t0
+    per_entry = {  # each kernels entry's launches out of a run's counts
+        "intersect_count": lambda ln: ln["intersect_count"],
+        "hist_update": lambda ln: ln["hist_update"] - ln["hist_update_rows"],
+        "hist_update_rows": lambda ln: ln["hist_update_rows"],
+        "window_degree": lambda ln: ln["window_degree"],
+        "flash_attention": lambda ln: ln["flash_attention"],
+        "flash_attention_bwd": lambda ln: ln["flash_attention_bwd"] - ln["flash_attention_bwd_long"],
+        "flash_attention_bwd_long": lambda ln: ln["flash_attention_bwd_long"],
+    }
+    for entry in kernels:
+        entry["launches_examples"] = {label: per_entry[entry["name"]](ln) for label, ln in ex.items()}
+    fa_entry["launches_examples_lse"] = {label: ln["flash_attention_lse"] for label, ln in ex.items()}
+    log(f"card: {card}")
+    mark(22)
 
     report["kernels"] = kernels
     out = ROOT / "build" / "chip_smoke.json"

@@ -43,8 +43,9 @@ FEATURE_SETS = {
 class PipelineResult:
     """The reference's result fields, plus ``fit_seconds`` (the fit's
     split into host binning and device rounds, see
-    :class:`~repro_torch.ml.gbdt.GBDTClassifier`) and ``mining`` (the
-    pipeline's own mine with its counters; ``None`` without patterns)."""
+    :class:`~repro_torch.ml.gbdt.GBDTClassifier`), ``mining`` (the
+    pipeline's own mine with its counters; ``None`` without patterns) and
+    ``classifier`` (the fitted GBDT, whose trees a check can compare)."""
 
     dataset: str
     feature_set: str
@@ -58,6 +59,7 @@ class PipelineResult:
     n_test: int
     fit_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     mining: Optional[MiningResult] = None
+    classifier: Optional[GBDTClassifier] = None
 
 
 def run_aml_pipeline(
@@ -116,4 +118,5 @@ def run_aml_pipeline(
         n_test=len(test_ids),
         fit_seconds=dict(clf.fit_seconds),
         mining=mining,
+        classifier=clf,
     )

@@ -1067,3 +1067,44 @@ def test_moe_apply_on_card_is_deterministic(cuda):
         y32, _ = LML.moe_apply(pd, x.to(cuda), cfg)
         y_cpu, _ = LML.moe_apply(p, x, cfg)
     assert float((y32.cpu() - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())
+
+
+EXAMPLE_FLAGS = {
+    "quickstart": ["--scale", "0.05", "--trees", "2"],
+    "streaming_detection": ["--scale", "0.05", "--batches", "2"],
+    "train_aml_pipeline": ["--scale", "0.05", "--trees", "2", "--epochs", "1"],
+    "serve_lm": ["--batch", "2", "--prompt", "3", "--gen", "2", "--cache", "6"],
+    "trace_capture": ["--scale", "0.05"],
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_FLAGS))
+def test_example_on_card_reaches_its_kernels(cuda, name, tmp_path):
+    """Each of the JAX package's examples, as the port's entry point, on
+    the card at its smallest flags (no ``--device``: the card is the
+    default): the mining examples launch ``intersect_count``, the
+    pipelines both ``hist_update`` entries, FraudGT's fit the attention
+    forward with the logsumexp and its backward, and serving no
+    attention kernel (``generate`` decodes through torch ops)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    flags = EXAMPLE_FLAGS[name] + (["--out-dir", str(tmp_path)] if name == "trace_capture" else [])
+    ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = 0
+    fa_ops.launches = fa_ops.lse_launches = fa_ops.bwd_launches = 0
+    out = mod.main(flags)
+    got = {"ic": ic_ops.launches, "hu": hu_ops.launches, "hu_rows": hu_ops.rows_launches,
+           "fa": fa_ops.launches, "fa_lse": fa_ops.lse_launches, "fa_bwd": fa_ops.bwd_launches}
+    if name in ("quickstart", "streaming_detection", "trace_capture", "train_aml_pipeline"):
+        assert got["ic"] > 0, got
+    if name in ("quickstart", "train_aml_pipeline"):
+        assert got["hu"] > got["hu_rows"] > 0, got
+    if name == "train_aml_pipeline":
+        assert got["fa"] > 0 and got["fa_lse"] > 0 and got["fa_bwd"] > 0, got
+        assert np.isfinite(out["fraudgt_proba"]).all()
+    else:
+        assert got["fa"] == 0, got
+    if name == "trace_capture":
+        assert {f"dispatch:shard{k}" for k in range(8)} <= set(out["span_names"]["sharded_mine"])
+    if name == "serve_lm":
+        assert all(r["shape"] == (2, 5) for r in out.values())

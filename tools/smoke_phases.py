@@ -9,6 +9,7 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases mesh               # the LM's (1, 1) mesh step alone
     python3 tools/smoke_phases.py --phases windowed           # zamba2 and mixtral with the window
     python3 tools/smoke_phases.py --phases wide               # the seven other architectures at full width
+    python3 tools/smoke_phases.py --phases examples           # the JAX package's five examples as entry points
 
 Builds the kernels, prints the card line, and runs, in order:
 
@@ -43,7 +44,11 @@ Builds the kernels, prints the card line, and runs, in order:
   at published width, the last three of the attention models at cut
   depth: a 4 x 2,048 prefill through the kernels, the bf16 and decode
   checks, serving, each prefill's first launch against the plain
-  version and timed).
+  version and timed);
+- ``examples``: phase 22 (the JAX package's five example scripts as the
+  port's entry points, each ``main`` at the script's defaults on the
+  card with its launches counted, then each against the CPU port at a
+  small size).
 
 Every check of the phases holds as in ``chip_smoke.py``.  Prints each
 phase's wall and writes the phases' records to ``--out`` (default
@@ -83,7 +88,9 @@ def main() -> int:
     from repro_torch.data.synth_aml import generate_aml_dataset
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hist_update import ops as hu_ops
     from repro_torch.kernels.intersect_count import ops as ic_ops
+    from repro_torch.kernels.window_degree import ops as wd_ops
 
     if args.fit_rows is not None:
         cs.FGT_FIT_ROWS = args.fit_rows or None
@@ -95,13 +102,14 @@ def main() -> int:
     print(report["card"], flush=True)
 
     def zero():
-        ic_ops.launches = fa_ops.launches = fa_ops.lse_launches = fa_ops.bwd_launches = 0
-        fa_ops.long_bwd_launches = 0
+        ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
+        fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read():
-        return {"intersect_count": ic_ops.launches, "flash_attention": fa_ops.launches,
-                "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
-                "flash_attention_bwd_long": fa_ops.long_bwd_launches}
+        return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
+                "hist_update_rows": hu_ops.rows_launches, "window_degree": wd_ops.launches,
+                "flash_attention": fa_ops.launches, "flash_attention_lse": fa_ops.lse_launches,
+                "flash_attention_bwd": fa_ops.bwd_launches, "flash_attention_bwd_long": fa_ops.long_bwd_launches}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -137,6 +145,8 @@ def main() -> int:
         del prefills, q, k, v
     if "wide" in phases:
         timed("wide", lambda: cs.phase_wide_lm(report, zero, read))
+    if "examples" in phases:
+        timed("examples", lambda: cs.phase_examples(torch.device("cuda"), report, zero, read))
     ds = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale) if phases & {"sharded", "fit"} else None
     if "sharded" in phases:
         session = MiningSession(ds.graph, window=cs.WINDOW).register(*feature_pattern_set("full"))
