@@ -20,6 +20,13 @@ Phases, in order; any failure exits non-zero:
    time) and on operands one word into their storage, on both of its
    paths (``ops.plan``: ``"rows"`` and ``"block"``, which must equal the
    ``.cu`` entry's choice and must both be reached);
+   ``window_search``'s four entries (``count_window``, ``count_id_in_window``
+   and their ``_pos`` forms) bit for bit equal to the plain searches of
+   ``core.ops``, one launch a call under ``set_sync_debug_mode("error")``,
+   in each of the compiler's operand forms (lifted and broadcast views of
+   ranks 1-4, ints, inverted windows, -1 ids, int32 wrap, strided and
+   offset operands) at halvings that cover every row and at fewer, and at
+   a hub row of 340,391 entries at 19 and 8 halvings, where it is timed;
    both entries of ``hist_update`` (``keys`` and ``rows``) bit for bit
    equal to the plain fixed-point replay (``ref.fixed_point_ref``), within
    their stated error bound of the plain version in float64, and
@@ -72,7 +79,8 @@ Phases, in order; any failure exits non-zero:
    features, the default 60-tree GBDT, F1 on the last 20 % by time, under
    ``torch.cuda.set_sync_debug_mode("error")`` so that any hidden host
    sync fails the run.  The kernels' launch counts are zeroed just before
-   and read just after: ``intersect_count`` must be > 0 and ``hist_update``
+   and read just after: ``intersect_count`` and ``window_search`` must be
+   > 0 and ``hist_update``
    n_trees * (max_depth + 1) = 420, n_trees * max_depth = 360 of them
    through the ``rows`` entry (one per level) and the rest the leaf sums;
    a compiled portfolio mine must sync exactly ``1 + n_compiled`` times,
@@ -81,7 +89,8 @@ Phases, in order; any failure exits non-zero:
    from the cached schedules, both equal to the main path's rows.  The
    first launch of each shape of the fit is kept for phase 8.
 4. cross-checks — the same mine with ``kernel_backend="torch"`` over
-   65,536 seeds drawn with the data seed gives bit-identical rows
+   65,536 seeds drawn with the data seed launches neither mining kernel
+   and gives bit-identical rows
    (every edge before phases 9-12 existed, then 1,048,576; cut for the
    time limit), and 4,096 seeds mined by the port on the CPU equal the
    card's rows for them.
@@ -105,7 +114,12 @@ Phases, in order; any failure exits non-zero:
    share and the kernels that take its time.
 8. report — each kernel checked and timed at the shapes its main path
    gave it, in the operands' own forms (``intersect_count``'s largest
-   launch as the compiler passed it; ``hist_update``'s ``rows`` entry at every level of the fit,
+   launch as the compiler passed it; ``window_search`` at the largest
+   ``count_id_in_window`` and ``count_window`` launches, held bit for bit to
+   the plain version and timed with L2 flushed beside the bound: the
+   operand bytes, the outputs and one 32-byte sector for each halving this
+   data needs and each ``indptr`` read;
+   ``hist_update``'s ``rows`` entry at every level of the fit,
    its ``keys`` entry at the leaf sums and on the keys the fit would build
    at every level), then a ``{"kernels": [...]}`` line (launches on the
    main paths, max difference from the plain version, kernel / plain /
@@ -131,8 +145,8 @@ Phases, in order; any failure exits non-zero:
    retain="auto")`` over HI-Small in time order: a first tick of 65,536
    transactions, then 48 of 8,192, under ``set_sync_debug_mode("error")``
    with only each tick's gather allowed to sync.  Asserted: one host sync
-   a tick, ``intersect_count`` launched (counts zeroed before, read
-   after), no degraded tick, no new launch shape in the last quarter of
+   a tick, ``intersect_count`` and ``window_search`` launched (counts
+   zeroed before, read after), no degraded tick, no new launch shape in the last quarter of
    the ticks, ``schedule_hits > 0``, counts equal to a card mine of the
    streamed prefix built in arrival order, and a sequential service over
    the first 8 ticks giving the same alerts and counts.  Printed:
@@ -144,7 +158,8 @@ Phases, in order; any failure exits non-zero:
    ``build/``, a transient fault in tick 3's mine retried once, then
    ``recover()`` into a fresh object: the same store state bit for bit
    and equal counts.  The ticks and the WAL replay each launch
-   ``intersect_count`` on the service's own ``"kernel"`` backend (counts
+   ``intersect_count`` and ``window_search`` on the service's own
+   ``"kernel"`` backend (counts
    zeroed before each, read after; the kernels entry gains
    ``launches_resilience`` and ``launches_recovery``).
 13. witnesses — (a) on phase 9's two random graphs, every library
@@ -155,7 +170,8 @@ Phases, in order; any failure exits non-zero:
    ``session.mine(<the 9 "full" patterns>, seeds, witnesses=2)`` over
    65,536 seeds of the phase-3 graph under ``set_sync_debug_mode("error")``
    (cycle4 and scatter_gather over a prefix, ``WIT_SEEDS_CUT``): one host
-   sync per unique plan, counts equal phase 3's rows, the first 1,024
+   sync per unique plan, ``window_search`` launched by the extraction,
+   counts equal phase 3's rows, the first 1,024
    seeds' witnesses (scatter_gather's first 4) equal the CPU port's bit
    for bit; each
    pattern's count-only and witness-mode wall and their ratio, and peak
@@ -168,7 +184,8 @@ Phases, in order; any failure exits non-zero:
    through ``make_feed``: one warm submit of 65,536 transactions, then
    16 submits of 64 through 4 submitters (``load_test``), an audit log
    under ``build/``, under ``set_sync_debug_mode("error")``.  Asserted: no
-   ``SubmitError`` and no degraded tick, ``intersect_count`` launched
+   ``SubmitError`` and no degraded tick, ``intersect_count`` and
+   ``window_search`` launched
    (``launches_triage``), host syncs == ticks + witness mines, every alert
    of a pattern counted this tick carries min(k, count) witnesses (and
    only those carry evidence), every evidence hop is the fed transaction
@@ -182,7 +199,8 @@ Phases, in order; any failure exits non-zero:
    ``set_sync_debug_mode("error")`` over 65,536 seeds drawn with the
    data seed: in 4 partitions (on one card they time-share it: the host
    gather), then in 1 (the device-side sum); each
-   equals phase 3's rows, syncs once, launches ``intersect_count`` (counts
+   equals phase 3's rows, syncs once, launches ``intersect_count`` and
+   ``window_search`` (counts
    zeroed before, read after) and has per-shard stats that sum to its
    totals.  Printed: walls, the dispatch window, the overlap ratio,
    ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
@@ -335,7 +353,8 @@ Phases, in order; any failure exits non-zero:
    batch recompute, the ``full`` F1 above 0, both traces holding
    ``dispatch:shard0`` ... ``dispatch:shard7`` and
    ``tick:ingest/plan/mine/score``, the served tokens of (8, 36) with the
-   prompt kept); ``intersect_count`` launched in the mining examples, both
+   prompt kept); ``intersect_count`` and ``window_search`` launched in the
+   mining examples, both
    ``hist_update`` entries in the pipelines, the attention forward with
    the logsumexp and the short backward in FraudGT's fit, no attention
    kernel in serving.  Then each example's function on the card and on
@@ -373,7 +392,7 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
-KERNELS = ("intersect_count", "hist_update", "window_degree", "flash_attention")
+KERNELS = ("intersect_count", "hist_update", "window_degree", "flash_attention", "window_search")
 SMOKE_SHAPES = ((1, 4), (1, 1024), (4, 4), (16, 64), (64, 256), (256, 256), (1024, 1024))
 RAGGED_B = (1, 33, 4097)
 HU_SHAPES = ((16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64))  # (N, S)
@@ -394,6 +413,13 @@ HU_ROWS_SHAPES = (
 # (B, D): tests/test_kernels.py's, then three to time: (16384, 128), where
 # a launch costs more than its bytes, and two of about 140 MB each
 WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128), (1 << 20, 32), (1 << 18, 128))
+# window_search in phase 2: the compiler's operand forms (each entry at
+# halvings that cover every row and at fewer), WS_B queries a form, and a
+# hub row of HI-Small's largest degree at scale 282
+WS_ENTRIES = ("count_window", "count_window_pos", "count_id_in_window", "count_id_in_window_pos")
+WS_FORMS = ("rank1", "lifted", "mid_lift", "rank4", "ints", "inverted", "wrap", "neg_wrap", "offset")
+WS_B = 4097
+WS_HUB = 340_391
 # intersect_count's broadcast forms in phase 2: (B_fixed, rep, Da, Db) at
 # both paths, ragged, and the two paths' largest launch shapes
 IC_FORM_SHAPES = ((1, 1, 1, 4), (33, 3, 4, 4), (4097, 64, 1, 4), (4096, 32, 1, 32), (129, 3, 16, 64),
@@ -1279,6 +1305,255 @@ def phase_window_degree(device, report):
     return rows[-1]
 
 
+def ws_csr(seed: int, lens, n_ids: int, t_max: int, device):
+    """CSR rows of the given lengths, each sorted by (id, t), and the
+    time-sorted copy: (ids, t, t_sorted, indptr) as int32 tensors."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids, ts, tsorted = [], [], []
+    for n in lens:
+        i = rng.integers(0, n_ids, n)
+        t = rng.integers(0, t_max, n)
+        o = np.lexsort((t, i))
+        ids.append(i[o])
+        ts.append(t[o])
+        tsorted.append(np.sort(t))
+    cat = lambda xs: torch.from_numpy(np.concatenate(xs).astype(np.int32)).to(device)  # noqa: E731
+    return cat(ids), cat(ts), cat(tsorted), cat([[0], np.cumsum(lens)])
+
+
+def ws_operands(form: str, seed: int, n_nodes: int, n_ids: int, t_max: int, device, b: int = WS_B):
+    """(node, x, after, until) in one of the mining compiler's forms:
+    lifted and broadcast views of ranks 1-4, Python ints, inverted windows
+    (the ordered intersects' clamps), -1 ids, int32 wrap, operands one word
+    into their storage."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)  # noqa: E731
+    nodes = lambda shape: ri(-1, n_nodes, shape)  # noqa: E731
+    ids = lambda shape: ri(-1, n_ids + 1, shape)  # noqa: E731
+    times = lambda shape: ri(-2, t_max + 2, shape)  # noqa: E731
+    w, d = 3, 4
+    if form == "rank1":
+        return nodes((b,)), ids((b,)), times((b,)), times((b,))
+    if form == "lifted":
+        return nodes((b, 1, 1)).expand(b, w, 1), ids((b, w, d)), 3, times((b, w, 1))
+    if form == "mid_lift":
+        return nodes((b, w, 1)), ids((b, 1, d)), times((b, w, 1)), times((b, 1, d))
+    if form == "rank4":
+        return nodes((b, 1, 1, 1)), ids((b, w, 2, d)), times((b, w, 1, 1)), t_max // 2
+    if form == "ints":
+        return nodes((b, w)), ids((b, w)), -(1 << 30), 1 << 30
+    if form == "inverted":
+        a = times((b, w))
+        return nodes((b, 1)), ids((b, w)), a, a - ri(1, 10, (b, w))
+    if form == "wrap":
+        return nodes((b,)), ids((b,)), 2**31 - 1, 2**31 - 1
+    if form == "neg_wrap":
+        return nodes((b,)), ids((b,)), -(2**31), times((b,))
+    if form == "offset":
+        return offset_view(nodes((b, 1))), ids((b, 2 * w))[:, ::2], times((b, 1)), offset_view(times((b, w)))
+    raise AssertionError(form)
+
+
+def ws_args(entry: str, flats, ops_, n_iters: int) -> tuple:
+    """An entry's positional arguments, as the compiler passes them."""
+    ids, t, tsorted, indptr = flats
+    node, x, after, until = ops_
+    if entry.startswith("count_window"):
+        return tsorted, indptr, node, after, until, n_iters
+    return ids, t, indptr, node, x, after, until, n_iters
+
+
+def ws_plain(entry: str, args):
+    """window_search's plain version (the eager searches of core.ops) on
+    the same operands, on the card."""
+    from repro_torch.kernels.window_search import ref as ws_ref
+
+    return getattr(ws_ref, entry + "_ref")(*args)
+
+
+def ws_hold(entry: str, args, what: str) -> int:
+    """The kernel's outputs against the plain version's, bit for bit, one
+    launch, under set_sync_debug_mode("error"); returns the max |diff| (0)."""
+    import torch
+    from repro_torch.kernels.window_search import ops as ws_ops
+
+    want = ws_plain(entry, args)
+    before = ws_ops.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = getattr(ws_ops, entry)(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if ws_ops.launches != before + 1:
+        raise AssertionError(f"window_search {entry} ({what}) made {ws_ops.launches - before} launches, not 1")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != torch.int32:
+            raise AssertionError(f"window_search {entry} ({what}): {tuple(a.shape)} {a.dtype}, not {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    if err:
+        raise AssertionError(f"window_search {entry} ({what}) differs from its plain version by {err}")
+    return err
+
+
+def ws_halvings(flat, lo, hi, q, n_iters: int, seen):
+    """The plain lower bound, counting the halvings that do work (the
+    kernel stops a search where lo == hi) and marking in ``seen`` the
+    32-byte sectors of ``flat`` that they gather: (ranks, halvings)."""
+    import torch
+
+    shape = torch.broadcast_shapes(lo.shape, hi.shape, q.shape)
+    lo, hi, q = lo.expand(shape), hi.expand(shape), q.expand(shape)
+    cap = flat.shape[0] - 1
+    steps = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for _ in range(n_iters):
+        act = lo < hi
+        steps += act.sum()
+        mid = (lo + hi) >> 1
+        at = mid.clamp(0, cap)
+        seen[at[act].long() >> 3] = True
+        less = flat[at] < q
+        lo, hi = torch.where(act & less, mid + 1, lo), torch.where(act & ~less, mid, hi)
+    return lo, steps
+
+
+def ws_sectors(flat):
+    """A mask of ``flat``'s 32-byte sectors, none touched yet."""
+    import torch
+
+    return torch.zeros((flat.shape[0] + 7) // 8, dtype=torch.bool, device=flat.device)
+
+
+def ws_steps(entry: str, args):
+    """The halvings this call's data needs, over its four (two) searches,
+    and the bytes of the rows they read: for each of ``indptr`` and the
+    searched arrays, its distinct 32-byte sectors that the call touches,
+    at most the array's own bytes."""
+    import torch
+
+    two = entry.startswith("count_id")
+    ids, t, indptr, node, x, after, until, n = args if two else (None, *args[:3], None, *args[3:])
+    i32 = lambda v: v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=torch.int32, device=t.device)  # noqa: E731
+    last = indptr.shape[0] - 1
+    safe = i32(node).long().clamp_min(0)
+    rows = ws_sectors(indptr)
+    rows[safe.clamp_max(last).reshape(-1) >> 3] = True
+    rows[(safe + 1).clamp_max(last).reshape(-1) >> 3] = True
+    lo, hi = indptr[safe.clamp_max(last)], indptr[(safe + 1).clamp_max(last)]
+    total, touched = 0, [(indptr, rows)]
+    if two:
+        x, seen = i32(x), ws_sectors(ids)
+        (lo, s1), (hi, s2) = ws_halvings(ids, lo, hi, x, n, seen), ws_halvings(ids, lo, hi, x + 1, n, seen)
+        total += int(s1) + int(s2)
+        touched.append((ids, seen))
+    seen = ws_sectors(t)
+    total += int(ws_halvings(t, lo, hi, i32(after) + 1, n, seen)[1]) + int(ws_halvings(t, lo, hi, i32(until) + 1, n, seen)[1])
+    touched.append((t, seen))
+    return total, sum(min(32 * int(m.sum()), 4 * a.numel()) for a, m in touched)
+
+
+def ws_bound_ms(entry: str, args, outs, steps: int, row_bytes: int):
+    """window_search's bound: each operand tensor's own elements read once
+    (a broadcast view at its distinct elements, an int not at all), the
+    outputs written once, the distinct sectors of the rows that the
+    searches touch (``ws_steps``) read once, and one operation a halving."""
+    import torch
+
+    two = entry.startswith("count_id")
+    operands = args[3:7] if two else args[2:5]
+    nbytes = sum(4 * math.prod(n for n, st in zip(v.shape, v.stride()) if st)
+                 for v in operands if isinstance(v, torch.Tensor))
+    nbytes += sum(4 * o.numel() for o in outs) + row_bytes
+    return bound_ms(nbytes, steps)
+
+
+def ws_form(entry: str, args) -> dict:
+    """The shape and operand forms of a window_search launch."""
+    import torch
+
+    two = entry.startswith("count_id")
+    names = ("node", "x", "after", "until") if two else ("node", "after", "until")
+    operands = args[3:7] if two else args[2:5]
+    shape = torch.broadcast_shapes(*(tuple(v.shape) if isinstance(v, torch.Tensor) else () for v in operands))
+    form = lambda v: "int" if not isinstance(v, torch.Tensor) else {  # noqa: E731
+        "shape": list(v.shape), "stride": list(v.stride())}
+    return {"entry": entry, "shape": list(shape), "n_iters": args[-1], **{k: form(v) for k, v in zip(names, operands)}}
+
+
+def ws_times(entry: str, args, reps: int, cold: bool = False) -> dict:
+    """window_search on its operands as passed: CUDA events over ``reps``
+    calls (``ms``), the kernel's device time under ``torch.profiler``
+    (``kernel_ms``), the host's time a call, the plain version, the
+    halvings this data needs and the bound.  ``cold`` as in ``ic_times``."""
+    import torch
+    from repro_torch.kernels.window_search import ops as ws_ops
+
+    run = lambda: getattr(ws_ops, entry)(*args)  # noqa: E731
+    kernel_ms, seen = kernel_device_ms(run, reps, match="window_search")
+    times = {"ms": cuda_ms(run, reps), "kernel_ms": kernel_ms}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=args[0].device)
+        evict = flush.zero_
+        kernel_ms, seen = kernel_device_ms(run, reps, match="window_search", before=evict)
+        times = {"ms": cuda_ms(run, reps, before=evict), "kernel_ms": kernel_ms, "l2_flushed": True,
+                 "l2_warm_ms": times["ms"], "l2_warm_kernel_ms": times["kernel_ms"]}
+        del flush
+    out = run()
+    outs = out if isinstance(out, tuple) else (out,)
+    steps, row_bytes = ws_steps(entry, args)
+    bound, by = ws_bound_ms(entry, args, outs, steps, row_bytes)
+    return {**times, "kernel_launches_profiled": seen, "host_us": host_us(run, reps),
+            "plain_ms": cuda_ms(lambda: ws_plain(entry, args), 3), "halvings": steps, "row_bytes": row_bytes,
+            "elements": outs[0].numel(), "bound_ms": bound, "bound_by": by}
+
+
+def phase_window_search(device, report):
+    """window_search bit for bit against its plain version: every entry in
+    each of the compiler's operand forms (``WS_FORMS``) at halvings that
+    cover every row and at fewer, and at a hub row of HI-Small's largest
+    degree (``WS_HUB``) at 19 and 8 halvings; timed at the hub case."""
+    import numpy as np
+
+    err, n_cases = 0, 0
+    for fi, form in enumerate(WS_FORMS):
+        lens = np.random.default_rng(fi).integers(0, 41, 64)
+        flats = ws_csr(fi, lens, 6, 64, device)
+        ops_ = ws_operands(form, fi, 64, 6, 64, device)
+        for entry in WS_ENTRIES:
+            for n_iters in (6, 2):
+                err = max(err, ws_hold(entry, ws_args(entry, flats, ops_, n_iters), f"{form}, {n_iters} halvings"))
+                n_cases += 1
+    flats = ws_csr(5, np.array([WS_HUB, 5, 0, 17, 1 << 12, 3]), 4000, 1 << 20, device)
+    node, x, after, until = ws_operands("rank1", 9, 6, 4000, 1 << 20, device, b=1 << 16)
+    node = node.reshape(-1, 1).clone()
+    node[: node.shape[0] // 2] = 0  # half the queries on the hub
+    x = x.reshape(-1, 1).expand(-1, 8).contiguous()
+    after = after.reshape(-1, 1)
+    until = after + until.reshape(-1, 1).abs()
+    rows = []
+    for entry in WS_ENTRIES:
+        for n_iters in (19, 8):
+            args = ws_args(entry, flats, (node, x, after, until), n_iters)
+            err = max(err, ws_hold(entry, args, f"hub row of {WS_HUB}, {n_iters} halvings"))
+            n_cases += 1
+        row = {"entry": entry, "B": int(node.shape[0]), "W": 8, "hub": WS_HUB, "n_iters": 19,
+               "max_abs_err": 0, **ws_times(entry, ws_args(entry, flats, (node, x, after, until), 19), 20)}
+        rows.append(row)
+        log("kernel timing: window_search at a hub row " + json.dumps(row))
+    report["window_search_shapes"] = rows
+    log(f"kernel: window_search == plain version in {n_cases} cases")
+    return err, rows
+
+
 def fa_plain(q, k, v, causal, window=None):
     """flash_attention's plain version on (B, T, H, hd) / (B, S, K, hd):
     the K/V heads repeated, then the explicit-op reference."""
@@ -1991,8 +2266,8 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
         raise AssertionError(f"committed ticks {[r.tick for r in reps]} are not 1..{n_ticks}")
     if svc.stats["host_syncs"] != n_ticks:
         raise AssertionError(f"the stream synced {svc.stats['host_syncs']} times over {n_ticks} ticks")
-    if launches["intersect_count"] <= 0:
-        raise AssertionError("the streaming ticks launched intersect_count no time")
+    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0:
+        raise AssertionError(f"the streaming ticks did not launch the mining kernels: {launches}")
     if stream["degraded"]:
         raise AssertionError(f"a plain service tick reports degradation: {stream['degraded']}")
     # a launch shape is the JAX package's trace key; the live window keeps
@@ -2073,26 +2348,31 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
     t0 = time.perf_counter()
     reps = [svc.submit(g.src[c], g.dst[c], g.t[c], g.amount[c]).report for c in chunks]
     run_s = time.perf_counter() - t0
-    tick_launches = read_launches()["intersect_count"]
+    tick_ln = read_launches()
+    tick_launches = tick_ln["intersect_count"]
     replayed = svc.wal.ticks()
     zero_launches()
     t0 = time.perf_counter()
     rec = ResilientDetectionService.recover(specs, resilience=cfg, **kw)
     recover_s = time.perf_counter() - t0
-    recover_launches = read_launches()["intersect_count"]
+    recover_ln = read_launches()
+    recover_launches = recover_ln["intersect_count"]
     res = {"ticks": len(chunks), "checkpoint_every": RESILIENCE_CHECKPOINT_EVERY, "run_s": run_s,
            "recover_s": recover_s, "retries_by_tick": [r.retries for r in reps],
            "degraded_by_tick": [list(r.degraded) for r in reps], "recovered_tick": rec.tick,
            "wal_replayed_ticks": replayed, "backends": [svc.backend, rec.backend],
            "intersect_count_launches": {"ticks": tick_launches, "recover": recover_launches},
+           "window_search_launches": {"ticks": tick_ln["window_search"], "recover": recover_ln["window_search"]},
            "health": svc.health()}
     report["resilience"] = res
     log("resilience: " + json.dumps(res))
     if reps[2].retries != 1 or any(r.retries for i, r in enumerate(reps) if i != 2):
         raise AssertionError(f"expected one retry on tick 3 alone: {res['retries_by_tick']}")
-    if not replayed or tick_launches <= 0 or recover_launches <= 0 or {svc.backend, rec.backend} != {"kernel"}:
+    if (not replayed or tick_launches <= 0 or recover_launches <= 0 or {svc.backend, rec.backend} != {"kernel"}
+            or min(res["window_search_launches"].values()) <= 0):
         raise AssertionError(f"the resilient ticks or the WAL replay {replayed} did not run on "
-                             f"intersect_count: {res['intersect_count_launches']}, {res['backends']}")
+                             f"intersect_count and window_search: {res['intersect_count_launches']}, "
+                             f"{res['window_search_launches']}, {res['backends']}")
     if rec.tick != svc.tick or not store_states_equal(rec.store.state_dict(), svc.store.state_dict()):
         raise AssertionError("the recovered store differs from the live one")
     for n in names:
@@ -2120,6 +2400,7 @@ def phase_witness(session, ds, counts, report):
     from repro_torch.core.patterns import PATTERN_NAMES, build_pattern
     from repro_torch.data.synth_aml import planted_instances
     from repro_torch.device import allowed_sync
+    from repro_torch.kernels.window_search import ops as ws_ops
     from repro_torch.witness import witness_layout
 
     wit = {}
@@ -2168,7 +2449,7 @@ def phase_witness(session, ds, counts, report):
     n_of = {n: min(WIT_SEEDS_CUT.get(n, WIT_SEEDS), len(seeds)) for n in pats}
     cpu_of = {n: min(WIT_CPU_SEEDS_CUT.get(n, WIT_CPU_SEEDS), n_of[n]) for n in pats}
     count_s, res, stats = {}, {}, []
-    wit_wall = 0.0
+    wit_wall, ws_launches = 0.0, 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2182,8 +2463,10 @@ def phase_witness(session, ds, counts, report):
         for m in sorted(set(n_of.values()), reverse=True):
             group = [n for n in pats if n_of[n] == m]
             ts = time.perf_counter()
+            ws_before = ws_ops.launches
             r = session.mine(group, seeds[:m], witnesses=WIT_K)
             wit_wall += time.perf_counter() - ts
+            ws_launches += ws_ops.launches - ws_before
             n_plans = len({session._canon_of[n] for n in group})
             if r.stats["host_syncs"] != n_plans:
                 raise AssertionError(f"the witness mine of {group} synced {r.stats['host_syncs']} times, not {n_plans}")
@@ -2213,8 +2496,11 @@ def phase_witness(session, ds, counts, report):
            for n in pats}
     wit["session"] = {"seeds": int(len(seeds)), "k": WIT_K, "witness_wall_s": wit_wall,
                       "count_only_wall_s": sum(count_s.values()), "per_pattern": per, "mines": stats,
-                      "peak_mem_bytes": peak, "cpu_s": cpu_s, "cpu_mines": cpu_group_s, "cpu_equal": True}
+                      "peak_mem_bytes": peak, "cpu_s": cpu_s, "cpu_mines": cpu_group_s, "cpu_equal": True,
+                      "window_search_launches": ws_launches}
     log("witness session: " + json.dumps(wit["session"]))
+    if ws_launches <= 0:
+        raise AssertionError("the session's witness mines launched window_search no time")
 
     # (c) plant and recover at full size
     planted = [inst["eids"] for inst in planted_instances(ds, "cycle")
@@ -2338,8 +2624,8 @@ def phase_triage(g, report, zero_launches, read_launches):
     }
     if tri["degraded"]:
         raise AssertionError(f"a triage tick reports degradation: {tri['degraded']}")
-    if launches["intersect_count"] <= 0:
-        raise AssertionError("the triage ticks launched intersect_count no time")
+    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0:
+        raise AssertionError(f"the triage ticks did not launch the mining kernels: {launches}")
     if svc.stats["host_syncs"] != svc.tick + wit_mines[0]:
         raise AssertionError(f"{svc.stats['host_syncs']} host syncs over {svc.tick} ticks and {wit_mines[0]} witness mines")
     # every alert of a pattern counted this tick carries min(k, count)
@@ -2442,8 +2728,8 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
         if res.gather_mode != mode or res.stats["host_syncs"] != 1:
             raise AssertionError(f"the sharded mine ({name}) gathered by {res.gather_mode!r} with "
                                  f"{res.stats['host_syncs']} host syncs, not {mode!r} with 1")
-        if row["launches"]["intersect_count"] <= 0:
-            raise AssertionError(f"the sharded mine ({name}) launched intersect_count no time")
+        if row["launches"]["intersect_count"] <= 0 or row["launches"]["window_search"] <= 0:
+            raise AssertionError(f"the sharded mine ({name}) did not launch the mining kernels: {row['launches']}")
         for key in executor.STAT_KEYS:
             part = sum(st[key] for st in res.shard_stats)
             if key in ("host_syncs", "bytes_d2h"):
@@ -4013,8 +4299,8 @@ def phase_examples(device, report, zero_launches, read_launches) -> dict:
         ln = launches[label]
         mining = name in ("quickstart", "streaming_detection", "trace_capture")
         pipeline = name in ("quickstart", "train_aml_pipeline")
-        if mining and not ln["intersect_count"] > 0:
-            raise AssertionError(f"{label} launched intersect_count no time")
+        if mining and not (ln["intersect_count"] > 0 and ln["window_search"] > 0):
+            raise AssertionError(f"{label} did not launch the mining kernels: {ln}")
         if pipeline and not ln["hist_update"] > ln["hist_update_rows"] > 0:
             raise AssertionError(f"{label} did not launch both hist_update entries: {ln}")
         if name == "train_aml_pipeline":
@@ -4093,6 +4379,7 @@ def main() -> int:
     from repro_torch.kernels.hist_update.ref import row_keys
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.kernels.window_degree import ops as wd_ops
+    from repro_torch.kernels.window_search import ops as ws_ops
     from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
     from repro_torch.ml.pipeline import FEATURE_SETS, run_aml_pipeline
 
@@ -4106,6 +4393,7 @@ def main() -> int:
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
+        ws_ops.launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read_launches():
@@ -4116,7 +4404,7 @@ def main() -> int:
                 "hist_update_rows": hu_ops.rows_launches,
                 "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches,
                 "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
-                "flash_attention_bwd_long": fa_ops.long_bwd_launches}
+                "flash_attention_bwd_long": fa_ops.long_bwd_launches, "window_search": ws_ops.launches}
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -4135,6 +4423,7 @@ def main() -> int:
     max_err = phase_kernel(device, report)
     hu_err = phase_hist_update(device, report)
     wd_row = phase_window_degree(device, report)
+    ws_err, _ = phase_window_search(device, report)
     fa_err = phase_flash_attention(device, report)
     fa_bwd_err = phase_flash_attention_bwd(device, report)
     mark(2)
@@ -4183,8 +4472,23 @@ def main() -> int:
 
     biggest = {}
     kernel_fn, capture = capture_biggest(biggest)
+    ws_biggest = {}  # entry -> (elements, args) of the largest window_search call
+    ws_fns = {e: getattr(ws_ops, e) for e in ("count_window", "count_id_in_window")}
+
+    def capture_ws(entry):
+        def run(*a):
+            n = math.prod(torch.broadcast_shapes(*(tuple(v.shape) for v in a[-5 if entry == "count_id_in_window"
+                                                                               else -4:-1]
+                                                   if isinstance(v, torch.Tensor))))
+            if n > ws_biggest.get(entry, (-1,))[0]:
+                ws_biggest[entry] = (n, a)
+            return ws_fns[entry](*a)
+        return run
+
     ic_ops.intersect_count = capture
     hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
+    for e in ws_fns:
+        setattr(ws_ops, e, capture_ws(e))
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     torch.cuda.set_sync_debug_mode("error")
@@ -4196,6 +4500,8 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode(0)
         ic_ops.intersect_count = kernel_fn
         hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
+        for e, fn in ws_fns.items():
+            setattr(ws_ops, e, fn)
     detection = {"full": detection_row("full", full, wall)}
     main_launches = detection["full"]["launches"]
     launches = main_launches["intersect_count"]
@@ -4237,6 +4543,8 @@ def main() -> int:
     log("main path: " + json.dumps(main))
     if launches <= 0:
         raise AssertionError("the main path launched intersect_count no time")
+    if main_launches["window_search"] <= 0:
+        raise AssertionError("the main path launched window_search no time")
     for name, res in (("cold", cold), ("first subset", first), ("warm", warm)):
         if res.stats["host_syncs"] != 1 + n_compiled:
             raise AssertionError(f"{name} mine synced {res.stats['host_syncs']} times, not {1 + n_compiled}")
@@ -4253,8 +4561,12 @@ def main() -> int:
     # ---- 4. cross-checks on the card ----------------------------------
     t0 = time.perf_counter()
     tsub = np.random.default_rng(SEED + 1).choice(g.n_edges, size=min(TORCH_SEEDS, g.n_edges), replace=False)
+    zero_launches()
     res_t = MiningSession(g, window=WINDOW, kernel_backend="torch").register(*pats).mine(seeds=tsub)
     torch_s = time.perf_counter() - t0
+    torch_launches = read_launches()
+    if torch_launches["window_search"] or torch_launches["intersect_count"]:
+        raise AssertionError(f'the kernel_backend="torch" mine launched the mining kernels: {torch_launches}')
     if not np.array_equal(res_t.counts, counts[tsub]):
         bad = tsub[np.argwhere(res_t.counts != counts[tsub])[:5, 0]]
         raise AssertionError(f'kernel_backend="torch" disagrees with "kernel" at {bad.tolist()}')
@@ -4266,6 +4578,7 @@ def main() -> int:
     if not np.array_equal(res_c.counts, counts[sub]):
         raise AssertionError("the CPU port disagrees with the card on the seed subset")
     report["cross_checks"] = {"torch_seeds": int(len(tsub)), "torch_backend_s": torch_s, "torch_backend_equal": True,
+                              "torch_backend_launches": torch_launches,
                               "cpu_seeds": int(len(sub)), "cpu_s": cpu_s, "cpu_equal": True,
                               "cpu_nonzero_cells": int((res_c.counts != 0).sum())}
     log("cross-checks: " + json.dumps(report["cross_checks"]))
@@ -4342,6 +4655,33 @@ def main() -> int:
         "library_ms": None,
         "shape": ic_form(a, ordered),
     }]
+    # window_search at the main path's largest launch of each searching
+    # entry, in the operand forms the compiler passed
+    ws_path = {}
+    for entry, (_, args) in sorted(ws_biggest.items()):
+        err = ws_hold(entry, args, "the main path's largest launch")
+        ws_path[entry] = {"max_abs_err": err, **ws_times(entry, args, 20, cold=True), "shape": ws_form(entry, args)}
+        log(f"kernel timing: window_search ({entry}) on the mining path " + json.dumps(ws_path[entry]))
+    top = max(ws_path.values(), key=lambda r: r["elements"])
+    ws_entry = {
+        "name": "window_search",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/window_search.cu",
+        # not a TPU kernel: the reference's fori_loop searches, compiled by XLA
+        "replaces": "src/repro/core/ops.py:46",
+        "launches": main_launches["window_search"],
+        "max_abs_err": max([ws_err] + [r["max_abs_err"] for r in ws_path.values()]),
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms", "l2_flushed", "l2_warm_ms",
+                               "l2_warm_kernel_ms", "host_us", "halvings", "row_bytes", "elements")},
+        "library_ms": None,
+        "library": "none: torch.searchsorted takes no ragged CSR rows",
+        "shape": top["shape"],
+        "path_launches": {e: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "row_bytes",
+                                                "elements", "shape")}
+                          for e, r in ws_path.items()},
+        "launches_torch_backend": torch_launches["window_search"],
+    }
+    kernels.insert(1, ws_entry)  # kernels[0] stays intersect_count, kernels[-1] flash_attention
     # hist_update on the detection path: the rows entry at every level of
     # the fit and the keys entry at the leaf sums, each as the fit launched
     # it; then the keys entry on the keys and repeated gh that the fit
@@ -4458,6 +4798,7 @@ def main() -> int:
     if err:
         raise AssertionError(f"intersect_count differs from its plain version on the streaming launch: {err}")
     times = ic_times(a, sbig["ordered"], 20, cold=True)
+    ws_entry["launches_streaming"] = report["streaming"]["launches"]["window_search"]
     kernels[0].update({
         "launches_streaming": stream_launches,
         "streaming_shape": ic_form(a, sbig["ordered"]),
@@ -4472,17 +4813,21 @@ def main() -> int:
     # ---- 12. resilience: retry, WAL + checkpoint recovery -------------
     res_launches, rec_launches = phase_resilience(session, g, report, zero_launches, read_launches)
     kernels[0].update({"launches_resilience": res_launches, "launches_recovery": rec_launches})
+    ws_entry.update({"launches_resilience": report["resilience"]["window_search_launches"]["ticks"],
+                     "launches_recovery": report["resilience"]["window_search_launches"]["recover"]})
     mark(12)
 
     # ---- 13. witnesses: oracle, session witness mode, plant and recover
     t0 = time.perf_counter()
     phase_witness(session, ds, counts, report)
     report["witness"]["phase_s"] = time.perf_counter() - t0
+    ws_entry["launches_witness"] = report["witness"]["session"]["window_search_launches"]
     mark(13)
 
     # ---- 14. the triage server over a live feed -----------------------
     t0 = time.perf_counter()
     kernels[0]["launches_triage"] = phase_triage(g, report, zero_launches, read_launches)
+    ws_entry["launches_triage"] = report["triage"]["launches"]["window_search"]
     report["triage"]["phase_s"] = time.perf_counter() - t0
     log(f"card: {card}")
     mark(14)
@@ -4490,6 +4835,7 @@ def main() -> int:
     # ---- 15. the sharded mine -------------------------------------------
     t0 = time.perf_counter()
     kernels[0]["launches_sharded"] = phase_sharded(session, g, counts, report, zero_launches, read_launches)
+    ws_entry["launches_sharded"] = sum(report["sharded"][k]["launches"]["window_search"] for k in ("parts", "seeds"))
     report["sharded"]["phase_s"] = time.perf_counter() - t0
     mark(15)
 
@@ -4622,6 +4968,7 @@ def main() -> int:
     report["examples"]["phase_s"] = time.perf_counter() - t0
     per_entry = {  # each kernels entry's launches out of a run's counts
         "intersect_count": lambda ln: ln["intersect_count"],
+        "window_search": lambda ln: ln["window_search"],
         "hist_update": lambda ln: ln["hist_update"] - ln["hist_update_rows"],
         "hist_update_rows": lambda ln: ln["hist_update_rows"],
         "window_degree": lambda ln: ln["window_degree"],

@@ -64,6 +64,7 @@ from repro_torch.core.spec import (
 from repro_torch.api.dsl import PatternBuilder
 from repro_torch.device import h2d, resolve_device, to_host
 from repro_torch.graph.csr import TemporalGraph
+from repro_torch.kernels.window_search import ops as ws_ops
 from repro_torch.obs import trace as obs_trace
 
 __all__ = [
@@ -170,6 +171,8 @@ class _FusedSeedPlan:
     ``(op, node, direction, window)``; the callable evaluates every unique
     unit over the seed batch in a single launch per chunk, and pattern
     outputs (possibly ``product`` combinations) are assembled host-side.
+    ``backend="kernel"`` runs each unit's windowed search as one launch of
+    the ``window_search`` kernel, ``"torch"`` as the eager plain searches.
     """
 
     def __init__(
@@ -178,10 +181,12 @@ class _FusedSeedPlan:
         graph: TemporalGraph,
         device_graph,
         batch_elem_cap: int = BATCH_ELEM_CAP,
+        backend: str = "kernel",
     ):
         self.g = graph
         self.dg = device_graph
         self.batch_elem_cap = int(batch_elem_cap)
+        self.backend = backend
         self.n_iters = ops.n_iters_for(self.dg.max_deg)
         self._unit_keys: List[tuple] = []
         self._unit_stages: List[Stage] = []
@@ -226,6 +231,7 @@ class _FusedSeedPlan:
     def _build(self, unit_sel: Tuple[int, ...]) -> Callable:
         units = tuple(self._unit_stages[i] for i in unit_sel)
         n_iters = self.n_iters
+        srch = ws_ops if self.backend == "kernel" else ops
 
         def bound(tb: TimeBound, t):
             if tb.anchor is None:
@@ -244,13 +250,13 @@ class _FusedSeedPlan:
                     else:
                         indptr, t_sorted = dg.in_indptr, dg.in_t_sorted
                     cols.append(
-                        ops.count_window(
+                        srch.count_window(
                             t_sorted, indptr, env[st.operand.node.name], a, u, n_iters
                         )
                     )
                 else:  # count_edges between two bound seed endpoints
                     cols.append(
-                        ops.count_id_in_window(
+                        srch.count_id_in_window(
                             dg.out_nbr,
                             dg.out_t,
                             dg.out_indptr,
@@ -489,7 +495,10 @@ class MiningSession:
     JAX session's ``"pallas"`` and ``"xla"``.  The JAX session defaults to
     ``kernel_backend="xla"``, which keeps its own Pallas kernel off its
     main path; this port defaults to the kernel, so its main path runs
-    it.  Counts are identical either way.
+    it.  Under ``"kernel"`` the compiled and fused plans also run their
+    windowed searches as ``window_search`` launches, under ``"torch"`` as
+    the eager searches; witness extraction always goes through the
+    ``window_search`` wrapper.  Counts are identical either way.
 
     ``shard_coalesce`` is the sharded backend's chunk-coalescing factor
     (runs of up to this many equal-width chunks merge into one launch per
@@ -604,7 +613,11 @@ class MiningSession:
         # registration didn't change the seed-local member set
         if self._fused is None or set(self._fused.emits) != set(fused_members):
             self._fused = _FusedSeedPlan(
-                fused_members, self.graph, self._dg, self.batch_elem_cap
+                fused_members,
+                self.graph,
+                self._dg,
+                self.batch_elem_cap,
+                backend=self.kernel_backend,
             )
         for key, spec in self._members.items():
             if key in fused_members or key in self._compiled:

@@ -24,6 +24,12 @@ The device half is rewritten in torch:
   counterpart of ``"xla"``.  The JAX package defaults to ``"xla"``, so its
   main path never reaches its own Pallas kernel; the port defaults to the
   kernel so that its main path does.  Counts are identical either way.
+  ``backend="kernel"`` also runs every windowed search (the bs1 / bs2
+  intersects, difference frontiers, ``count_edges`` and ``count_window``)
+  as one launch of the hand-written ``window_search`` kernel
+  (:mod:`repro_torch.kernels.window_search`), where the JAX package's
+  jitted bucket programs run ``repro.core.ops``' ``fori_loop`` searches;
+  ``"torch"`` keeps the eager searches of :mod:`repro_torch.core.ops`.
 * PyTorch runs eagerly, so there is no trace: the ``_kernels`` cache holds
   the built callables and ``jit_cache_entries`` counts the same
   launch-shape keys the JAX package counts as traces.
@@ -46,6 +52,7 @@ import torch
 
 from repro_torch.core import executor, ops
 from repro_torch.kernels.intersect_count import ops as ic_ops
+from repro_torch.kernels.window_search import ops as ws_ops
 from repro_torch.obs import trace as obs_trace
 from repro_torch.core.spec import (
     NEG_INF,
@@ -852,6 +859,9 @@ class CompiledPattern:
         # bind locals only: a kernels_cache may outlive this instance, and
         # a closure over `self` would pin its device graph and schedules
         ir, n_iters, backend = self.ir, self.n_iters, self.backend
+        # the windowed searches: the window_search kernel's wrapper, or the
+        # eager plain searches (looked up at each call, through the module)
+        srch = ws_ops if backend == "kernel" else ops
         k = len(ir.frontiers)
         if not sweeps:
             sweeps = (1,) * len(dims)
@@ -935,7 +945,7 @@ class CompiledPattern:
                     mask = filt(mask, ids, ts)
                     rb = opn.right
                     indptr_r, nbr_r, t_r, _ = _graph_rows(dg, rb.direction)
-                    member = ops.count_id_in_window(
+                    member = srch.count_id_in_window(
                         nbr_r,
                         t_r,
                         indptr_r,
@@ -979,7 +989,7 @@ class CompiledPattern:
                     for ref in it.skip_eq:
                         m = m & (x_ids != node_at(ref, lx))
                     aa2 = _max(a2, x_t) if it.ordered else a2
-                    cnt = ops.count_id_in_window(
+                    cnt = srch.count_id_in_window(
                         nbr_b,
                         t_b,
                         indptr_b,
@@ -1004,7 +1014,7 @@ class CompiledPattern:
                     for ref in it.skip_eq:
                         m_y = m_y & (y_ids2 != node_at(ref, lx))
                     uu1 = _min(u1, y_t2 - 1) if it.ordered else u1
-                    cnt = ops.count_id_in_window(
+                    cnt = srch.count_id_in_window(
                         nbr_a,
                         t_a,
                         indptr_a,
@@ -1080,7 +1090,7 @@ class CompiledPattern:
                     base, lvl = node_env[nb.node.name]
                     lvl = max(lvl, win_level(st))
                     indptr, _, _, t_sorted = _graph_rows(dg, nb.direction)
-                    cnt = ops.count_window(
+                    cnt = srch.count_window(
                         t_sorted,
                         indptr,
                         lift(base, lvl),
@@ -1134,7 +1144,7 @@ class CompiledPattern:
                             cnt = pair.sum(-1, dtype=torch.int32)
                     else:
                         indptr, nbr, t, _ = _graph_rows(dg, "out")
-                        cnt = ops.count_id_in_window(
+                        cnt = srch.count_id_in_window(
                             nbr,
                             t,
                             indptr,

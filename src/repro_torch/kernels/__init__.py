@@ -5,4 +5,6 @@ wrapper with its launch count) and a CUDA source under
 
 Ported: ``intersect_count``, ``hist_update``, ``window_degree`` and
 ``flash_attention``, every Pallas kernel of the JAX package's
-``kernels/*`` (the same names)."""
+``kernels/*`` (the same names).  Added: ``window_search``, the mining
+compiler's windowed searches, which the JAX package runs as
+``fori_loop`` searches inside its jitted bucket programs."""

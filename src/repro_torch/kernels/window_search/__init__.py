@@ -1,0 +1,25 @@
+from repro_torch.kernels.window_search.ops import (
+    count_id_in_window,
+    count_id_in_window_pos,
+    count_window,
+    count_window_pos,
+    describe,
+)
+from repro_torch.kernels.window_search.ref import (
+    count_id_in_window_pos_ref,
+    count_id_in_window_ref,
+    count_window_pos_ref,
+    count_window_ref,
+)
+
+__all__ = [
+    "count_window",
+    "count_window_pos",
+    "count_id_in_window",
+    "count_id_in_window_pos",
+    "describe",
+    "count_window_ref",
+    "count_window_pos_ref",
+    "count_id_in_window_ref",
+    "count_id_in_window_pos_ref",
+]

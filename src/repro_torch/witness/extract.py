@@ -16,7 +16,8 @@ the first ``k`` matching candidates per seed:
    indexes *inside* the slot's count (counting primitives never
    materialize their runs: the j-th matched edge of a run that starts at
    flat row position ``p`` sits at ``p + j`` — see the ``*_pos``
-   variants in :mod:`repro_torch.core.ops`);
+   variants in :mod:`repro_torch.core.ops`; on the card they run as the
+   ``window_search`` kernel, :mod:`repro_torch.kernels.window_search`);
 4. flat row positions become edge ids through the row-order eid arrays
    (``out_eid``/``in_eid`` for id-sorted rows, ``out_eid_t``/``in_eid_t``
    for time-sorted rows) carried by
@@ -63,6 +64,7 @@ from repro_torch.core.compiler import _I32_MAX, INVALID, _graph_rows, _max
 from repro_torch.core.spec import NEG_INF, POS_INF, Neigh, NodeRef, SetExpr, Stage, StageT, TimeBound, _SeedT
 from repro_torch.device import h2d, to_host
 from repro_torch.graph.csr import DeviceGraph
+from repro_torch.kernels.window_search import ops as ws_ops
 from repro_torch.witness import Witnesses, witness_layout
 
 __all__ = ["mine_witnesses"]
@@ -177,7 +179,7 @@ def _build_witness_kernel(
                 mask = filt(mask, ids, ts)
                 rb = opn.right
                 indptr_r, nbr_r, t_r, _ = _graph_rows(dg, rb.direction)
-                member = ops.count_id_in_window(
+                member = ws_ops.count_id_in_window(
                     nbr_r,
                     t_r,
                     indptr_r,
@@ -215,7 +217,7 @@ def _build_witness_kernel(
                 base, lvl = node_env[nb.node.name]
                 lvl = max(lvl, win_level(st))
                 indptr, _, _, t_sorted = _graph_rows(dg, nb.direction)
-                cnt, start = ops.count_window_pos(
+                cnt, start = ws_ops.count_window_pos(
                     t_sorted,
                     indptr,
                     lift(base, lvl),
@@ -253,7 +255,7 @@ def _build_witness_kernel(
                         ("pos", mid_lift(pos_y, la), dg.in_eid)
                     ]
                 indptr, nbr, t, _ = _graph_rows(dg, "out")
-                cnt, start = ops.count_id_in_window_pos(
+                cnt, start = ws_ops.count_id_in_window_pos(
                     nbr,
                     t,
                     indptr,
@@ -302,7 +304,7 @@ def _build_witness_kernel(
                 a2 = bound_at(it.window2.after, lx)
                 u2 = bound_at(it.window2.until, lx)
                 aa2 = _max(a2, x_t) if it.ordered else a2
-                cnt, ystart = ops.count_id_in_window_pos(
+                cnt, ystart = ws_ops.count_id_in_window_pos(
                     nbr_b,
                     t_b,
                     indptr_b,

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the hand-written kernels (intersect_count,
-hist_update's two entries, window_degree, flash_attention) against their
+hist_update's two entries, window_degree, window_search's four entries,
+flash_attention) against their
 plain PyTorch versions (hist_update also bit for bit against its plain
 fixed-point replay, at every cluster size), a portfolio mine on the card
 against the same mine on the CPU, a GBDT fit on the card against the same
@@ -39,12 +40,16 @@ from repro_torch.kernels.hist_update import ops as hu_ops
 from repro_torch.kernels.hist_update.ref import row_keys
 from repro_torch.kernels.window_degree import PAD_T, window_degree, window_degree_ref
 from repro_torch.kernels.window_degree import ops as wd_ops
+from repro_torch.kernels import window_search as WS
+from repro_torch.kernels.window_search import ops as ws_ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.ml.fraudgt import FraudGT, FraudGTParams
 from repro_torch.ml.gbdt import GBDTClassifier, GBDTParams, first_split_difference
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.models import model as LMM
+
+import chip_smoke as cs
 
 pytestmark = pytest.mark.cuda
 
@@ -154,6 +159,72 @@ def test_mine_on_card_equals_cpu(cuda):
     on_cpu = MiningSession(g, window=96, device="cpu").register(*pats).mine()
     np.testing.assert_array_equal(on_card.counts, on_cpu.counts)
     assert on_card.stats == on_cpu.stats
+
+
+# window_search's cases are chip_smoke.py's phase-2 cases: the compiler's
+# operand forms at halvings that cover every row and at fewer, and a hub
+# row of HI-Small's largest degree (340,391) beside short rows
+@pytest.mark.parametrize("form", cs.WS_FORMS)
+@pytest.mark.parametrize("entry", cs.WS_ENTRIES)
+def test_window_search_matches_plain(cuda, entry, form):
+    """Bit for bit against the plain searches on the same operands, one
+    launch a call under set_sync_debug_mode("error")."""
+    fi = cs.WS_FORMS.index(form)
+    flats = cs.ws_csr(fi, np.random.default_rng(fi).integers(0, 41, 64), 6, 64, cuda)
+    ops_ = cs.ws_operands(form, fi, 64, 6, 64, cuda)
+    for n_iters in (6, 2):
+        cs.ws_hold(entry, cs.ws_args(entry, flats, ops_, n_iters), f"{form}, {n_iters} halvings")
+        # and against the plain version on the CPU
+        args = cs.ws_args(entry, flats, ops_, n_iters)
+        got = getattr(WS, entry)(*args)
+        want = getattr(WS, entry)(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        for g_, w_ in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g_.cpu(), w_)
+
+
+@pytest.mark.parametrize("entry", cs.WS_ENTRIES)
+def test_window_search_at_hub_row_length(cuda, entry):
+    lens = np.array([cs.WS_HUB, 5, 0, 17, 1 << 12, 3])
+    flats = cs.ws_csr(5, lens, 4_000, 1 << 20, cuda)
+    g = torch.Generator().manual_seed(3)
+    b = 4096
+    node = torch.randint(-1, 6, (b, 1), generator=g, dtype=torch.int32)
+    node[: b // 2] = 0  # half the queries on the hub
+    x = torch.randint(-1, 4_000, (b, 8), generator=g, dtype=torch.int32)
+    after = torch.randint(0, 1 << 20, (b, 1), generator=g, dtype=torch.int32)
+    until = after + torch.randint(-100, 1 << 18, (b, 8), generator=g, dtype=torch.int32)
+    ops_ = tuple(v.to(cuda) for v in (node, x, after, until))
+    for n_iters in (19, 8):  # the hub's halvings, and fewer
+        cs.ws_hold(entry, cs.ws_args(entry, flats, ops_, n_iters), f"hub row, {n_iters} halvings")
+
+
+def test_window_search_on_the_mining_paths(cuda):
+    """A compiled, fused and witness mine on the card launch window_search
+    under the kernel backend, equal to the CPU port; the torch backend's
+    compiled and fused plans launch it no time."""
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 18, 140).astype(np.int32)
+    dst = rng.integers(0, 18, 140).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % 18
+    g = build_temporal_graph(src, dst, rng.integers(0, 256, 140), n_nodes=18)
+    pats = feature_pattern_set("full_deep") + ("new_counterparty",)
+    on_cpu = MiningSession(g, window=96, device="cpu").register(*pats).mine()
+    before = ws_ops.launches
+    on_card = MiningSession(g, window=96).register(*pats).mine()
+    assert ws_ops.launches > before
+    np.testing.assert_array_equal(on_card.counts, on_cpu.counts)
+    before = ws_ops.launches
+    torch_b = MiningSession(g, window=96, kernel_backend="torch").register(*pats).mine()
+    assert ws_ops.launches == before
+    np.testing.assert_array_equal(torch_b.counts, on_cpu.counts)
+    names = ["fan_in", "cycle2", "cycle3", "new_counterparty"]
+    seeds = np.arange(g.n_edges, dtype=np.int32)
+    wit_cpu = MiningSession(g, window=96, device="cpu").register(*names).mine(names, seeds, witnesses=2)
+    before = ws_ops.launches
+    wit = MiningSession(g, window=96, kernel_backend="torch").register(*names).mine(names, seeds, witnesses=2)
+    assert ws_ops.launches > before  # the extraction has no backend knob
+    for n in names:
+        np.testing.assert_array_equal(wit.witnesses[n].eids, wit_cpu.witnesses[n].eids, err_msg=n)
 
 
 # the smoke shapes of tests/test_kernels.py, the edge cases, both sides of

@@ -23,11 +23,23 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
    per shape, and the device time, kernels and peak bytes of the operand
    copies the compiler's ``_kernel_pair_count`` launches around it.
 
-``--parts 1,3`` leaves out part 2 (part 3 needs part 1's cold mine
-first, and the cold mine always runs).
+Beside ``intersect_count``, parts 2 and 3 read the windowed searches
+(``count_window`` and ``count_id_in_window``: the ``window_search``
+kernel's wrapper where the checkout has it, else the eager searches of
+``repro_torch.core.ops``): part 2 their CUDA-event spans summed by launch
+shape (the broadcast query shape and each operand's form: ``s`` a Python
+int, else the operand's own shape), part 3 the ``window_search`` kernel's
+device time and launches, and the CUDA kernels one call of each search
+launches (its largest call of part 2, run again under the profiler).
+Part 2 also times the fused seed-local plan's callables.
 
-Prints one JSON object per part and writes them all to
-``build/profile_mine.json``.
+``--parts 1,3`` leaves out part 2 (part 3 needs part 1's cold mine
+first, and the cold mine always runs).  ``--src`` mines with another
+checkout's ``src`` (a parent unpacked under ``build/``), so two commits
+read the same numbers.
+
+Prints one JSON object per part and writes them all to ``--out``
+(default ``build/profile_mine.json``).
 """
 from __future__ import annotations
 
@@ -47,6 +59,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=282.0)
     ap.add_argument("--parts", default="1,2,3", help="comma list of the parts to report")
+    ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory of the checkout to mine with")
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_mine.json"))
     args = ap.parse_args()
     parts = {int(x) for x in args.parts.split(",")}
 
@@ -55,8 +69,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_mine.py: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tools"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch.core.compiler as TC
     from pair_count_trace import PairCountTrace
     from repro_torch.api import MiningSession
@@ -65,7 +79,7 @@ def main() -> int:
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.obs import trace as obs_trace
 
-    report = {"scale": args.scale, "card": torch.cuda.get_device_name(0)}
+    report = {"scale": args.scale, "src": args.src, "card": torch.cuda.get_device_name(0)}
     g = generate_aml_dataset("HI-Small", seed=0, scale=args.scale).graph
     session = MiningSession(g, window=4096).register(*feature_pattern_set("full"))
 
@@ -83,17 +97,38 @@ def main() -> int:
     report["cold"] = {"wall_s": cold_s, "span_s": dict(spans)}
     print(json.dumps({"cold": report["cold"]}), flush=True)
 
+    biggest = {}  # search name -> the args of its largest call in part 2
     if 2 in parts:
-        warm_synced(session, report, TC, ic_ops)
+        warm_synced(session, report, TC, ic_ops, biggest)
     if 3 in parts:
-        warm_profiled(session, report, PairCountTrace)
-    out = ROOT / "build" / "profile_mine.json"
+        warm_profiled(session, report, PairCountTrace, biggest)
+    out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     return 0
 
 
-def warm_synced(session, report, TC, ic_ops) -> None:
+def search_modules():
+    """The modules whose windowed searches the mining path calls: the
+    ``window_search`` wrapper where the checkout has it (the compiled and
+    fused plans' ``"kernel"`` backend), and the eager ``core.ops``."""
+    import repro_torch.core.ops as core_ops
+
+    mods = [core_ops]
+    try:
+        from repro_torch.kernels.window_search import ops as ws_ops
+    except ImportError:
+        return mods
+    return [ws_ops] + mods
+
+
+def operand_form(x) -> str:
+    import torch
+
+    return "x".join(map(str, x.shape)) if isinstance(x, torch.Tensor) else "s"
+
+
+def warm_synced(session, report, TC, ic_ops, biggest) -> None:
     """Part 2: a warm mine with a device sync after every kernel call."""
     import torch
 
@@ -134,8 +169,51 @@ def warm_synced(session, report, TC, ic_ops) -> None:
         ic_walls[label[0]] += time.perf_counter() - s
         return out
 
+    ws_walls = collections.defaultdict(float)
+    ws_shapes = collections.defaultdict(list)  # (search, shape, operand forms) -> [(start, stop)]
+
+    def timed_search(name, orig, n_ops):
+        def run(*a):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = orig(*a)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ops_ = a[-1 - n_ops:-1]  # node, [x,] after, until
+            ws_shapes[(name, tuple(out.shape), "/".join(map(operand_form, ops_)))].append(ev)
+            ws_walls[label[0]] += time.perf_counter() - s
+            if out.numel() > biggest.get(name, (0, None))[0]:
+                biggest[name] = (out.numel(), orig, a)
+            return out
+
+        return run
+
+    fused = session._fused
+    fused_saved = dict(fused._built) if fused is not None else {}
+
+    def timed_fused(key, fn):
+        def run(*a):
+            label[0] = key
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            walls[key] += time.perf_counter() - s
+            calls[key] += 1
+            return out
+
+        return run
+
+    searches = [(mod, name, getattr(mod, name)) for mod in search_modules()
+                for name in ("count_window", "count_id_in_window")]
     TC.CompiledPattern._kernel = timed_kernel
     ic_ops.intersect_count = timed_ic
+    for mod, name, fn in searches:
+        setattr(mod, name, timed_search(name, fn, 3 if name == "count_window" else 4))
+    for unit_sel, fn in fused_saved.items():
+        fused._built[unit_sel] = timed_fused(f"fused:fused:{len(unit_sel)} units", fn)
     try:
         t0 = time.perf_counter()
         session.mine()
@@ -143,6 +221,10 @@ def warm_synced(session, report, TC, ic_ops) -> None:
     finally:
         TC.CompiledPattern._kernel = orig_kernel
         ic_ops.intersect_count = orig_ic
+        for mod, name, fn in searches:
+            setattr(mod, name, fn)
+        if fused is not None:
+            fused._built.update(fused_saved)
     by_strat = collections.defaultdict(float)
     for k, v in walls.items():
         pat, strat, _ = k.split(":", 2)
@@ -155,23 +237,69 @@ def warm_synced(session, report, TC, ic_ops) -> None:
     ]
     for r in by_shape:
         r["ms_per_launch"] = r["device_s"] * 1e3 / r["launches"]
+    ws_by_shape = [
+        {"search": n, "shape": list(shape), "operands": forms, "calls": len(evs),
+         "device_s": sum(x.elapsed_time(y) for x, y in evs) / 1e3}
+        for (n, shape, forms), evs in ws_shapes.items()
+    ]
+    for r in ws_by_shape:
+        r["ms_per_call"] = r["device_s"] * 1e3 / r["calls"]
+    ws_by_strat = collections.defaultdict(float)
+    for k, v in ws_walls.items():
+        if k is not None:
+            pat, strat, _ = k.split(":", 2)
+            ws_by_strat[f"{pat}:{strat}"] += v
     report["warm_synced"] = {
         "wall_s": synced_s,
+        "search_calls": sum(r["calls"] for r in ws_by_shape),
+        "search_device_s": sum(r["device_s"] for r in ws_by_shape),
+        "search_s": sum(ws_walls.values()),
+        "search_by_pattern_strategy_s": dict(sorted(ws_by_strat.items(), key=lambda kv: -kv[1])),
+        "search_by_shape": sorted(ws_by_shape, key=lambda r: -r["device_s"])[:TOP],
         "intersect_count_by_shape": sorted(by_shape, key=lambda r: -r["device_s"])[:TOP],
         "intersect_count_device_s": sum(r["device_s"] for r in by_shape),
         "by_pattern_strategy_s": dict(sorted(by_strat.items(), key=lambda kv: -kv[1])),
         "intersect_count_s": sum(ic_walls.values()),
         "top_buckets": [
-            {"bucket": k, "s": v, "calls": calls[k], "intersect_count_s": ic_walls.get(k, 0.0)}
+            {"bucket": k, "s": v, "calls": calls[k], "intersect_count_s": ic_walls.get(k, 0.0),
+             "search_s": ws_walls.get(k, 0.0)}
             for k, v in top
         ],
     }
     print(json.dumps({"warm_synced": report["warm_synced"]}), flush=True)
 
 
-def warm_profiled(session, report, PairCountTrace) -> None:
+def cuda_kernels(prof):
+    """(start, name, device seconds) of every CUDA kernel a profile
+    recorded, in launch order (one stream: the device runs them in it)."""
+    import torch
+
+    return sorted((ev.time_range.start, ev.name, ev.device_time_total / 1e6) for ev in prof.events()
+                  if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA)
+
+
+def search_launches(kernels, biggest) -> dict:
+    """The CUDA kernels one call of each windowed search launches: its
+    largest call of part 2, run again after the warm mine inside the same
+    profile between two marker kernels (``torch.cuda._sleep(0)``, the
+    profile's last markers), so the kernels between them are the call's.
+    ``kernels`` holds the profile's (start, name, device seconds) in launch
+    order."""
+    marks = [i for i, (_, name, _) in enumerate(kernels) if "spin" in name]
+    out = {}
+    for j, (name, (numel, fn, args)) in enumerate(sorted(biggest.items())):
+        a, b = marks[-2 * len(biggest) + 2 * j], marks[-2 * len(biggest) + 2 * j + 1]
+        inner = kernels[a + 1:b]
+        out[name] = {"elements": numel, "module": fn.__module__, "cuda_launches": len(inner),
+                     "device_ms": sum(s for _, _, s in inner) * 1e3,
+                     "operands": "/".join(map(operand_form, args[-5 if name == "count_id_in_window" else -4:-1]))}
+    return out
+
+
+def warm_profiled(session, report, PairCountTrace, biggest) -> None:
     """Part 3: a warm mine under torch.profiler, with intersect_count's
-    launch shapes and the copies around it."""
+    launch shapes and the copies around it, and the windowed searches'
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,24 +309,39 @@ def warm_profiled(session, report, PairCountTrace) -> None:
         session.mine()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+        for _, (_, fn, args) in sorted(biggest.items()):
+            torch.cuda._sleep(0)
+            fn(*args)
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+    events = cuda_kernels(prof)
+    # the mine's kernels: those before the markers of the calls above, the
+    # last 2 * len(biggest) markers (the pair-count trace marks the mine's)
+    marks = [i for i, (_, name, _) in enumerate(events) if "spin" in name]
+    traced = len(marks) >= 2 * len(biggest)
+    cut = marks[-2 * len(biggest)] if biggest and traced else len(events)
     kern = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kern[ev.name][0] += ev.device_time_total / 1e6  # us -> s
-            kern[ev.name][1] += 1
+    for _, name, sec in events[:cut]:
+        kern[name][0] += sec
+        kern[name][1] += 1
     busy = sum(v[0] for v in kern.values())
     ic = [v for k, v in kern.items() if "intersect_count" in k]
+    ws = [v for k, v in kern.items() if "window_search" in k]
     report["warm_profiled"] = {
         "wall_s": prof_wall,
         "device_kernel_s": busy,
         "device_busy_share": busy / prof_wall if prof_wall else None,
         "intersect_count_kernel_s": sum(v[0] for v in ic),
         "intersect_count_kernel_launches": sum(v[1] for v in ic),
+        "window_search_kernel_s": sum(v[0] for v in ws),
+        "window_search_kernel_launches": sum(v[1] for v in ws),
+        "cuda_kernels": sum(v[1] for v in kern.values()),
         "top_kernels": [
             {"name": k[:120], "s": v[0], "count": v[1]}
             for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]
         ],
         "pair_count": trace.report(prof),
+        "launches_per_search_call": search_launches(events, biggest) if traced else None,
     }
     print(json.dumps({"warm_profiled": report["warm_profiled"]}), flush=True)
 

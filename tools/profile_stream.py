@@ -15,16 +15,19 @@ twice, and reports on the card it runs on:
 2. the same stream under ``torch.profiler``: the device's busy share of
    the ticks' wall (kernel time over wall; one stream, so kernels do not
    overlap), the top CUDA kernels by device time, and the
-   ``intersect_count`` kernel's own device time and launches over the
-   stream (``--no-profile`` leaves this part out);
+   ``intersect_count`` and ``window_search`` kernels' own device time and
+   launches over the stream (``--no-profile`` leaves this part out);
 3. with ``--cpu-twin``, part 1 again with the service on the CPU (the
    port's CPU service, whose ``TickReport.stats`` the parity tests hold
    equal to the JAX package's): it fails unless the CPU run mints the same
    launch shapes at the same ticks, with the same ``jit_cache_entries``
    after every tick, the same alerts and the same final counts as the card.
 
-Prints one JSON object per part and writes them to
-``build/profile_stream.json``.
+``--src`` streams with another checkout's ``src`` (a parent unpacked
+under ``build/``), so two commits read the same numbers in one call.
+
+Prints one JSON object per part and writes them to ``--out`` (default
+``build/profile_stream.json``).
 """
 from __future__ import annotations
 
@@ -115,6 +118,8 @@ def main() -> int:
     ap.add_argument("--cpu-twin", action="store_true", help="rerun part 1 with the service on the CPU and compare")
     ap.add_argument("--no-profile", action="store_true", help="leave out the torch.profiler run (part 2)")
     ap.add_argument("--profile-only", action="store_true", help="leave out the plain run (part 1)")
+    ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory of the checkout to stream with")
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile_stream.json"))
     args = ap.parse_args()
 
     import torch
@@ -123,9 +128,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_stream.py: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import chip_smoke as cs
     from pair_count_trace import PairCountTrace
     from repro_torch.api import MiningSession
@@ -133,7 +138,7 @@ def main() -> int:
     from repro_torch.data.synth_aml import generate_aml_dataset
     from repro_torch.kernels.intersect_count import ops as ic_ops
 
-    report = {"scale": args.scale, "card": cs.card_line()}
+    report = {"scale": args.scale, "src": args.src, "card": cs.card_line()}
     g = generate_aml_dataset("HI-Small", seed=cs.SEED, scale=args.scale).graph
     session = MiningSession(g, window=cs.WINDOW).register(*feature_pattern_set("full"))
     _, chunks, lateness = cs.stream_feed(g)
@@ -159,7 +164,7 @@ def main() -> int:
 
     # ---- 2. the same stream under torch.profiler ------------------------
     if args.no_profile:
-        return finish(report, diff)
+        return finish(report, diff, args.out)
     svc = session.service(**kw)
     ic_ops.launches = 0
     torch.cuda.synchronize()
@@ -176,6 +181,7 @@ def main() -> int:
             kern[ev.name][1] += 1
     busy = sum(v[0] for v in kern.values())
     ic = [(k, v) for k, v in kern.items() if "intersect_count" in k]
+    ws = [v for k, v in kern.items() if "window_search" in k]
     part2 = {
         "wall_s": wall,
         "device_kernel_ms": busy,
@@ -183,17 +189,20 @@ def main() -> int:
         "intersect_count_launches": ic_ops.launches,
         "intersect_count_kernels": [{"name": k[:80], "ms": v[0], "count": v[1]} for k, v in ic],
         "intersect_count_device_ms": sum(v[0] for _, v in ic),
+        "window_search_device_ms": sum(v[0] for v in ws),
+        "window_search_kernels": sum(v[1] for v in ws),
+        "cuda_kernels": sum(v[1] for v in kern.values()),
         "top_kernels": [{"name": k[:100], "ms": v[0], "count": v[1]}
                         for k, v in sorted(kern.items(), key=lambda kv: -kv[1][0])[:TOP]],
         "pair_count": trace.report(prof),
     }
     report["profiled"] = part2
     print(json.dumps(part2), flush=True)
-    return finish(report, diff)
+    return finish(report, diff, args.out)
 
 
-def finish(report, diff) -> int:
-    out = ROOT / "build" / "profile_stream.json"
+def finish(report, diff, out) -> int:
+    out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(report["card"], flush=True)

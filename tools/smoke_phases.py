@@ -91,6 +91,7 @@ def main() -> int:
     from repro_torch.kernels.hist_update import ops as hu_ops
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.kernels.window_degree import ops as wd_ops
+    from repro_torch.kernels.window_search import ops as ws_ops
 
     if args.fit_rows is not None:
         cs.FGT_FIT_ROWS = args.fit_rows or None
@@ -103,13 +104,15 @@ def main() -> int:
 
     def zero():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
+        ws_ops.launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read():
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches, "window_degree": wd_ops.launches,
                 "flash_attention": fa_ops.launches, "flash_attention_lse": fa_ops.lse_launches,
-                "flash_attention_bwd": fa_ops.bwd_launches, "flash_attention_bwd_long": fa_ops.long_bwd_launches}
+                "flash_attention_bwd": fa_ops.bwd_launches, "flash_attention_bwd_long": fa_ops.long_bwd_launches,
+                "window_search": ws_ops.launches}
 
     def timed(name, fn):
         t0 = time.perf_counter()
