@@ -417,9 +417,15 @@ WD_SHAPES = ((1, 1), (7, 16), (64, 128), (100, 33), (16384, 128), (1 << 20, 32),
 # halvings that cover every row and at fewer), WS_B queries a form, and a
 # hub row of HI-Small's largest degree at scale 282
 WS_ENTRIES = ("count_window", "count_window_pos", "count_id_in_window", "count_id_in_window_pos")
-WS_FORMS = ("rank1", "lifted", "mid_lift", "rank4", "ints", "inverted", "wrap", "neg_wrap", "offset")
+WS_FORMS = ("rank1", "lifted", "mid_lift", "rank4", "ints", "inverted", "wrap", "neg_wrap", "offset", "row", "row_wide",
+            "int_node")
 WS_B = 4097
 WS_HUB = 340_391
+# window_search's intersect_step in phase 2: each form in both strategies
+# (bs1, bs2), and a hub row of WS_HUB entries swept at D = 1,024 in 512
+# steps, the mining path's hub buckets (WS_STEP_HUB_B lead elements)
+WS_STEP_FORMS = ("plain", "ordered", "skip3", "sweep8", "wide", "partial", "wrap", "ints", "rank3", "offset")
+WS_STEP_HUB_B = 256
 # intersect_count's broadcast forms in phase 2: (B_fixed, rep, Da, Db) at
 # both paths, ragged, and the two paths' largest launch shapes
 IC_FORM_SHAPES = ((1, 1, 1, 4), (33, 3, 4, 4), (4097, 64, 1, 4), (4096, 32, 1, 32), (129, 3, 16, 64),
@@ -1357,6 +1363,16 @@ def ws_operands(form: str, seed: int, n_nodes: int, n_ids: int, t_max: int, devi
         return nodes((b,)), ids((b,)), -(2**31), times((b,))
     if form == "offset":
         return offset_view(nodes((b, 1))), ids((b, 2 * w))[:, ::2], times((b, 1)), offset_view(times((b, w)))
+    # one node for a whole innermost axis of 40-700 queries, or a Python
+    # int: shared rows that every query of the axis searches
+    if form == "row":
+        r = b // 16
+        return nodes((r, 1)), ids((r, 96)), times((r, 1)), times((r, 96))
+    if form == "row_wide":
+        r = b // 64
+        return nodes((r, 1, 1)), ids((r, w, 700)), 3, times((r, w, 1))
+    if form == "int_node":
+        return 1, ids((b, 40)), times((b, 1)), times((b, 40))
     raise AssertionError(form)
 
 
@@ -1550,8 +1566,289 @@ def phase_window_search(device, report):
         rows.append(row)
         log("kernel timing: window_search at a hub row " + json.dumps(row))
     report["window_search_shapes"] = rows
+    # the intersect_step entry: every form in both strategies, then the
+    # hub row swept at D = 1,024 (19 and 8 halvings), timed there
+    steps = []
+    for fi, form in enumerate(WS_STEP_FORMS):
+        for strategy in ("bs1", "bs2"):
+            args, kw = ws_step_case(form, strategy, 20 + fi, device)
+            err = max(err, ws_step_hold(args, kw, f"{form}, {strategy}")[0])
+            n_cases += 1
+    for strategy in ("bs1", "bs2"):
+        args, kw = ws_step_hub_case(strategy, device)
+        e, plain_ms = ws_step_hold(args, kw, f"{strategy} at a hub row of {WS_HUB}")
+        err, n_cases = max(err, e), n_cases + 1
+        row = {"entry": "intersect_step", "hub": WS_HUB, "max_abs_err": e, "shape": ws_step_form(args, kw),
+               **ws_step_times(args, kw, 5, plain_ms)}
+        steps.append(row)
+        log("kernel timing: window_search intersect_step at a hub row " + json.dumps(row))
+    report["window_search_step_shapes"] = steps
     log(f"kernel: window_search == plain version in {n_cases} cases")
     return err, rows
+
+
+def ws_step_case(form: str, strategy: str, seed: int, device, b: int = WS_B):
+    """window_search's intersect_step in one of the compiled plans' forms:
+    ``(args, kw)`` for ``intersect_step(*args, **kw)``.  Two CSRs of rows of
+    0-40 entries over 64 nodes and 6 ids; lead shape (b, 3) (or (b, 3, 2)
+    for ``rank3``), the frontier full, the fixed node (b, 1), windows (b, 1)
+    and (b, 3) views or ints, -1 nodes among them; d * n_sweep from 4 to 320
+    (each thread-group size of the kernel), ordered and not, 0-3 skip
+    nodes, partial ranks (``partial``: 2 halvings), int32 wrap (``wrap``:
+    edge times and bounds at INT32_MIN / INT32_MAX), operands one word into
+    their storage (``offset``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = lambda: rng.integers(0, 41, 64)  # noqa: E731
+    csrs = []
+    for k in range(2):
+        ids, t, _, indptr = ws_csr(seed * 2 + k, lens(), 6, 64, device)
+        if form == "wrap":  # times at both ends of int32, rows still sorted by (id, t)
+            t = torch.where(t < 6, torch.full_like(t, -(2**31)), torch.where(t > 58, torch.full_like(t, 2**31 - 1), t))
+        csrs.append((indptr, ids, t))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)  # noqa: E731
+    w = 3
+    lead = (b, w, 2) if form == "rank3" else (b, w)
+    one = (b,) + (1,) * (len(lead) - 1)
+    mid = (b, w) + (1,) * (len(lead) - 2)
+    frontier, fixed = ri(-1, 64, lead), ri(-1, 64, one)
+    st = ri(-2, 30, one)
+    win1, win2 = (st, st + 34), (ri(-2, 66, mid), st + 40)
+    ordered, n_skip, d, n_sweep, n_iters = True, 1, 8, 2, 6
+    if form == "plain":
+        ordered, n_skip, d, n_sweep = False, 0, 4, 1
+    elif form == "skip3":
+        n_skip, d, n_sweep = 3, 16, 4
+    elif form == "sweep8":
+        n_skip, d, n_sweep = 2, 12, 8
+    elif form == "wide":
+        ordered, n_skip, d, n_sweep = False, 2, 40, 8
+    elif form == "partial":
+        n_skip, n_iters = 2, 2
+    elif form == "wrap":  # an entry at INT32_MAX clips bs1's window to after + 1 = INT32_MIN
+        win1, win2 = (-(2**31), 2**31 - 1), (ri(-2, 66, mid), 2**31 - 2)
+        n_skip = 2
+    elif form == "ints":
+        ordered, win1, win2 = False, (-(2**31), 2**31 - 2), (10, 50)
+    elif form == "offset":
+        frontier, win2 = offset_view(frontier), (offset_view(win2[0]), win2[1])
+    skip = tuple(ri(-1, 64, one if i % 2 == 0 else lead) for i in range(n_skip))
+    args = (strategy, csrs[0], csrs[1], frontier, fixed, win1, win2, skip)
+    return args, {"ordered": ordered, "d": d, "n_sweep": n_sweep, "n_iters": n_iters}
+
+
+def ws_step_hub_case(strategy: str, device, b: int = WS_STEP_HUB_B, n_iters: int = 19):
+    """intersect_step at a hub row of WS_HUB entries, as the mining path's
+    swept hub buckets run it: lead (b, 1), D = 1,024 in 512 sweep steps
+    (the hub's 333 blocks of 1,024 rounded up to a power of two), half the
+    lead elements on the hub, times over 2^20 and windows of up to 2^18.
+    bs1 expands the hub (a frontier row) and searches short rows; bs2
+    expands it (the fixed row) and searches short rows of the frontier."""
+    import numpy as np
+    import torch
+
+    lens = np.array([WS_HUB, 5, 0, 17, 1 << 12, 3])
+    ids, t, _, indptr = ws_csr(5, lens, 4_000, 1 << 20, device)
+    hub = (indptr, ids, t)
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int32)  # noqa: E731
+    # the other side: 6 nodes of short rows over the same ids and times
+    ids2, t2, _, indptr2 = ws_csr(6, np.array([3, 4_000, 0, 1_700, 90, 1]), 4_000, 1 << 20, device)
+    short = (indptr2, ids2, t2)
+    node = ri(-1, 6, (b, 1))
+    node[: b // 2] = 0
+    other = ri(-1, 6, (b, 1))
+    st = ri(0, 1 << 20, (b, 1))
+    win = (st, st + ri(-100, 1 << 18, (b, 1)))
+    if strategy == "bs1":  # the hub is the frontier's row, the fixed rows short
+        args = (strategy, hub, short, node, other, win, (st - 10, st + (1 << 18)), (other,))
+    else:  # the hub is the fixed row, the frontier's rows short
+        args = (strategy, short, hub, other, node, (st - 10, st + (1 << 18)), win, (other,))
+    return args, {"ordered": True, "d": 1024, "n_sweep": 512, "n_iters": n_iters}
+
+
+def ws_step_hold(args, kw, what: str):
+    """intersect_step against its plain version, bit for bit, one launch,
+    under set_sync_debug_mode("error"); returns the max |diff| (0) and the
+    plain version's time on the card for this call (ms, CUDA events: it is
+    about a thousand launches a sweep step, so it runs once)."""
+    import torch
+    from repro_torch.kernels.window_search import ops as ws_ops
+    from repro_torch.kernels.window_search import ref as ws_ref
+
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev[0].record()
+    want = ws_ref.intersect_step_ref(*args, **kw)
+    ev[1].record()
+    before, step_before = ws_ops.launches, ws_ops.step_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ws_ops.intersect_step(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if ws_ops.launches != before + 1 or ws_ops.step_launches != step_before + 1:
+        raise AssertionError(f"window_search intersect_step ({what}) made {ws_ops.step_launches - step_before} "
+                             f"launches, not 1")
+    if got.shape != want.shape or got.dtype != torch.int32:
+        raise AssertionError(f"window_search intersect_step ({what}): {tuple(got.shape)} {got.dtype}, "
+                             f"not {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"window_search intersect_step ({what}) differs from its plain version by {err}")
+    return err, ev[0].elapsed_time(ev[1])
+
+
+def ws_step_steps(args, kw):
+    """The work of one intersect_step call on this data: (operations: the
+    expanded entries inside their rows, one window test each, and the
+    halvings; the bytes of the distinct 32-byte sectors it must read of
+    the expanded rows' times and ids, both CSRs' indptr and the searched
+    rows, each at most its array's own bytes).  An expanded entry's time
+    is read wherever the sweep reaches inside its row, its id only where
+    that time lies inside the x window (the result needs no other id);
+    each kept entry's four searches are the plain loop's, their sectors
+    marked by ``ws_halvings``."""
+    import torch
+    from repro_torch.core import ops as core_ops
+    from repro_torch.kernels.window_search.ref import _along
+
+    strategy, csr_a, csr_b, frontier, fixed, w1, w2, skip = args
+    bs1 = strategy == "bs1"
+    (ix, idx_, tx), (is_, ids_s, ts) = (csr_a, csr_b) if bs1 else (csr_b, csr_a)
+    node_x, node_s = (frontier, fixed) if bs1 else (fixed, frontier)
+    (lo_x, hi_x), (lo_s, hi_s) = (w1, w2) if bs1 else (w2, w1)
+    d, n_sweep, n = kw["d"], kw["n_sweep"], kw["n_iters"]
+    dev = ix.device
+    i32 = lambda v: v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    shape = torch.broadcast_shapes(*(tuple(v.shape) for v in (frontier, fixed, *w1, *w2, *skip)
+                                     if isinstance(v, torch.Tensor)))
+    nx, ns = i32(node_x).expand(shape), i32(node_s).expand(shape)
+    # the expanded rows: [start + offset, min(end, start + offset + width)) of every valid lead element
+    sx, ex = ix[nx.long().clamp_min(0)], ix[nx.long().clamp_min(0) + 1]
+    first = sx.long() + kw.get("offset", 0)
+    last = torch.minimum(ex.long(), first + d * n_sweep)
+    live = (nx >= 0) & (ns >= 0) & (last > first)
+    diff = torch.zeros((idx_.shape[0] + 7) // 8 + 1, dtype=torch.int64, device=dev)
+    diff.index_add_(0, (first[live] >> 3), torch.ones_like(first[live]))
+    diff.index_add_(0, ((last[live] - 1) >> 3) + 1, -torch.ones_like(first[live]))
+    row_t = diff.cumsum(0)[:-1] > 0  # the sectors of the expanded rows' times
+    total = int((last - first)[live].sum())  # the expansions inside rows
+    ptr_x, ptr_s = ws_sectors(ix), ws_sectors(is_)
+    for ptr, nd in ((ptr_x, nx), (ptr_s, ns)):
+        safe = nd.long().clamp_min(0).reshape(-1)
+        ptr[safe >> 3] = True
+        ptr[(safe + 1) >> 3] = True
+    seen_ids, seen_t, seen_xid = ws_sectors(ids_s), ws_sectors(ts), ws_sectors(idx_)
+    start_s, end_s = is_[ns.long().clamp_min(0)], is_[ns.long().clamp_min(0) + 1]
+    lo_s, hi_s = i32(lo_s).expand(shape), i32(hi_s).expand(shape)
+    skips = [i32(r).expand(shape) for r in skip]
+    # the sweep steps in chunks of about 2^24 expansions; each chunk's kept
+    # entries compacted, then searched as the plain loop searches them
+    per = max(1, (1 << 24) // max(1, nx.numel() * d))
+    for i0 in range(0, n_sweep, per):
+        steps = min(per, n_sweep - i0)
+        offs = kw.get("offset", 0) + d * (i0 + torch.arange(steps, device=dev, dtype=torch.int32))
+        m, at, x_id, x_t = core_ops.expand_pos(ix, (idx_, tx), nx[..., None], d,
+                                               offset=offs.view(*([1] * nx.dim()), steps))
+        m = m & (x_t > _along(_along(lo_x))) & (x_t <= _along(_along(hi_x))) & (ns >= 0)[..., None, None]
+        seen_xid[at[m].long() >> 3] = True  # the ids read: entries whose time is in the x window
+        m = m & (x_id >= 0)
+        for r in skips:
+            m = m & (x_id != r[..., None, None])
+        lead = m.nonzero(as_tuple=True)[:-2]  # the kept entries' lead coordinates
+        x_id, x_t = x_id[m], x_t[m]
+        lo, hi = lo_s[lead], hi_s[lead]
+        if kw["ordered"]:
+            lo, hi = (torch.maximum(lo, x_t), hi) if bs1 else (lo, torch.minimum(hi, x_t - 1))
+        a0, b0 = start_s[lead], end_s[lead]
+        (lb, s1), (ub, s2) = ws_halvings(ids_s, a0, b0, x_id, n, seen_ids), ws_halvings(ids_s, a0, b0, x_id + 1, n,
+                                                                                          seen_ids)
+        total += int(s1) + int(s2)
+        total += int(ws_halvings(ts, lb, ub, lo + 1, n, seen_t)[1]) + int(ws_halvings(ts, lb, ub, hi + 1, n, seen_t)[1])
+    # an array that both sides read (one CSR as a and b) counts its sectors once
+    touched = {}
+    for a, m in ((ix, ptr_x), (is_, ptr_s), (tx, row_t), (idx_, seen_xid), (ids_s, seen_ids), (ts, seen_t)):
+        key = (a.data_ptr(), a.numel())
+        touched[key] = (a, touched[key][1] | m if key in touched else m)
+    return total, sum(min(32 * int(m.sum()), 4 * a.numel()) for a, m in touched.values())
+
+
+def ws_step_bound_ms(args, out, steps: int, row_bytes: int):
+    """intersect_step's bound: each operand tensor's own elements read once
+    (a broadcast view at its distinct elements), the output written once,
+    the rows' sectors of ``ws_step_steps`` read once, one operation a
+    halving."""
+    import torch
+
+    operands = (args[3], args[4], *args[5], *args[6], *args[7])
+    nbytes = sum(4 * math.prod(n for n, st in zip(v.shape, v.stride()) if st)
+                 for v in operands if isinstance(v, torch.Tensor))
+    return bound_ms(nbytes + 4 * out.numel() + row_bytes, steps)
+
+
+def ws_step_form(args, kw) -> dict:
+    """The shape and operand forms of an intersect_step launch."""
+    import torch
+
+    form = lambda v: "int" if not isinstance(v, torch.Tensor) else {  # noqa: E731
+        "shape": list(v.shape), "stride": list(v.stride())}
+    strategy, csr_a, csr_b, frontier, fixed, w1, w2, skip = args
+    shape = torch.broadcast_shapes(*(tuple(v.shape) for v in (frontier, fixed, *w1, *w2, *skip)
+                                     if isinstance(v, torch.Tensor)))
+    return {"strategy": strategy, "lead": list(shape), **{k: kw[k] for k in ("d", "n_sweep", "n_iters", "ordered")},
+            "frontier": form(frontier), "fixed": form(fixed), "window1": [form(v) for v in w1],
+            "window2": [form(v) for v in w2], "skip": [form(v) for v in skip],
+            "rows": {"a": int(csr_a[1].shape[0]), "b": int(csr_b[1].shape[0])}}
+
+
+def ws_step_times(args, kw, reps: int, plain_ms: float, cold: bool = False) -> dict:
+    """intersect_step on its operands as passed, as ``ws_times`` times the
+    search entry; ``plain_ms`` is the plain version's time on the same
+    operands (``ws_step_hold``'s)."""
+    import torch
+    from repro_torch.kernels.window_search import ops as ws_ops
+
+    run = lambda: ws_ops.intersect_step(*args, **kw)  # noqa: E731
+    kernel_ms, seen = kernel_device_ms(run, reps, match="window_search_step")
+    times = {"ms": cuda_ms(run, reps), "kernel_ms": kernel_ms}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=args[1][0].device)
+        evict = flush.zero_
+        kernel_ms, seen = kernel_device_ms(run, reps, match="window_search_step", before=evict)
+        times = {"ms": cuda_ms(run, reps, before=evict), "kernel_ms": kernel_ms, "l2_flushed": True,
+                 "l2_warm_ms": times["ms"], "l2_warm_kernel_ms": times["kernel_ms"]}
+        del flush
+    out = run()
+    steps, row_bytes = ws_step_steps(args, kw)
+    bound, by = ws_step_bound_ms(args, out, steps, row_bytes)
+    return {**times, "kernel_launches_profiled": seen, "host_us": host_us(run, reps),
+            "plain_ms": plain_ms, "operations": steps,
+            "row_bytes": row_bytes, "elements": out.numel() * kw["d"] * kw["n_sweep"], "bound_ms": bound,
+            "bound_by": by}
+
+
+def ws_library_ms(args, reps: int):
+    """The library yardstick for ``count_window``: one ``torch.searchsorted``
+    call for both window ends of every query over a prebuilt int64 key
+    ``(row << 32) | (t ^ 0x80000000)`` of the time-sorted rows (the key
+    built once, not timed)."""
+    import torch
+
+    t_sorted, indptr, node, after, until = args[:5]
+    dev = t_sorted.device
+    rows = torch.repeat_interleave(torch.arange(indptr.shape[0] - 1, device=dev, dtype=torch.int64),
+                                   (indptr[1:] - indptr[:-1]).long())
+    key = (rows << 32) | ((t_sorted.long() ^ 0x80000000) & 0xFFFFFFFF)
+    shape = torch.broadcast_shapes(*(tuple(v.shape) for v in (node, after, until) if isinstance(v, torch.Tensor)))
+    i32 = lambda v: (v if isinstance(v, torch.Tensor) else torch.tensor(v, device=dev, dtype=torch.int32)).expand(shape)  # noqa: E731
+    row = i32(node).long().clamp_min(0) << 32
+    q = torch.stack([row | (((i32(w) + 1).long() ^ 0x80000000) & 0xFFFFFFFF) for w in (after, until)])
+    return cuda_ms(lambda: torch.searchsorted(key, q), reps)
 
 
 def fa_plain(q, k, v, causal, window=None):
@@ -2266,7 +2563,7 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
         raise AssertionError(f"committed ticks {[r.tick for r in reps]} are not 1..{n_ticks}")
     if svc.stats["host_syncs"] != n_ticks:
         raise AssertionError(f"the stream synced {svc.stats['host_syncs']} times over {n_ticks} ticks")
-    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0:
+    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0 or launches["window_search_step"] <= 0:
         raise AssertionError(f"the streaming ticks did not launch the mining kernels: {launches}")
     if stream["degraded"]:
         raise AssertionError(f"a plain service tick reports degradation: {stream['degraded']}")
@@ -2363,16 +2660,20 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
            "wal_replayed_ticks": replayed, "backends": [svc.backend, rec.backend],
            "intersect_count_launches": {"ticks": tick_launches, "recover": recover_launches},
            "window_search_launches": {"ticks": tick_ln["window_search"], "recover": recover_ln["window_search"]},
+           "window_search_step_launches": {"ticks": tick_ln["window_search_step"],
+                                           "recover": recover_ln["window_search_step"]},
            "health": svc.health()}
     report["resilience"] = res
     log("resilience: " + json.dumps(res))
     if reps[2].retries != 1 or any(r.retries for i, r in enumerate(reps) if i != 2):
         raise AssertionError(f"expected one retry on tick 3 alone: {res['retries_by_tick']}")
     if (not replayed or tick_launches <= 0 or recover_launches <= 0 or {svc.backend, rec.backend} != {"kernel"}
-            or min(res["window_search_launches"].values()) <= 0):
+            or min(res["window_search_launches"].values()) <= 0
+            or min(res["window_search_step_launches"].values()) <= 0):
         raise AssertionError(f"the resilient ticks or the WAL replay {replayed} did not run on "
                              f"intersect_count and window_search: {res['intersect_count_launches']}, "
-                             f"{res['window_search_launches']}, {res['backends']}")
+                             f"{res['window_search_launches']}, {res['window_search_step_launches']}, "
+                             f"{res['backends']}")
     if rec.tick != svc.tick or not store_states_equal(rec.store.state_dict(), svc.store.state_dict()):
         raise AssertionError("the recovered store differs from the live one")
     for n in names:
@@ -2450,6 +2751,7 @@ def phase_witness(session, ds, counts, report):
     cpu_of = {n: min(WIT_CPU_SEEDS_CUT.get(n, WIT_CPU_SEEDS), n_of[n]) for n in pats}
     count_s, res, stats = {}, {}, []
     wit_wall, ws_launches = 0.0, 0
+    step_before = ws_ops.step_launches
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2476,6 +2778,7 @@ def phase_witness(session, ds, counts, report):
             res.update({n: (r.witnesses[n], r.seconds[n]) for n in group})
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    step_launches = ws_ops.step_launches - step_before  # the count-only and the witness mines
     peak = int(torch.cuda.max_memory_allocated())
     ts = time.perf_counter()
     cpu = MiningSession(g, window=WINDOW, device="cpu").register(*pats)
@@ -2497,10 +2800,12 @@ def phase_witness(session, ds, counts, report):
     wit["session"] = {"seeds": int(len(seeds)), "k": WIT_K, "witness_wall_s": wit_wall,
                       "count_only_wall_s": sum(count_s.values()), "per_pattern": per, "mines": stats,
                       "peak_mem_bytes": peak, "cpu_s": cpu_s, "cpu_mines": cpu_group_s, "cpu_equal": True,
-                      "window_search_launches": ws_launches}
+                      "window_search_launches": ws_launches, "window_search_step_launches": step_launches}
     log("witness session: " + json.dumps(wit["session"]))
     if ws_launches <= 0:
         raise AssertionError("the session's witness mines launched window_search no time")
+    if step_launches <= 0:
+        raise AssertionError("the session's count-only and witness mines launched intersect_step no time")
 
     # (c) plant and recover at full size
     planted = [inst["eids"] for inst in planted_instances(ds, "cycle")
@@ -2624,7 +2929,7 @@ def phase_triage(g, report, zero_launches, read_launches):
     }
     if tri["degraded"]:
         raise AssertionError(f"a triage tick reports degradation: {tri['degraded']}")
-    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0:
+    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0 or launches["window_search_step"] <= 0:
         raise AssertionError(f"the triage ticks did not launch the mining kernels: {launches}")
     if svc.stats["host_syncs"] != svc.tick + wit_mines[0]:
         raise AssertionError(f"{svc.stats['host_syncs']} host syncs over {svc.tick} ticks and {wit_mines[0]} witness mines")
@@ -2728,7 +3033,8 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
         if res.gather_mode != mode or res.stats["host_syncs"] != 1:
             raise AssertionError(f"the sharded mine ({name}) gathered by {res.gather_mode!r} with "
                                  f"{res.stats['host_syncs']} host syncs, not {mode!r} with 1")
-        if row["launches"]["intersect_count"] <= 0 or row["launches"]["window_search"] <= 0:
+        if (row["launches"]["intersect_count"] <= 0 or row["launches"]["window_search"] <= 0
+                or row["launches"]["window_search_step"] <= 0):
             raise AssertionError(f"the sharded mine ({name}) did not launch the mining kernels: {row['launches']}")
         for key in executor.STAT_KEYS:
             part = sum(st[key] for st in res.shard_stats)
@@ -4299,7 +4605,7 @@ def phase_examples(device, report, zero_launches, read_launches) -> dict:
         ln = launches[label]
         mining = name in ("quickstart", "streaming_detection", "trace_capture")
         pipeline = name in ("quickstart", "train_aml_pipeline")
-        if mining and not (ln["intersect_count"] > 0 and ln["window_search"] > 0):
+        if mining and not (ln["intersect_count"] > 0 and ln["window_search"] > 0 and ln["window_search_step"] > 0):
             raise AssertionError(f"{label} did not launch the mining kernels: {ln}")
         if pipeline and not ln["hist_update"] > ln["hist_update_rows"] > 0:
             raise AssertionError(f"{label} did not launch both hist_update entries: {ln}")
@@ -4393,18 +4699,20 @@ def main() -> int:
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
-        ws_ops.launches = 0
+        ws_ops.launches = ws_ops.step_launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read_launches():
         # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone;
         # "flash_attention" every forward launch, "flash_attention_lse" those that wrote the logsumexp,
-        # "flash_attention_bwd" every backward launch, "flash_attention_bwd_long" those on the long backward
+        # "flash_attention_bwd" every backward launch, "flash_attention_bwd_long" those on the long backward;
+        # "window_search" both of its entries, "window_search_step" the intersect_step entry
         return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches,
                 "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches,
                 "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
-                "flash_attention_bwd_long": fa_ops.long_bwd_launches, "window_search": ws_ops.launches}
+                "flash_attention_bwd_long": fa_ops.long_bwd_launches, "window_search": ws_ops.launches,
+                "window_search_step": ws_ops.step_launches}
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -4420,12 +4728,20 @@ def main() -> int:
     mark(1)
 
     # ---- 2. kernels against their plain versions ----------------------
-    max_err = phase_kernel(device, report)
-    hu_err = phase_hist_update(device, report)
-    wd_row = phase_window_degree(device, report)
-    ws_err, _ = phase_window_search(device, report)
-    fa_err = phase_flash_attention(device, report)
-    fa_bwd_err = phase_flash_attention_bwd(device, report)
+    def timed2(name, fn):
+        # phase 2's seconds by kernel
+        t0 = time.perf_counter()
+        out = fn(device, report)
+        report.setdefault("phase2_s", {})[name] = time.perf_counter() - t0
+        return out
+
+    max_err = timed2("intersect_count", phase_kernel)
+    hu_err = timed2("hist_update", phase_hist_update)
+    wd_row = timed2("window_degree", phase_window_degree)
+    ws_err, _ = timed2("window_search", phase_window_search)
+    fa_err = timed2("flash_attention", phase_flash_attention)
+    fa_bwd_err = timed2("flash_attention_bwd", phase_flash_attention_bwd)
+    log("phase 2 by kernel: " + json.dumps(report["phase2_s"]))
     mark(2)
 
     # ---- 3. main path at a real size: mine, features, fit, F1 ---------
@@ -4485,10 +4801,21 @@ def main() -> int:
             return ws_fns[entry](*a)
         return run
 
+    ws_step_fn = ws_ops.intersect_step
+    ws_step_biggest = {}  # strategy -> (lead elements x expansions, args, kw) of its largest intersect_step call
+
+    def capture_step(*a, **kw):
+        out = ws_step_fn(*a, **kw)
+        n = out.numel() * kw["d"] * kw["n_sweep"]
+        if n > ws_step_biggest.get(a[0], (-1,))[0]:
+            ws_step_biggest[a[0]] = (n, a, kw)
+        return out
+
     ic_ops.intersect_count = capture
     hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
     for e in ws_fns:
         setattr(ws_ops, e, capture_ws(e))
+    ws_ops.intersect_step = capture_step
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     torch.cuda.set_sync_debug_mode("error")
@@ -4502,6 +4829,7 @@ def main() -> int:
         hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
         for e, fn in ws_fns.items():
             setattr(ws_ops, e, fn)
+        ws_ops.intersect_step = ws_step_fn
     detection = {"full": detection_row("full", full, wall)}
     main_launches = detection["full"]["launches"]
     launches = main_launches["intersect_count"]
@@ -4543,8 +4871,9 @@ def main() -> int:
     log("main path: " + json.dumps(main))
     if launches <= 0:
         raise AssertionError("the main path launched intersect_count no time")
-    if main_launches["window_search"] <= 0:
-        raise AssertionError("the main path launched window_search no time")
+    if main_launches["window_search"] <= 0 or main_launches["window_search_step"] <= 0:
+        raise AssertionError(f"the main path launched window_search (its intersect_step entry) no time: "
+                             f"{main_launches}")
     for name, res in (("cold", cold), ("first subset", first), ("warm", warm)):
         if res.stats["host_syncs"] != 1 + n_compiled:
             raise AssertionError(f"{name} mine synced {res.stats['host_syncs']} times, not {1 + n_compiled}")
@@ -4662,7 +4991,23 @@ def main() -> int:
         err = ws_hold(entry, args, "the main path's largest launch")
         ws_path[entry] = {"max_abs_err": err, **ws_times(entry, args, 20, cold=True), "shape": ws_form(entry, args)}
         log(f"kernel timing: window_search ({entry}) on the mining path " + json.dumps(ws_path[entry]))
-    top = max(ws_path.values(), key=lambda r: r["elements"])
+    # the whole intersect steps at the main path's largest launch of each
+    # strategy, held against the plain version and timed with L2 flushed
+    for strategy, (_, args, kw) in sorted(ws_step_biggest.items()):
+        err, plain_ms = ws_step_hold(args, kw, f"the main path's largest {strategy} launch")
+        row = {"max_abs_err": err, "shape": ws_step_form(args, kw),
+               **ws_step_times(args, kw, 10, plain_ms, cold=True)}
+        ws_path[f"intersect_step_{strategy}"] = row
+        log(f"kernel timing: window_search (intersect_step, {strategy}) on the mining path " + json.dumps(row))
+    # the entry's headline: the path's largest launch (by elements: the
+    # bs2 hub sweep's intersect_step).  No one PyTorch call computes an
+    # intersect step; the library yardstick (a searchsorted over a prebuilt
+    # key) is count_window's, stated with that launch's shape beside it
+    top_name = max(ws_path, key=lambda e: ws_path[e]["elements"])
+    top = ws_path[top_name]
+    library_ms = ws_library_ms(ws_biggest["count_window"][1], 20) if "count_window" in ws_biggest else None
+    if library_ms is not None:
+        ws_path["count_window"]["library_ms"] = library_ms
     ws_entry = {
         "name": "window_search",
         "route": "cuda",
@@ -4670,14 +5015,20 @@ def main() -> int:
         # not a TPU kernel: the reference's fori_loop searches, compiled by XLA
         "replaces": "src/repro/core/ops.py:46",
         "launches": main_launches["window_search"],
+        "step_launches": main_launches["window_search_step"],
         "max_abs_err": max([ws_err] + [r["max_abs_err"] for r in ws_path.values()]),
+        "headline": top_name,
         **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms", "l2_flushed", "l2_warm_ms",
-                               "l2_warm_kernel_ms", "host_us", "halvings", "row_bytes", "elements")},
-        "library_ms": None,
-        "library": "none: torch.searchsorted takes no ragged CSR rows",
+                               "l2_warm_kernel_ms", "host_us", "halvings", "operations", "row_bytes", "elements")
+           if k in top},
+        "library_ms": library_ms,
+        "library": "torch.searchsorted over a prebuilt int64 (row << 32) | (t ^ 0x80000000) key, count_window",
+        "library_shape": ws_path["count_window"]["shape"] if library_ms is not None else None,
         "shape": top["shape"],
-        "path_launches": {e: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "row_bytes",
-                                                "elements", "shape")}
+        "path_launches": {e: {k: r[k] for k in ("ms", "kernel_ms", "l2_warm_ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by", "row_bytes", "halvings", "operations",
+                                                "elements", "shape")
+                              if k in r}
                           for e, r in ws_path.items()},
         "launches_torch_backend": torch_launches["window_search"],
     }
@@ -4799,6 +5150,7 @@ def main() -> int:
         raise AssertionError(f"intersect_count differs from its plain version on the streaming launch: {err}")
     times = ic_times(a, sbig["ordered"], 20, cold=True)
     ws_entry["launches_streaming"] = report["streaming"]["launches"]["window_search"]
+    ws_entry["step_launches_streaming"] = report["streaming"]["launches"]["window_search_step"]
     kernels[0].update({
         "launches_streaming": stream_launches,
         "streaming_shape": ic_form(a, sbig["ordered"]),
@@ -4814,7 +5166,9 @@ def main() -> int:
     res_launches, rec_launches = phase_resilience(session, g, report, zero_launches, read_launches)
     kernels[0].update({"launches_resilience": res_launches, "launches_recovery": rec_launches})
     ws_entry.update({"launches_resilience": report["resilience"]["window_search_launches"]["ticks"],
-                     "launches_recovery": report["resilience"]["window_search_launches"]["recover"]})
+                     "launches_recovery": report["resilience"]["window_search_launches"]["recover"],
+                     "step_launches_resilience": report["resilience"]["window_search_step_launches"]["ticks"],
+                     "step_launches_recovery": report["resilience"]["window_search_step_launches"]["recover"]})
     mark(12)
 
     # ---- 13. witnesses: oracle, session witness mode, plant and recover
@@ -4822,12 +5176,14 @@ def main() -> int:
     phase_witness(session, ds, counts, report)
     report["witness"]["phase_s"] = time.perf_counter() - t0
     ws_entry["launches_witness"] = report["witness"]["session"]["window_search_launches"]
+    ws_entry["step_launches_witness"] = report["witness"]["session"]["window_search_step_launches"]
     mark(13)
 
     # ---- 14. the triage server over a live feed -----------------------
     t0 = time.perf_counter()
     kernels[0]["launches_triage"] = phase_triage(g, report, zero_launches, read_launches)
     ws_entry["launches_triage"] = report["triage"]["launches"]["window_search"]
+    ws_entry["step_launches_triage"] = report["triage"]["launches"]["window_search_step"]
     report["triage"]["phase_s"] = time.perf_counter() - t0
     log(f"card: {card}")
     mark(14)
@@ -4836,6 +5192,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels[0]["launches_sharded"] = phase_sharded(session, g, counts, report, zero_launches, read_launches)
     ws_entry["launches_sharded"] = sum(report["sharded"][k]["launches"]["window_search"] for k in ("parts", "seeds"))
+    ws_entry["step_launches_sharded"] = sum(report["sharded"][k]["launches"]["window_search_step"]
+                                            for k in ("parts", "seeds"))
     report["sharded"]["phase_s"] = time.perf_counter() - t0
     mark(15)
 
@@ -4979,6 +5337,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches_examples"] = {label: per_entry[entry["name"]](ln) for label, ln in ex.items()}
     fa_entry["launches_examples_lse"] = {label: ln["flash_attention_lse"] for label, ln in ex.items()}
+    ws_entry["step_launches_examples"] = {label: ln["window_search_step"] for label, ln in ex.items()}
     log(f"card: {card}")
     mark(22)
 

@@ -496,8 +496,9 @@ class MiningSession:
     ``kernel_backend="xla"``, which keeps its own Pallas kernel off its
     main path; this port defaults to the kernel, so its main path runs
     it.  Under ``"kernel"`` the compiled and fused plans also run their
-    windowed searches as ``window_search`` launches, under ``"torch"`` as
-    the eager searches; witness extraction always goes through the
+    windowed searches, and the compiled plans their whole bs1 / bs2
+    intersect steps, as ``window_search`` launches, under ``"torch"`` as
+    eager ops; witness extraction always goes through the
     ``window_search`` wrapper.  Counts are identical either way.
 
     ``shard_coalesce`` is the sharded backend's chunk-coalescing factor

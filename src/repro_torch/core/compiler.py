@@ -24,12 +24,16 @@ The device half is rewritten in torch:
   counterpart of ``"xla"``.  The JAX package defaults to ``"xla"``, so its
   main path never reaches its own Pallas kernel; the port defaults to the
   kernel so that its main path does.  Counts are identical either way.
-  ``backend="kernel"`` also runs every windowed search (the bs1 / bs2
-  intersects, difference frontiers, ``count_edges`` and ``count_window``)
-  as one launch of the hand-written ``window_search`` kernel
+  ``backend="kernel"`` also runs every windowed search (difference
+  frontiers, ``count_edges`` and ``count_window``) as one launch of the
+  hand-written ``window_search`` kernel
   (:mod:`repro_torch.kernels.window_search`), where the JAX package's
-  jitted bucket programs run ``repro.core.ops``' ``fori_loop`` searches;
-  ``"torch"`` keeps the eager searches of :mod:`repro_torch.core.ops`.
+  jitted bucket programs run ``repro.core.ops``' ``fori_loop`` searches,
+  and each whole bs1 / bs2 intersect step (expansion, masks, search and
+  sum) as one launch of its ``intersect_step`` entry, with the intersect
+  dim's hub sweep offsets inside the launch: the callable's sweep loop
+  then runs the frontier dims' combos alone.  ``"torch"`` keeps the eager
+  ops of :mod:`repro_torch.core.ops`.
 * PyTorch runs eagerly, so there is no trace: the ``_kernels`` cache holds
   the built callables and ``jit_cache_entries`` counts the same
   launch-shape keys the JAX package counts as traces.
@@ -134,6 +138,25 @@ def _min(a, b):
     if not isinstance(b, torch.Tensor):
         return a.clamp_max(b)
     return torch.minimum(a, b)
+
+
+def _linear_in(ir: "StageGraphIR", name: str, target: str) -> bool:
+    """Whether stage ``name``'s count is linear in stage ``target``'s: it is
+    ``target``, or a product with exactly one factor that reads ``target``
+    and is itself linear in it.  A sum over ``target``'s sweep offsets can
+    then be taken before ``name`` instead of after."""
+
+    def reads(n: str) -> bool:
+        st = ir.nodes[n].stage
+        return n == target or (st.op == "product" and any(reads(f) for f in st.factors))
+
+    if name == target:
+        return True
+    st = ir.nodes[name].stage
+    if st.op != "product":
+        return False
+    hits = [f for f in st.factors if reads(f)]
+    return len(hits) == 1 and _linear_in(ir, hits[0], target)
 
 
 def _kernel_pair_count(
@@ -875,7 +898,7 @@ class CompiledPattern:
             """Place a (B, d) expansion at query-shape axis `axis_lvl`."""
             return arr.reshape(arr.shape[0], *([1] * (axis_lvl - 1)), arr.shape[1])
 
-        def body(dg: DeviceGraph, s, d, st_, fr, frt, offs):
+        def body(dg: DeviceGraph, s, d, st_, fr, frt, offs, step_sweeps=1):
             node_env = {"seed.src": (s, 0), "seed.dst": (d, 0)}
             time_env: Dict[str, Tuple] = {}
             mask_env: Dict[str, Tuple] = {}
@@ -977,7 +1000,27 @@ class CompiledPattern:
                 fixed = node_env[b.node.name][0]  # (B,)
                 lx = k + 1  # frontier-side expansion axis
 
-                if strat == 0:  # bs1: expand frontier rows, bsearch fixed
+                if backend == "kernel" and strat in (0, 1):
+                    # the whole step, expansion to sum, is one window_search
+                    # launch; the used intersect dim's sweep offsets run
+                    # inside it where the grid is split (step_sweeps)
+                    j = k + strat
+                    branch = srch.intersect_step(
+                        "bs1" if strat == 0 else "bs2",
+                        (indptr_a, nbr_a, t_a),
+                        (indptr_b, nbr_b, t_b),
+                        fr_ids,
+                        lift(fixed, k),
+                        (bound_at(it.window.after, k), bound_at(it.window.until, k)),
+                        (bound_at(it.window2.after, k), bound_at(it.window2.until, k)),
+                        tuple(node_at(ref, k) for ref in it.skip_eq),
+                        ordered=it.ordered,
+                        d=dims[j],
+                        n_sweep=step_sweeps,
+                        offset=offs[j],
+                        n_iters=n_iters,
+                    )
+                elif strat == 0:  # bs1: expand frontier rows, bsearch fixed
                     m2, x_ids, x_t = ops.expand(
                         indptr_a, (nbr_a, t_a), fr_ids, d_a, offset=off_a
                     )
@@ -1183,25 +1226,36 @@ class CompiledPattern:
 
         # ---- sweep fusion: the offset grid lives INSIDE the callable --
         # counts are additive across the sweep grid, so a loop over the
-        # flattened combo index turns n_sweep calls into one
-        n_sweep = int(np.prod(sweeps))
+        # flattened combo index turns n_sweep calls into one.  Under the
+        # kernel backend a bs1 / bs2 step whose emit is linear in the
+        # intersect's count takes its own dim's offsets inside one
+        # intersect_step launch: the loop then runs the frontier dims'
+        # combos only (each re-expands the frontier), and the grid's sum is
+        # the same in int32 arithmetic
+        inner = 1
+        if backend == "kernel" and strat in (0, 1) and ir.intersect is not None:
+            j = k + strat
+            if sweeps[j] > 1 and sweeps[2 * k + 1 - j] == 1 and _linear_in(ir, ir.emit.name, ir.intersect.name):
+                inner = sweeps[j]
+        grid = tuple(1 if inner > 1 and j >= k else sc for j, sc in enumerate(sweeps))
+        n_sweep = int(np.prod(grid))
         strides: List[int] = []
         acc = 1
-        for sc in reversed(sweeps):
+        for sc in reversed(grid):
             strides.append(acc)
             acc *= sc
         strides = tuple(reversed(strides))
 
         def kernel(dg: DeviceGraph, s, d, st_, fr, frt):
             if n_sweep == 1:
-                return body(dg, s, d, st_, fr, frt, (0,) * len(dims))
+                return body(dg, s, d, st_, fr, frt, (0,) * len(dims), inner)
             total = torch.zeros(s.shape, dtype=torch.int32, device=s.device)
             for i in range(n_sweep):
                 offs = tuple(
-                    ((i // strides[j]) % sweeps[j]) * dims[j]
+                    ((i // strides[j]) % grid[j]) * dims[j]
                     for j in range(len(dims))
                 )
-                total += body(dg, s, d, st_, fr, frt, offs)
+                total += body(dg, s, d, st_, fr, frt, offs, inner)
             return total
 
         return kernel

@@ -6,5 +6,6 @@ wrapper with its launch count) and a CUDA source under
 Ported: ``intersect_count``, ``hist_update``, ``window_degree`` and
 ``flash_attention``, every Pallas kernel of the JAX package's
 ``kernels/*`` (the same names).  Added: ``window_search``, the mining
-compiler's windowed searches, which the JAX package runs as
-``fori_loop`` searches inside its jitted bucket programs."""
+compiler's windowed searches and its whole bs1 / bs2 intersect steps,
+which the JAX package runs as ``fori_loop`` searches inside its jitted
+bucket programs."""

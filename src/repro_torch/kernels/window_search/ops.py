@@ -5,12 +5,17 @@ signatures: ``count_window`` and ``count_window_pos`` (one level: the
 window ranked on the time-sorted row copy) and ``count_id_in_window`` and
 ``count_id_in_window_pos`` (two levels: the id run in the id-sorted row,
 then the window inside it); the ``_pos`` forms also return the flat rank
-of the first element in the window.  For CUDA tensors each call is one
+of the first element in the window.  And ``intersect_step``: a whole bs1
+or bs2 intersect step of the compiled plans, the expansion of one side,
+its window and ``skip_eq`` masks, the ordered clip, the two-level search
+of each kept entry in the other side's row and the sum, with the intersect
+dim's sweep offsets looped inside.  For CUDA tensors each call is one
 launch of the hand-written kernel (``src/repro_torch/csrc/window_search.cu``,
 built and loaded through :mod:`repro_torch.kernels.build`); for tensors on
-the CPU it is the plain version (:mod:`.ref`, the eager searches of
-``core.ops``); there is no other route and no fallback.  What neither
-takes (dtype, rank, device) raises.
+the CPU it is the plain version (:mod:`.ref`: the eager searches of
+``core.ops``, and the compiler's eager intersect sequence); there is no
+other route and no fallback.  What neither takes (dtype, rank, device)
+raises.
 
 The query operands ``node``, ``x``, ``after`` and ``until`` are taken in
 the forms the mining compiler holds them: a Python int (passed by value)
@@ -26,7 +31,9 @@ The kernel launches on the current stream, allocates nothing beyond the
 outputs and makes no host sync.
 
 ``launches`` counts kernel launches in this process (one per call that
-reached the card); comparisons that call the plain version do not count.
+reached the card), of both entries; ``step_launches`` those of
+``intersect_step`` alone.  Comparisons that call the plain version do not
+count.
 """
 from __future__ import annotations
 
@@ -44,16 +51,21 @@ __all__ = [
     "count_window_pos",
     "count_id_in_window",
     "count_id_in_window_pos",
+    "intersect_step",
     "describe",
     "launches",
+    "step_launches",
     "MAX_RANK",
+    "MAX_SKIP",
 ]
 
 launches = 0
+step_launches = 0
 # the sharded executor's dispatch threads launch concurrently: the
 # read-modify-write of a count is guarded
 _count_lock = threading.Lock()
 MAX_RANK = 8  # WS_MAX_RANK of the .cu: axes of a launch after describe()
+MAX_SKIP = 8  # WS_MAX_SKIP of the .cu: skip operands of an intersect step
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 _I32 = torch.int32
 _Strides = ctypes.c_longlong * MAX_RANK
@@ -86,22 +98,73 @@ class _Args(ctypes.Structure):
     ]
 
 
-_fn = None
+class _Csr(ctypes.Structure):
+    _fields_ = [
+        ("ids", ctypes.c_void_p),
+        ("t", ctypes.c_void_p),
+        ("indptr", ctypes.c_void_p),
+        ("n_flat", ctypes.c_longlong),
+        ("n_indptr", ctypes.c_longlong),
+    ]
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+class _StepArgs(ctypes.Structure):
+    _fields_ = [
+        ("x", _Csr),
+        ("s", _Csr),
+        ("node_x", _Operand),
+        ("node_s", _Operand),
+        ("lo_x", _Operand),
+        ("hi_x", _Operand),
+        ("lo_s", _Operand),
+        ("hi_s", _Operand),
+        ("skip", _Operand * MAX_SKIP),
+        ("out", ctypes.c_void_p),
+        ("size", _Strides),
+        ("numel", ctypes.c_longlong),
+        ("offset", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("rank", ctypes.c_int),
+        ("n_iters", ctypes.c_int),
+        ("n_skip", ctypes.c_int),
+        ("ordered", ctypes.c_int),
+        ("clip_upper", ctypes.c_int),
+        ("group", ctypes.c_int),
+    ]
+
+
+_fns = None
+
+
+def _launcher(step: bool = False):
+    """The .cu's launch function of one entry (``step``: intersect_step)."""
+    global _fns
+    if _fns is None:
         lib = build.load("window_search")
-        lib.window_search_args_bytes.restype = ctypes.c_int
-        lib.window_search_max_rank.restype = ctypes.c_int
-        if lib.window_search_args_bytes() != ctypes.sizeof(_Args) or lib.window_search_max_rank() != MAX_RANK:
+        for name in ("window_search_args_bytes", "window_search_step_args_bytes", "window_search_max_rank",
+                     "window_search_max_skip"):
+            getattr(lib, name).restype = ctypes.c_int
+        if (lib.window_search_args_bytes() != ctypes.sizeof(_Args)
+                or lib.window_search_step_args_bytes() != ctypes.sizeof(_StepArgs)
+                or lib.window_search_max_rank() != MAX_RANK or lib.window_search_max_skip() != MAX_SKIP):
             raise RuntimeError("window_search: the .cu's argument layout differs from the wrapper's")
-        fn = lib.window_search_launch
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        fns = []
+        for name, args in (("window_search_launch", _Args), ("window_search_step_launch", _StepArgs)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        _fns = tuple(fns)
+    return _fns[1 if step else 0]
+
+
+def _launch(fn, args, dev, what: str) -> None:
+    """Launch on ``dev``'s current stream; a refused launch raises."""
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(d):
+        err = fn(ctypes.byref(args), torch._C._cuda_getCurrentRawStream(d))
+    if err != 0:
+        raise RuntimeError(f"window_search {what} launch failed: CUDA error {err}")
 
 
 def describe(
@@ -208,15 +271,121 @@ def _search(ids, t, indptr, node, x, after, until, n_iters, want_pos: bool):
         *ops_, out.data_ptr(), pos.data_ptr() if want_pos else None, _Strides(*merged[-1]), _Strides(*sizes),
         out.numel(), len(sizes), n_iters, 1 if two else 0, 0,
     )
-    fn = _launcher()
-    d = dev.index if dev.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(d):
-        err = fn(ctypes.byref(args), torch._C._cuda_getCurrentRawStream(d))
-    if err != 0:
-        raise RuntimeError(f"window_search launch failed: CUDA error {err}")
+    _launch(_launcher(), args, dev, "search")
     with _count_lock:
         launches += 1
     return (out, pos) if want_pos else out
+
+
+STRATEGIES = ("bs1", "bs2")
+
+
+def _check_csr(name: str, csr, device) -> None:
+    if not isinstance(csr, tuple) or len(csr) != 3:
+        raise TypeError(f"window_search: {name} must be an (indptr, ids, t) tuple")
+    indptr, ids, t = csr
+    for part, x in (("indptr", indptr), ("ids", ids), ("t", t)):
+        _check_flat(f"{name}'s {part}", x, device)
+    if ids.shape[0] == 0 or indptr.shape[0] == 0 or ids.shape[0] != t.shape[0]:
+        raise ValueError(f"window_search: {name} has empty flat arrays, or ids and t of different lengths")
+
+
+def _csr(csr) -> _Csr:
+    indptr, ids, t = csr
+    return _Csr(ids.data_ptr(), t.data_ptr(), indptr.data_ptr(), ids.shape[0], indptr.shape[0])
+
+
+def intersect_step(
+    strategy: str,
+    csr_a,
+    csr_b,
+    frontier,
+    fixed,
+    window1,
+    window2,
+    skip=(),
+    *,
+    ordered: bool,
+    d: int,
+    n_sweep: int = 1,
+    offset: int = 0,
+    n_iters: int,
+):
+    """One bs1 or bs2 intersect step of the compiled plans, summed over the
+    intersect dim's sweep offsets ``offset + i * d``, ``i < n_sweep``.
+
+    ``csr_a`` / ``csr_b`` are the frontier side's and the fixed side's CSR
+    as ``(indptr, ids, t)``, rows sorted by (id, t).  ``frontier`` (the
+    frontier node of each lead element), ``fixed`` (the fixed seed
+    endpoint), the bounds of ``window1`` = (after, until) (the frontier
+    side's edge times) and ``window2`` (the fixed side's) and each ``skip``
+    node are ints or int32 tensors that broadcast to the lead shape
+    ``(B, W1, ..., Wk)``, read in place.  bs1 expands the frontier row in
+    ``csr_a`` and searches each kept entry's id in the fixed row of
+    ``csr_b``; bs2 expands the fixed row and searches the frontier row.
+    An entry is kept where its time lies in its side's window and its id
+    differs from every skip node; ``ordered`` then clips the searched
+    window to after the entry's time (bs1) or before it (bs2).  Returns the
+    int32 counts of the lead shape: the compiler's eager sequence
+    (:func:`.ref.intersect_step_ref`) bit for bit."""
+    global launches, step_launches
+    if strategy not in STRATEGIES:
+        raise ValueError(f"window_search: strategy must be one of {STRATEGIES}, not {strategy!r}")
+    if not isinstance(csr_a, tuple) or not csr_a or not isinstance(csr_a[0], torch.Tensor):
+        raise TypeError("window_search: csr_a must be an (indptr, ids, t) tuple of tensors")
+    dev = csr_a[0].device
+    _check_csr("csr_a", csr_a, dev)
+    _check_csr("csr_b", csr_b, dev)
+    skip = tuple(skip)
+    if len(skip) > MAX_SKIP:
+        raise ValueError(f"window_search: {len(skip)} skip nodes; the kernel takes {MAX_SKIP}")
+    (a1, u1), (a2, u2) = window1, window2
+    operands = {"frontier": frontier, "fixed": fixed, "window1 after": a1, "window1 until": u1,
+                "window2 after": a2, "window2 until": u2, **{f"skip {i}": r for i, r in enumerate(skip)}}
+    for name, v in operands.items():
+        _check_operand(name, v, dev)
+    for name, v in (("d", d), ("n_sweep", n_sweep), ("n_iters", n_iters), ("offset", offset)):
+        if type(v) is not int or v < (1 if name in ("d", "n_sweep") else 0):
+            raise TypeError(f"window_search: {name} must be an int >= {1 if name in ('d', 'n_sweep') else 0}, "
+                            f"got {v!r}")
+    if offset + d * n_sweep > I32_MAX:
+        raise ValueError(f"window_search: {n_sweep} sweep steps of {d} from {offset} pass int32")
+    if dev.type == "cpu":
+        return ref.intersect_step_ref(strategy, csr_a, csr_b, frontier, fixed, window1, window2, skip,
+                                      ordered=ordered, d=d, n_sweep=n_sweep, offset=offset, n_iters=n_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"window_search runs on cuda or cpu, not {dev}")
+    shape = torch.broadcast_shapes(*map(_shape, operands.values()))
+    out = torch.empty(shape, dtype=_I32, device=dev)
+    if out.numel() == 0:
+        return out
+    bs1 = strategy == "bs1"
+    # the expanded side (x) and the searched side (s)
+    order = [frontier if bs1 else fixed, fixed if bs1 else frontier, *(window1 if bs1 else window2),
+             *(window2 if bs1 else window1), *skip]
+    strides = [v.expand(shape).stride() if isinstance(v, torch.Tensor) else (0,) * len(shape) for v in order]
+    sizes, merged = describe(shape, strides)
+    if len(sizes) > MAX_RANK:
+        raise ValueError(f"window_search: a lead shape of {len(sizes)} axes past merging; the kernel takes {MAX_RANK}")
+    ops_ = [_operand(v, st) for v, st in zip(order, merged)]
+    skips = ops_[6:] + [_Operand(None, _Strides(), 0, 0)] * (MAX_SKIP - len(skip))
+    width = d * n_sweep
+    args = _StepArgs(
+        _csr(csr_a if bs1 else csr_b), _csr(csr_b if bs1 else csr_a), *ops_[:6], (_Operand * MAX_SKIP)(*skips),
+        out.data_ptr(), _Strides(*sizes), out.numel(), offset, width, len(sizes), n_iters, len(skip),
+        1 if ordered else 0, 0 if bs1 else 1, step_group(width),
+    )
+    _launch(_launcher(step=True), args, dev, "intersect_step")
+    with _count_lock:
+        launches += 1
+        step_launches += 1
+    return out
+
+
+def step_group(width: int) -> int:
+    """Threads of a lead element in an intersect_step launch: a warp up to
+    32 expansions, then 64, 128 or 256 (the .cu's `group`)."""
+    return next((g for g in (32, 64, 128) if width <= g), 256)
 
 
 def count_window(t_sorted_flat, indptr, node, after, until, n_iters: int):

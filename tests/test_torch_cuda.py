@@ -198,6 +198,49 @@ def test_window_search_at_hub_row_length(cuda, entry):
         cs.ws_hold(entry, cs.ws_args(entry, flats, ops_, n_iters), f"hub row, {n_iters} halvings")
 
 
+# the intersect_step entry: chip_smoke.py's phase-2 forms in both
+# strategies, and the hub row swept at D = 1,024 in 512 steps
+@pytest.mark.parametrize("form", cs.WS_STEP_FORMS)
+@pytest.mark.parametrize("strategy", ["bs1", "bs2"])
+def test_window_search_step_matches_plain(cuda, strategy, form):
+    """Bit for bit against the eager intersect sequence on the same
+    operands, one launch under set_sync_debug_mode("error"), and equal to
+    the plain version run on the CPU."""
+    args, kw = cs.ws_step_case(form, strategy, 20 + cs.WS_STEP_FORMS.index(form), cuda)
+    cs.ws_step_hold(args, kw, f"{form}, {strategy}")
+    on_cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else tuple(map(on_cpu, v)) if isinstance(v, tuple) else v  # noqa: E731
+    got = WS.intersect_step(*args, **kw)
+    assert torch.equal(got.cpu(), WS.intersect_step(*on_cpu(args), **kw))
+
+
+@pytest.mark.parametrize("strategy", ["bs1", "bs2"])
+def test_window_search_step_at_hub_row_length(cuda, strategy):
+    for n_iters in (19, 8):  # the hub's halvings, and fewer
+        args, kw = cs.ws_step_hub_case(strategy, cuda, b=256, n_iters=n_iters)
+        cs.ws_step_hold(args, kw, f"{strategy} at a hub row, {n_iters} halvings")
+
+
+def test_window_search_step_on_the_mining_path(cuda):
+    """Swept bs1 and bs2 mines on the card launch intersect_step and equal
+    the CPU port."""
+    from repro_torch.core.compiler import CompiledPattern
+    from repro_torch.core.patterns import build_pattern
+
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 18, 140).astype(np.int32)
+    dst = rng.integers(0, 18, 140).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % 18
+    g = build_temporal_graph(src, dst, rng.integers(0, 256, 140), n_nodes=18)
+    for name in ("cycle4", "scatter_gather"):
+        for strategy in ("bs1", "bs2"):
+            kw = dict(ladder=(1, 2), force_strategy=strategy)
+            want = CompiledPattern(build_pattern(name, 96), g, device="cpu", **kw).mine()
+            before = ws_ops.step_launches
+            got = CompiledPattern(build_pattern(name, 96), g, **kw).mine()
+            assert ws_ops.step_launches > before, (name, strategy)
+            np.testing.assert_array_equal(got, want)
+
+
 def test_window_search_on_the_mining_paths(cuda):
     """A compiled, fused and witness mine on the card launch window_search
     under the kernel backend, equal to the CPU port; the torch backend's

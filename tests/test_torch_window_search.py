@@ -12,6 +12,7 @@ and witness extraction) against the JAX package.  The CUDA kernel itself
 is checked on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -163,6 +164,150 @@ def test_invalid_nodes_and_ids_count_zero(entry):
 
 
 # ---------------------------------------------------------------------------
+# intersect_step: the compiled plans' bs1 / bs2 step in one call
+# ---------------------------------------------------------------------------
+_jexpand = jax.jit(JO.expand, static_argnums=(3,))
+_jcount = jax.jit(JO.count_id_in_window, static_argnums=(7,))
+
+
+def _jax_step(strategy, csr_a, csr_b, frontier, fixed, w1, w2, skip, ordered, d, n_sweep, n_iters):
+    """The JAX package's eager bs1 / bs2 sequence (``repro.core.compiler``'s
+    bs1 and bs2 branches) over the sweep offsets i * d, summed in int32; the
+    operands lead-shaped, placed against the expansion axis as the
+    compiler's lifts place them."""
+    along = lambda v: jnp.asarray(v)[..., None] if isinstance(v, np.ndarray) else v  # noqa: E731
+    (ia, na, ta), (ib, nb, tb) = [tuple(map(jnp.asarray, c)) for c in (csr_a, csr_b)]
+    a1, u1 = map(along, w1)
+    a2, u2 = map(along, w2)
+    refs = [along(r) for r in skip]
+    total = 0
+    for i in range(n_sweep):
+        if strategy == "bs1":
+            m, x_ids, x_t = _jexpand(ia, (na, ta), jnp.asarray(frontier), d, offset=i * d)
+            m = m & (x_t > a1) & (x_t <= u1)
+            for r in refs:
+                m = m & (x_ids != r)
+            lo = jnp.maximum(a2, x_t) if ordered else a2
+            cnt = _jcount(nb, tb, ib, along(fixed), jnp.where(m, x_ids, -1), lo, u2, n_iters)
+        else:
+            m, y_ids, y_t = _jexpand(ib, (nb, tb), jnp.asarray(fixed), d, offset=i * d)
+            m = m & (y_t > a2) & (y_t <= u2)
+            for r in refs:
+                m = m & (y_ids != r)
+            hi = jnp.minimum(u1, y_t - 1) if ordered else u1
+            cnt = _jcount(na, ta, ia, along(frontier), jnp.where(m, y_ids, -1), a1, hi, n_iters)
+        total = total + jnp.sum(jnp.where(m, cnt, 0), axis=-1)
+    return np.asarray(total).astype(np.int32)
+
+
+def _graph_csrs(seed, wrap_times=False):
+    """The out and in CSRs of a ``tests/conftest.py`` random graph as
+    (indptr, ids, t) int32 arrays; ``wrap_times`` moves some edge times to
+    INT32_MIN and INT32_MAX (rows stay sorted by (id, t))."""
+    g = random_temporal_graph(np.random.default_rng(seed), n_nodes=14, n_edges=150, t_max=64)
+    out = []
+    for indptr, nbr, t in ((g.out_indptr, g.out_nbr, g.out_t), (g.in_indptr, g.in_nbr, g.in_t)):
+        t = t.astype(np.int64)
+        if wrap_times:
+            t = np.where(t < 6, I32_MIN, np.where(t > 58, I32_MAX, t))
+        out.append((indptr.astype(np.int32), nbr.astype(np.int32), t.astype(np.int32)))
+    return out
+
+
+def _step_operands(rng, n_skip, form):
+    """(frontier, fixed, window1, window2, skip) in the compiler's lead
+    forms at (B, W) = (6, 3): frontier (B, W), fixed (B, 1), bounds (B, 1),
+    (B, W) or ints; -1 nodes among them."""
+    b, w = 6, 3
+    nodes = lambda shape: rng.integers(-1, 14, shape).astype(np.int32)  # noqa: E731
+    times = lambda shape: rng.integers(-4, 70, shape).astype(np.int32)  # noqa: E731
+    frontier, fixed = nodes((b, w)), nodes((b, 1))
+    frontier[0, 0], fixed[1, 0] = -1, -1
+    if form == "wrap":  # after + 1 wraps; the windows reach both ends of int32
+        w1, w2 = (I32_MIN, I32_MAX), (times((b, 1)), I32_MAX)
+    else:
+        st = times((b, 1))
+        w1 = (st, st + 40) if form != "ints" else (NEG_INF, POS_INF)
+        w2 = (times((b, w)), st + 50)
+    skip = [nodes((b, 1)) if i % 2 == 0 else nodes((b, w)) for i in range(n_skip)]
+    return frontier, fixed, w1, w2, skip
+
+
+def _run_step(strategy, csrs, ops_, ordered, d, n_sweep, n_iters):
+    frontier, fixed, w1, w2, skip = ops_
+    tt = lambda v: torch.from_numpy(v) if isinstance(v, np.ndarray) else v  # noqa: E731
+    tcsr = [tuple(map(torch.from_numpy, c)) for c in csrs]
+    targs = (strategy, *tcsr, tt(frontier), tt(fixed), tuple(map(tt, w1)), tuple(map(tt, w2)), tuple(map(tt, skip)))
+    kw = dict(ordered=ordered, d=d, n_sweep=n_sweep, n_iters=n_iters)
+    want = _jax_step(strategy, *csrs, frontier, fixed, w1, w2, skip, ordered, d, n_sweep, n_iters)
+    before = ws_ops.launches
+    got = WS.intersect_step(*targs, **kw)
+    assert ws_ops.launches == before  # on the CPU: the plain version
+    plain = WS.intersect_step_ref(*targs, **kw)
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, plain)
+    # the offsets one call at a time add up to the swept call
+    split = sum(WS.intersect_step_ref(*targs, **{**kw, "n_sweep": 1, "offset": i * d}) for i in range(n_sweep))
+    assert torch.equal(split.to(torch.int32), got)
+    return got
+
+
+@pytest.mark.parametrize("n_skip", [0, 1, 2, 3])
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("strategy", ["bs1", "bs2"])
+def test_intersect_step_equals_eager_sequence(strategy, ordered, n_skip):
+    """bs1 and bs2, ordered and unordered, 0-3 skip nodes, at intersect-dim
+    sweeps of 1, 2 and 8 (d = 2: rows up to 16 entries swept), with -1
+    frontier and fixed nodes: the JAX package's eager sequence."""
+    csrs = _graph_csrs(n_skip)
+    rng = np.random.default_rng(10 * n_skip + ordered)
+    nonzero = 0
+    for n_sweep in (1, 2, 8):
+        got = _run_step(strategy, csrs, _step_operands(rng, n_skip, "bounds"), ordered, 2, n_sweep, n_iters=6)
+        nonzero += int((got != 0).sum())
+    assert nonzero > 0
+
+
+@pytest.mark.parametrize("form", ["partial", "wrap", "ints"])
+@pytest.mark.parametrize("strategy", ["bs1", "bs2"])
+def test_intersect_step_edge_forms(strategy, form):
+    """Rows longer than 2^n_iters (partial ranks, 2 halvings against rows
+    of up to 25 entries), bounds and edge times at INT32_MIN / INT32_MAX
+    (y_t - 1 and after + 1 wrap), and Python-int windows."""
+    csrs = _graph_csrs(20 + len(form), wrap_times=form == "wrap")
+    rng = np.random.default_rng(len(form))
+    for ordered in (True, False):
+        _run_step(strategy, csrs, _step_operands(rng, 2, form), ordered, 4, 2, n_iters=2 if form == "partial" else 6)
+
+
+def test_intersect_step_rejects_what_it_cannot_take():
+    (ia, na, ta), csr_b = [tuple(map(torch.from_numpy, c)) for c in _graph_csrs(0)]
+    fr = torch.zeros((2, 3), dtype=torch.int32)
+    fx = torch.zeros((2, 1), dtype=torch.int32)
+    kw = dict(ordered=True, d=2, n_iters=4)
+    ok = ("bs1", (ia, na, ta), csr_b, fr, fx, (0, 9), (0, 9))
+    assert WS.intersect_step(*ok, **kw).shape == (2, 3)
+    with pytest.raises(ValueError):
+        WS.intersect_step("pw", *ok[1:], **kw)
+    with pytest.raises(TypeError):
+        WS.intersect_step(*ok[:3], fr.long(), fx, (0, 9), (0, 9), **kw)  # int64 operand
+    with pytest.raises(TypeError):
+        WS.intersect_step("bs1", (ia.long(), na, ta), *ok[2:], **kw)  # int64 CSR
+    with pytest.raises(TypeError):
+        WS.intersect_step(*ok, **{**kw, "d": 0})
+    with pytest.raises(ValueError):
+        WS.intersect_step(*ok, (fx,) * (ws_ops.MAX_SKIP + 1), **kw)  # more skip nodes than the kernel takes
+    with pytest.raises(ValueError):
+        WS.intersect_step(*ok[:3], fr.to("meta"), fx, (0, 9), (0, 9), **kw)  # devices differ
+
+
+def test_step_group_sizes():
+    assert [ws_ops.step_group(w) for w in (1, 32, 33, 64, 65, 128, 129, 1 << 20)] == [32, 32, 64, 64, 128, 128,
+                                                                                       256, 256]
+
+
+# ---------------------------------------------------------------------------
 # the operand description
 # ---------------------------------------------------------------------------
 def _read_through(x, shape, sizes, strides):
@@ -290,13 +435,13 @@ def dense():
 def calls(monkeypatch):
     """Counts the wrapper's calls by entry (they route by device, so on the
     CPU the counts say which calls the kernel backend sent to it)."""
-    n = {e: 0 for e in ENTRIES}
-    for e in ENTRIES:
+    n = {e: 0 for e in ENTRIES + ("intersect_step",)}
+    for e in n:
         fn = getattr(ws_ops, e)
 
-        def counted(*a, _e=e, _fn=fn):
+        def counted(*a, _e=e, _fn=fn, **kw):
             n[_e] += 1
-            return _fn(*a)
+            return _fn(*a, **kw)
 
         monkeypatch.setattr(ws_ops, e, counted)
     return n
@@ -306,8 +451,8 @@ def calls(monkeypatch):
 MINE_CASES = [
     ("cycle3", "bs1", "count_id_in_window"),
     ("cycle3", "bs2", "count_id_in_window"),
-    ("cycle4", "bs2", "count_id_in_window"),
-    ("scatter_gather", "bs1", "count_id_in_window"),
+    ("cycle4", "bs2", "intersect_step"),  # the whole intersect step, one call
+    ("scatter_gather", "bs1", "intersect_step"),
     ("cycle3", "pw", "count_id_in_window"),  # the cube is intersect_count's; count_edges is not on pw
     ("new_counterparty", None, "count_id_in_window"),  # the difference frontier
     ("cycle2", None, "count_id_in_window"),  # count_edges

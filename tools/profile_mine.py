@@ -9,8 +9,12 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
 1. the cold mine's host spans (``repro_torch.obs.trace``): schedule build,
    staging, launch dispatch, and the gathers that wait for the device;
 2. a warm mine with a device sync after every kernel call, attributed to
-   (pattern, strategy, bucket dims): the device-inclusive wall of each
-   strategy, how much of it the ``intersect_count`` kernel took, and its
+   (pattern, strategy, bucket dims, sweep grid): the device-inclusive wall
+   of each strategy, how much of it the ``intersect_count`` kernel took,
+   each swept bs1/bs2 bucket's grid split into its frontier dims' combos
+   (a Python loop of the callable) and its intersect dims' combos (inside
+   one ``intersect_step`` launch where the checkout has that entry), and
+   its
    CUDA-event span summed by launch shape (B, Da, Db, ordered): each span
    runs from an idle card to the kernel's end, so it also holds the
    wrapper's host time before the launch and is an upper bound;
@@ -26,15 +30,22 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
 Beside ``intersect_count``, parts 2 and 3 read the windowed searches
 (``count_window`` and ``count_id_in_window``: the ``window_search``
 kernel's wrapper where the checkout has it, else the eager searches of
-``repro_torch.core.ops``): part 2 their CUDA-event spans summed by launch
-shape (the broadcast query shape and each operand's form: ``s`` a Python
-int, else the operand's own shape), part 3 the ``window_search`` kernel's
-device time and launches, and the CUDA kernels one call of each search
+``repro_torch.core.ops``; and ``intersect_step``, the wrapper's entry for a
+whole bs1/bs2 intersect step, where the checkout has it): part 2 their
+CUDA-event spans summed by launch shape (the broadcast query shape and
+each operand's form: ``s`` a Python int, else the operand's own shape;
+``intersect_step`` by strategy, lead shape, D and in-launch sweep count),
+part 3 the ``window_search`` kernel's device time and launches split
+between its two entries, and the CUDA kernels one call of each search
 launches (its largest call of part 2, run again under the profiler).
 Part 2 also times the fused seed-local plan's callables.
 
-``--parts 1,3`` leaves out part 2 (part 3 needs part 1's cold mine
-first, and the cold mine always runs).  ``--src`` mines with another
+``chip_smoke.py`` phase 8 times the mining path's largest search and
+intersect-step launches with the L2 flushed; run a parent's
+``chip_smoke.py`` for its figures.
+
+``--parts 1,3`` leaves out part 2 (part 3 needs part 2's largest calls;
+the cold mine always runs).  ``--src`` mines with another
 checkout's ``src`` (a parent unpacked under ``build/``), so two commits
 read the same numbers.
 
@@ -134,6 +145,7 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
 
     walls = collections.defaultdict(float)
     calls = collections.Counter()
+    grids = {}  # bucket key -> (frontier dims' combos, intersect dims' combos)
     ic_walls = collections.defaultdict(float)
     ic_shapes = collections.defaultdict(list)  # (B, Da, Db, ordered) -> [(start, stop)]
     label = [None]
@@ -142,7 +154,8 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
 
     def timed_kernel(self, strat, dims, sweeps, branch=False):
         fn = orig_kernel(self, strat, dims, sweeps, branch)
-        key = f"{self.spec.name}:{STRATS[strat]}{'/branch' if branch else ''}:{dims}"
+        key = f"{self.spec.name}:{STRATS[strat]}{'/branch' if branch else ''}:{dims}:{tuple(sweeps)}"
+        grids[key] = sweep_split(len(self.ir.frontiers), sweeps)
 
         def run(*a):
             label[0] = key
@@ -185,7 +198,7 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
             ws_shapes[(name, tuple(out.shape), "/".join(map(operand_form, ops_)))].append(ev)
             ws_walls[label[0]] += time.perf_counter() - s
             if out.numel() > biggest.get(name, (0, None))[0]:
-                biggest[name] = (out.numel(), orig, a)
+                biggest[name] = (out.numel(), orig, a, {})
             return out
 
         return run
@@ -206,12 +219,36 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
 
         return run
 
+    step_shapes = collections.defaultdict(list)  # (strategy, lead shape, D, n_sweep) -> [(start, stop)]
+
+    def timed_step(orig):
+        def run(strategy, *a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = orig(strategy, *a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_shapes[(strategy, tuple(out.shape), kw["d"], kw["n_sweep"])].append(ev)
+            ws_walls[label[0]] += time.perf_counter() - s
+            if out.numel() * kw["d"] * kw["n_sweep"] > biggest.get("intersect_step", (0, None))[0]:
+                biggest["intersect_step"] = (out.numel() * kw["d"] * kw["n_sweep"], orig, (strategy, *a), kw)
+            return out
+
+        return run
+
     searches = [(mod, name, getattr(mod, name)) for mod in search_modules()
                 for name in ("count_window", "count_id_in_window")]
+    step_mod = search_modules()[0]
+    orig_step = getattr(step_mod, "intersect_step", None)
+    if orig_step is not None:
+        searches.append((step_mod, "intersect_step", orig_step))
     TC.CompiledPattern._kernel = timed_kernel
     ic_ops.intersect_count = timed_ic
     for mod, name, fn in searches:
-        setattr(mod, name, timed_search(name, fn, 3 if name == "count_window" else 4))
+        setattr(mod, name, timed_step(fn) if name == "intersect_step"
+                else timed_search(name, fn, 3 if name == "count_window" else 4))
     for unit_sel, fn in fused_saved.items():
         fused._built[unit_sel] = timed_fused(f"fused:fused:{len(unit_sel)} units", fn)
     try:
@@ -244,6 +281,19 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
     ]
     for r in ws_by_shape:
         r["ms_per_call"] = r["device_s"] * 1e3 / r["calls"]
+    step_by_shape = [
+        {"strategy": st, "lead": list(lead), "D": d, "n_sweep": n, "launches": len(evs),
+         "device_s": sum(x.elapsed_time(y) for x, y in evs) / 1e3}
+        for (st, lead, d, n), evs in step_shapes.items()
+    ]
+    for r in step_by_shape:
+        r["ms_per_launch"] = r["device_s"] * 1e3 / r["launches"]
+    swept = []  # the swept bs1/bs2 buckets, with their grids split
+    for k, v in walls.items():
+        strat = k.split(":")[1].split("/")[0]
+        if k in grids and strat in ("bs1", "bs2") and (grids[k][0] > 1 or grids[k][1] > 1):
+            swept.append({"bucket": k, "s": v, "calls": calls[k], "frontier_combos": grids[k][0],
+                          "intersect_combos": grids[k][1], "search_s": ws_walls.get(k, 0.0)})
     ws_by_strat = collections.defaultdict(float)
     for k, v in ws_walls.items():
         if k is not None:
@@ -256,17 +306,39 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
         "search_s": sum(ws_walls.values()),
         "search_by_pattern_strategy_s": dict(sorted(ws_by_strat.items(), key=lambda kv: -kv[1])),
         "search_by_shape": sorted(ws_by_shape, key=lambda r: -r["device_s"])[:TOP],
+        "intersect_step_launches": sum(r["launches"] for r in step_by_shape),
+        "intersect_step_device_s": sum(r["device_s"] for r in step_by_shape),
+        "intersect_step_by_shape": sorted(step_by_shape, key=lambda r: -r["device_s"])[:TOP],
+        "swept_bs_buckets": {
+            "s": sum(r["s"] for r in swept),
+            "calls": sum(r["calls"] for r in swept),
+            # the callable's loop rounds (frontier combos) and the combos
+            # the parent's loop also ran per round (intersect combos)
+            "frontier_rounds": sum(r["calls"] * r["frontier_combos"] for r in swept),
+            "grid_rounds": sum(r["calls"] * r["frontier_combos"] * r["intersect_combos"] for r in swept),
+            "buckets": sorted(swept, key=lambda r: -r["s"])[:TOP],
+        },
         "intersect_count_by_shape": sorted(by_shape, key=lambda r: -r["device_s"])[:TOP],
         "intersect_count_device_s": sum(r["device_s"] for r in by_shape),
         "by_pattern_strategy_s": dict(sorted(by_strat.items(), key=lambda kv: -kv[1])),
         "intersect_count_s": sum(ic_walls.values()),
         "top_buckets": [
             {"bucket": k, "s": v, "calls": calls[k], "intersect_count_s": ic_walls.get(k, 0.0),
-             "search_s": ws_walls.get(k, 0.0)}
+             "search_s": ws_walls.get(k, 0.0), "frontier_combos": grids[k][0] if k in grids else 1,
+             "intersect_combos": grids[k][1] if k in grids else 1}
             for k, v in top
         ],
     }
     print(json.dumps({"warm_synced": report["warm_synced"]}), flush=True)
+
+
+def sweep_split(k: int, sweeps) -> tuple:
+    """A bucket's sweep grid as (the frontier dims' combos, the intersect
+    dims' combos): dims 0..k-1 are the frontier levels, k and k+1 the
+    intersect's two expansions."""
+    sweeps = tuple(sweeps) or (1,) * (k + 2)
+    prod = lambda xs: int(__import__("math").prod(xs))  # noqa: E731
+    return prod(sweeps[:k]), prod(sweeps[k:])
 
 
 def cuda_kernels(prof):
@@ -287,12 +359,13 @@ def search_launches(kernels, biggest) -> dict:
     order."""
     marks = [i for i, (_, name, _) in enumerate(kernels) if "spin" in name]
     out = {}
-    for j, (name, (numel, fn, args)) in enumerate(sorted(biggest.items())):
+    for j, (name, (numel, fn, args, _)) in enumerate(sorted(biggest.items())):
         a, b = marks[-2 * len(biggest) + 2 * j], marks[-2 * len(biggest) + 2 * j + 1]
         inner = kernels[a + 1:b]
+        ops_ = args[3:] if name == "intersect_step" else args[-5 if name == "count_id_in_window" else -4:-1]
         out[name] = {"elements": numel, "module": fn.__module__, "cuda_launches": len(inner),
                      "device_ms": sum(s for _, _, s in inner) * 1e3,
-                     "operands": "/".join(map(operand_form, args[-5 if name == "count_id_in_window" else -4:-1]))}
+                     "operands": "/".join(operand_form(v) for v in ops_ if not isinstance(v, tuple))}
     return out
 
 
@@ -309,9 +382,9 @@ def warm_profiled(session, report, PairCountTrace, biggest) -> None:
         session.mine()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-        for _, (_, fn, args) in sorted(biggest.items()):
+        for _, (_, fn, args, kw) in sorted(biggest.items()):
             torch.cuda._sleep(0)
-            fn(*args)
+            fn(*args, **kw)
             torch.cuda._sleep(0)
         torch.cuda.synchronize()
     events = cuda_kernels(prof)
@@ -326,7 +399,8 @@ def warm_profiled(session, report, PairCountTrace, biggest) -> None:
         kern[name][1] += 1
     busy = sum(v[0] for v in kern.values())
     ic = [v for k, v in kern.items() if "intersect_count" in k]
-    ws = [v for k, v in kern.items() if "window_search" in k]
+    ws = [v for k, v in kern.items() if "window_search" in k and "step" not in k]
+    step = [v for k, v in kern.items() if "window_search_step" in k]
     report["warm_profiled"] = {
         "wall_s": prof_wall,
         "device_kernel_s": busy,
@@ -335,6 +409,8 @@ def warm_profiled(session, report, PairCountTrace, biggest) -> None:
         "intersect_count_kernel_launches": sum(v[1] for v in ic),
         "window_search_kernel_s": sum(v[0] for v in ws),
         "window_search_kernel_launches": sum(v[1] for v in ws),
+        "intersect_step_kernel_s": sum(v[0] for v in step),
+        "intersect_step_kernel_launches": sum(v[1] for v in step),
         "cuda_kernels": sum(v[1] for v in kern.values()),
         "top_kernels": [
             {"name": k[:120], "s": v[0], "count": v[1]}

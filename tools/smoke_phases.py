@@ -10,9 +10,12 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases windowed           # zamba2 and mixtral with the window
     python3 tools/smoke_phases.py --phases wide               # the seven other architectures at full width
     python3 tools/smoke_phases.py --phases examples           # the JAX package's five examples as entry points
+    python3 tools/smoke_phases.py --phases search             # window_search's phase-2 cases, both entries
 
 Builds the kernels, prints the card line, and runs, in order:
 
+- ``search``: phase 2's ``window_search`` cases (both entries, every form
+  and the hub rows) against their plain version, timed at the hub;
 - ``flash``: phase 2's ``flash_attention`` cases (``FA_CASES``, with
   qwen2-1.5b's prefill launch) against their plain version, timed;
 - ``bwd``: phase 2's backward cases (the short path's ``FA_BWD_CASES``
@@ -104,7 +107,7 @@ def main() -> int:
 
     def zero():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
-        ws_ops.launches = 0
+        ws_ops.launches = ws_ops.step_launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read():
@@ -112,7 +115,7 @@ def main() -> int:
                 "hist_update_rows": hu_ops.rows_launches, "window_degree": wd_ops.launches,
                 "flash_attention": fa_ops.launches, "flash_attention_lse": fa_ops.lse_launches,
                 "flash_attention_bwd": fa_ops.bwd_launches, "flash_attention_bwd_long": fa_ops.long_bwd_launches,
-                "window_search": ws_ops.launches}
+                "window_search": ws_ops.launches, "window_search_step": ws_ops.step_launches}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -121,6 +124,8 @@ def main() -> int:
         print(f"{name}: {report['walls_s'][name]:.1f} s", flush=True)
         return out
 
+    if "search" in phases:
+        timed("search", lambda: cs.phase_window_search(torch.device("cuda"), report))
     if "flash" in phases:
         timed("flash", lambda: cs.phase_flash_attention(torch.device("cuda"), report))
     if "bwd" in phases:
