@@ -19,7 +19,16 @@ Phases, in order; any failure exits non-zero:
    B / W rows, int windows and windows at the fixed side's rate, no a-side
    time) and on operands one word into their storage, on both of its
    paths (``ops.plan``: ``"rows"`` and ``"block"``, which must equal the
-   ``.cu`` entry's choice and must both be reached);
+   ``.cu`` entry's choice and must both be reached); its second entry,
+   ``pair_step`` (a whole pw step of the compiled plans in one launch),
+   bit for bit equal to ``ref.pair_step_ref``, one launch a call under
+   ``set_sync_debug_mode("error")``, in each form of ``PS_FORMS`` (ordered
+   and not, 0-3 skip nodes, window 2 staged per seed or applied per lead
+   element, int windows, a and b sweep steps in the launch, start +
+   offset wrapping, rank-3 leads, offset views, a branch bucket's (B, 1)
+   lead, the pairwise ``count_edges`` form, a b row staged in chunks) and
+   at the mining path's largest pw shapes (``PS_PATH_SHAPES``), timed
+   there;
    ``window_search``'s four entries (``count_window``, ``count_id_in_window``
    and their ``_pos`` forms) bit for bit equal to the plain searches of
    ``core.ops``, one launch a call under ``set_sync_debug_mode("error")``,
@@ -79,8 +88,9 @@ Phases, in order; any failure exits non-zero:
    features, the default 60-tree GBDT, F1 on the last 20 % by time, under
    ``torch.cuda.set_sync_debug_mode("error")`` so that any hidden host
    sync fails the run.  The kernels' launch counts are zeroed just before
-   and read just after: ``intersect_count`` and ``window_search`` must be
-   > 0 and ``hist_update``
+   and read just after: ``intersect_count`` (its ``pair_step`` entry, which
+   runs every pw step) and ``window_search`` (its ``intersect_step`` entry
+   too) must be > 0 and ``hist_update``
    n_trees * (max_depth + 1) = 420, n_trees * max_depth = 360 of them
    through the ``rows`` entry (one per level) and the rest the leaf sums;
    a compiled portfolio mine must sync exactly ``1 + n_compiled`` times,
@@ -114,7 +124,10 @@ Phases, in order; any failure exits non-zero:
    share and the kernels that take its time.
 8. report — each kernel checked and timed at the shapes its main path
    gave it, in the operands' own forms (``intersect_count``'s largest
-   launch as the compiler passed it; ``window_search`` at the largest
+   ``pair_step`` launch as the compiler passed it, held bit for bit to its
+   plain version and timed with L2 flushed beside its bound: the operand
+   bytes, the output and the distinct 32-byte sectors of both expanded
+   rows, or the compares of the kept pairs; ``window_search`` at the largest
    ``count_id_in_window`` and ``count_window`` launches, held bit for bit to
    the plain version and timed with L2 flushed beside the bound: the
    operand bytes, the outputs and one 32-byte sector for each halving this
@@ -145,20 +158,20 @@ Phases, in order; any failure exits non-zero:
    retain="auto")`` over HI-Small in time order: a first tick of 65,536
    transactions, then 48 of 8,192, under ``set_sync_debug_mode("error")``
    with only each tick's gather allowed to sync.  Asserted: one host sync
-   a tick, ``intersect_count`` and ``window_search`` launched (counts
+   a tick, ``intersect_count``'s ``pair_step`` and ``window_search`` launched (counts
    zeroed before, read after), no degraded tick, no new launch shape in the last quarter of
    the ticks, ``schedule_hits > 0``, counts equal to a card mine of the
    streamed prefix built in arrival order, and a sequential service over
    the first 8 ticks giving the same alerts and counts.  Printed:
    txns/s, tick p50/p99, stage p50s, dirty fraction, live edges, peak
    memory; ``intersect_count``'s kernels entry gains the streaming path's
-   launches and its largest launch's shape, times and bound.
+   ``pair_step`` launches and its largest launch's shape, times and bound.
 12. resilience — 12 ticks of the same feed through a
    ``ResilientDetectionService`` with a WAL and checkpoints under
    ``build/``, a transient fault in tick 3's mine retried once, then
    ``recover()`` into a fresh object: the same store state bit for bit
    and equal counts.  The ticks and the WAL replay each launch
-   ``intersect_count`` and ``window_search`` on the service's own
+   ``intersect_count``'s ``pair_step`` and ``window_search`` on the service's own
    ``"kernel"`` backend (counts
    zeroed before each, read after; the kernels entry gains
    ``launches_resilience`` and ``launches_recovery``).
@@ -171,6 +184,7 @@ Phases, in order; any failure exits non-zero:
    65,536 seeds of the phase-3 graph under ``set_sync_debug_mode("error")``
    (cycle4 and scatter_gather over a prefix, ``WIT_SEEDS_CUT``): one host
    sync per unique plan, ``window_search`` launched by the extraction,
+   ``intersect_step`` and ``pair_step`` by the mines,
    counts equal phase 3's rows, the first 1,024
    seeds' witnesses (scatter_gather's first 4) equal the CPU port's bit
    for bit; each
@@ -184,8 +198,8 @@ Phases, in order; any failure exits non-zero:
    through ``make_feed``: one warm submit of 65,536 transactions, then
    16 submits of 64 through 4 submitters (``load_test``), an audit log
    under ``build/``, under ``set_sync_debug_mode("error")``.  Asserted: no
-   ``SubmitError`` and no degraded tick, ``intersect_count`` and
-   ``window_search`` launched
+   ``SubmitError`` and no degraded tick, ``intersect_count``'s ``pair_step``
+   and ``window_search`` launched
    (``launches_triage``), host syncs == ticks + witness mines, every alert
    of a pattern counted this tick carries min(k, count) witnesses (and
    only those carry evidence), every evidence hop is the fed transaction
@@ -199,8 +213,8 @@ Phases, in order; any failure exits non-zero:
    ``set_sync_debug_mode("error")`` over 65,536 seeds drawn with the
    data seed: in 4 partitions (on one card they time-share it: the host
    gather), then in 1 (the device-side sum); each
-   equals phase 3's rows, syncs once, launches ``intersect_count`` and
-   ``window_search`` (counts
+   equals phase 3's rows, syncs once, launches ``intersect_count``'s
+   ``pair_step`` and ``window_search`` (counts
    zeroed before, read after) and has per-shard stats that sum to its
    totals.  Printed: walls, the dispatch window, the overlap ratio,
    ``shard_balance()``.  Then ``python -m repro_torch.launch.mine
@@ -353,8 +367,8 @@ Phases, in order; any failure exits non-zero:
    batch recompute, the ``full`` F1 above 0, both traces holding
    ``dispatch:shard0`` ... ``dispatch:shard7`` and
    ``tick:ingest/plan/mine/score``, the served tokens of (8, 36) with the
-   prompt kept); ``intersect_count`` and ``window_search`` launched in the
-   mining examples, both
+   prompt kept); ``intersect_count``'s ``pair_step`` and ``window_search``
+   launched in the mining examples, both
    ``hist_update`` entries in the pipelines, the attention forward with
    the logsumexp and the short backward in FraudGT's fit, no attention
    kernel in serving.  Then each example's function on the card and on
@@ -393,6 +407,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
 KERNELS = ("intersect_count", "hist_update", "window_degree", "flash_attention", "window_search")
+# the launch counts that every mining phase must see above zero (read_launches' keys)
+MINING_ENTRIES = ("intersect_count", "intersect_count_step", "window_search", "window_search_step")
 SMOKE_SHAPES = ((1, 4), (1, 1024), (4, 4), (16, 64), (64, 256), (256, 256), (1024, 1024))
 RAGGED_B = (1, 33, 4097)
 HU_SHAPES = ((16, 8), (1000, 97), (4096, 512), (513, 2048), (1, 1), (0, 64))  # (N, S)
@@ -1116,6 +1132,324 @@ def host_us(fn, reps: int) -> float:
     us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     return us
+
+
+PS_PLAIN_CUBE = 1 << 26  # lead elements x pairs of one plain pair_step call (its cube's booleans)
+
+
+def ps_case(form: str, seed: int, device, b: int = WS_B):
+    """intersect_count's pair_step in one of the compiled plans' forms:
+    ``(args, kw)`` for ``pair_step(*args, **kw)``.  Two CSRs of rows of
+    0-40 entries over 64 nodes and 6 ids; lead shape (b, 3) (``rank3``:
+    (b, 3, 2); ``branch``: (b, 1), one lead element a seed), the frontier
+    full, the fixed node (b, 1), window 1 per seed or ints, window 2 per
+    seed (staged) or per lead element (``lead_w2``: at compare time), -1
+    nodes and a pad row among them; ``sweep``: a and b sweep steps inside
+    the launch, ``wrap``: start + offset past INT32_MAX, ``offset``:
+    operands one word into their storage, ``edges``: the pairwise
+    count_edges (window 2 per seed, per lead element, and a b width past
+    the shared memory of one stage, ``edges_chunked``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = lambda: rng.integers(0, 41, 64)  # noqa: E731
+    csrs = []
+    for k in range(2):
+        ids, t, _, indptr = ws_csr(seed * 2 + k, lens(), 6, 64, device)
+        csrs.append((indptr, ids, t))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)  # noqa: E731
+    w = 1 if form == "branch" else 3
+    lead = (b, w, 2) if form == "rank3" else (b, w)
+    one = (b,) + (1,) * (len(lead) - 1)
+    frontier, fixed = ri(-1, 64, lead), ri(-1, 64, one)
+    frontier[2] = -1  # a pad row
+    st = ri(-2, 30, one)
+    win1, win2 = (st, st + 34), (st - 4, st + 40)
+    kw = {"ordered": True, "d_a": 8, "d_b": 8}
+    skip = (ri(-1, 64, one),)
+    if form == "plain":
+        kw["ordered"], skip, win1, win2 = False, (), (-(2**31), 2**31 - 1), (-(2**31), 2**31 - 1)
+    elif form == "skip3":
+        skip = (ri(-1, 64, one), ri(-1, 64, lead), ri(-1, 64, one))
+    elif form == "lead_w2":
+        win2 = (ri(-2, 40, lead), st + 40)
+    elif form == "ints":
+        win1, win2 = (5, 50), (-1, 60)
+    elif form == "sweep":
+        kw.update(d_a=4, d_b=4, n_sweep_a=3, n_sweep_b=5)
+    elif form == "wrap":
+        kw.update(offset_a=2**31 - 1 - 8 * 2, n_sweep_a=2, offset_b=2**31 - 1 - 8)
+    elif form == "offset":
+        frontier, win2 = offset_view(frontier), (offset_view(win2[0]), win2[1])
+    elif form == "branch":
+        kw.update(d_a=64, d_b=32)
+    elif form.startswith("edges"):
+        kw = {"ordered": False, "d_b": 1024 if form == "edges_chunked" else 8,
+              "n_sweep_b": 4 if form == "edges_chunked" else 1}
+        frontier = ri(-1, 6, lead)  # ids, as the in-row holds them
+        if form == "edges_lead":
+            win2 = (ri(-2, 40, lead), st + 40)
+        if form == "edges_chunked":
+            lens_b = np.full(64, 40)
+            lens_b[3] = 3000  # a hub in-row the sweep reaches into
+            ids, t, _, indptr = ws_csr(seed * 2 + 7, lens_b, 6, 64, device)
+            csrs[1] = (indptr, ids, t)
+        return ("edges", None, csrs[1], frontier, fixed, None, win2), kw
+    elif form not in ("ordered", "rank3"):
+        raise AssertionError(form)
+    return ("intersect", csrs[0], csrs[1], frontier, fixed, win1, win2, skip), kw
+
+
+def ps_path_case(seeds: int, w: int, d_a: int, d_b: int, device, rows: int = 40_000, n_ids: int = 256):
+    """pair_step at a mining path's bucket shape: ``seeds`` fixed nodes,
+    ``w`` frontier nodes a seed (lead (seeds, w)), rows of the bucket's
+    widths over HI-Small-like ids (the a rows up to d_a long, the b rows
+    up to d_b, ids from ``n_ids`` so that rows share some), window 1 an
+    int and window 2 per seed, ordered: cycle4's pw bucket (16, 16, 4) over
+    4,096 seeds, the hub branch bucket (1, 256, 256)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seeds + w + d_a + d_b)
+    csrs = []
+    for k, d in enumerate((d_a, d_b)):
+        ids, t, _, indptr = ws_csr(31 + k, rng.integers(max(1, d // 4), d + 1, rows), n_ids, 1 << 20, device)
+        csrs.append((indptr, ids, t))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seeds)
+    ri = lambda lo, hi, shape: torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int32)  # noqa: E731
+    st = ri(0, 1 << 20, (seeds, 1))
+    args = ("intersect", csrs[0], csrs[1], ri(0, rows, (seeds, w)), ri(0, rows, (seeds, 1)), (-(2**31), 2**31 - 2),
+            (st - (1 << 19), st + (1 << 19)), ())
+    return args, {"ordered": True, "d_a": d_a, "d_b": d_b}
+
+
+def ps_lead(args):
+    """The lead shape of a pair_step call: its operands' broadcast shape."""
+    import torch
+
+    frontier, fixed, w1, w2 = args[3:7]
+    skip = args[7] if len(args) > 7 else ()
+    return torch.broadcast_shapes(*(tuple(v.shape) for v in (frontier, fixed, *(w1 or ()), *w2, *skip)
+                                    if isinstance(v, torch.Tensor)))
+
+
+def ps_widths(kw):
+    return kw.get("d_a", 1) * kw.get("n_sweep_a", 1), kw["d_b"] * kw.get("n_sweep_b", 1)
+
+
+def ps_plain(args, kw, max_cube: int = PS_PLAIN_CUBE):
+    """pair_step's plain version on the card, in chunks of lead rows (axis 0)
+    so that its compare cube stays within ``max_cube`` elements."""
+    import torch
+    from repro_torch.kernels.intersect_count.ref import pair_step_ref
+
+    lead = ps_lead(args)
+    wa, wb = ps_widths(kw)
+    per_row = max(1, math.prod(lead[1:]) * wa * wb)
+    step = max(1, max_cube // per_row)
+    b = lead[0]
+    if step >= b:
+        return pair_step_ref(*args, **kw)
+
+    def cut(v, r0, r1):
+        if isinstance(v, tuple):
+            return tuple(cut(x, r0, r1) for x in v)
+        if isinstance(v, torch.Tensor) and v.dim() == len(lead) and v.shape[0] == b:
+            return v[r0:r1]
+        return v
+
+    outs = []
+    for r0 in range(0, b, step):
+        part = (args[0], args[1], args[2]) + tuple(cut(v, r0, r0 + step) for v in args[3:])
+        outs.append(pair_step_ref(*part, **kw))
+    return torch.cat(outs)
+
+
+def ps_hold(args, kw, what: str, plain: bool = True):
+    """pair_step against its plain version, bit for bit, one launch, under
+    set_sync_debug_mode("error"); returns the max |diff| (0) and the plain
+    version's time on the card for this call (ms, CUDA events, once)."""
+    import torch
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev[0].record()
+    want = ps_plain(args, kw)
+    ev[1].record()
+    before, step_before = ic_ops.launches, ic_ops.step_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ic_ops.pair_step(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if ic_ops.launches != before + 1 or ic_ops.step_launches != step_before + 1:
+        raise AssertionError(f"intersect_count pair_step ({what}) made {ic_ops.step_launches - step_before} "
+                             f"launches, not 1")
+    if got.shape != want.shape or got.dtype != torch.int32:
+        raise AssertionError(f"intersect_count pair_step ({what}): {tuple(got.shape)} {got.dtype}, "
+                             f"not {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"intersect_count pair_step ({what}) differs from its plain version by {err}")
+    return err, ev[0].elapsed_time(ev[1])
+
+
+def ps_work(args, kw):
+    """The work of one pair_step call on this data: (compares: for each
+    lead element its kept a entries times its kept b entries, those a
+    compare cube must test; the bytes of the distinct 32-byte sectors it
+    must read, each at most its array's own bytes).  A lead element needs
+    its rows only where both its nodes are valid (a frontier id of -1 or
+    a fixed node of -1 counts nothing).  An expanded entry's time is read
+    wherever the sweep reaches inside its row (as ``expand`` masks, wraps
+    and clamps it), its id only where that time lies inside its side's
+    window (the result needs no other id), and the indptr entries of each
+    valid node; the "edges" form reads no a row."""
+    import torch
+    from repro_torch.core import ops as core_ops
+
+    form, csr_a, csr_b, frontier, fixed, w1, w2 = args[:7]
+    skip = args[7] if len(args) > 7 else ()
+    edges = form == "edges"
+    lead = ps_lead(args)
+    dev = csr_b[0].device
+    i32 = lambda v: (v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=torch.int32, device=dev)).expand(lead)  # noqa: E731
+    nx, nb = i32(frontier), i32(fixed)
+    both = (nx >= 0) & (nb >= 0)
+    touched = {}
+
+    def mark(a, m):
+        key = (a.data_ptr(), a.numel())
+        touched[key] = (a, touched[key][1] | m if key in touched else m)
+
+    def pointers(indptr, node):
+        """The sectors of each valid lead element's node's indptr entries."""
+        safe = node.long().clamp_min(0)[both]
+        ptr = ws_sectors(indptr)
+        ptr[safe >> 3] = True
+        ptr[(safe + 1) >> 3] = True
+        mark(indptr, ptr)
+
+    def kept(indptr, ids, t, node, d, n_sweep, offset, lo, hi, refs):
+        """Kept entries a lead element, the sweep steps in chunks; marks
+        the time sectors of the entries inside their row (as ``expand``
+        masks and clamps them) and the id sectors of those also inside
+        their window."""
+        total = torch.zeros(lead, dtype=torch.int64, device=dev)
+        seen, seen_t = ws_sectors(ids), ws_sectors(t)
+        per = max(1, (1 << 24) // max(1, node.numel() * d))
+        for i0 in range(0, n_sweep, per):
+            steps = min(per, n_sweep - i0)
+            offs = offset + d * (i0 + torch.arange(steps, device=dev, dtype=torch.int32))
+            m, at, x_id, x_t = core_ops.expand_pos(indptr, (ids, t), node[..., None], d,
+                                                   offset=offs.view(*([1] * node.dim()), steps))
+            m = m & both[..., None, None]
+            seen_t[at[m].long() >> 3] = True
+            m = m & (x_t > i32(lo)[..., None, None]) & (x_t <= i32(hi)[..., None, None])
+            seen[at[m].long() >> 3] = True
+            for r in refs:
+                m = m & (x_id != i32(r)[..., None, None])
+            total += m.sum(dim=(-1, -2))
+        mark(ids, seen)
+        mark(t, seen_t)
+        return total
+
+    kb = kept(*csr_b, nb, kw["d_b"], kw.get("n_sweep_b", 1), kw.get("offset_b", 0), *w2, ())
+    pointers(csr_b[0], nb)
+    if edges:
+        ka = both.long()
+    else:
+        ka = kept(*csr_a, nx, kw["d_a"], kw.get("n_sweep_a", 1), kw.get("offset_a", 0), *w1, skip)
+        pointers(csr_a[0], nx)
+    return int((ka * kb).sum()), sum(min(32 * int(m.sum()), 4 * a.numel()) for a, m in touched.values())
+
+
+def ps_bound_ms(args, out, compares: int, row_bytes: int):
+    """pair_step's bound: each operand tensor's own elements read once (a
+    broadcast view at its distinct elements), the output written once, the
+    rows' sectors of ``ps_work`` read once; one operation a compare."""
+    import torch
+
+    operands = (args[3], args[4], *(args[5] or ()), *args[6], *(args[7] if len(args) > 7 else ()))
+    nbytes = sum(4 * math.prod(n for n, st in zip(v.shape, v.stride()) if st)
+                 for v in operands if isinstance(v, torch.Tensor))
+    return bound_ms(nbytes + 4 * out.numel() + row_bytes, compares)
+
+
+def ps_form(args, kw) -> dict:
+    """The shape and operand forms of a pair_step launch."""
+    import torch
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    form = lambda v: "int" if not isinstance(v, torch.Tensor) else {  # noqa: E731
+        "shape": list(v.shape), "stride": list(v.stride())}
+    lead = ps_lead(args)
+    wa, wb = ps_widths(kw)
+    return {"form": args[0], "lead": list(lead), **kw, "frontier": form(args[3]), "fixed": form(args[4]),
+            "window1": None if args[5] is None else [form(v) for v in args[5]],
+            "window2": [form(v) for v in args[6]],
+            "skip": [form(v) for v in (args[7] if len(args) > 7 else ())],
+            "plan": dict(zip(("group", "group_a", "chunk", "max_slices"),
+                             ic_ops.step_plan(wa, wb, math.prod(lead[1:]))))}
+
+
+def ps_times(args, kw, reps: int, plain_ms: float, cold: bool = False) -> dict:
+    """pair_step on its operands as passed, as ``ws_step_times`` times
+    window_search's step; ``plain_ms`` is the plain version's time on the
+    same operands (``ps_hold``'s)."""
+    import torch
+    from repro_torch.kernels.intersect_count import ops as ic_ops
+
+    run = lambda: ic_ops.pair_step(*args, **kw)  # noqa: E731
+    kernel_ms, seen = kernel_device_ms(run, reps, match="intersect_count_step")
+    times = {"ms": cuda_ms(run, reps), "kernel_ms": kernel_ms}
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=args[2][0].device)
+        evict = flush.zero_
+        kernel_ms, seen = kernel_device_ms(run, reps, match="intersect_count_step", before=evict)
+        times = {"ms": cuda_ms(run, reps, before=evict), "kernel_ms": kernel_ms, "l2_flushed": True,
+                 "l2_warm_ms": times["ms"], "l2_warm_kernel_ms": times["kernel_ms"]}
+        del flush
+    out = run()
+    compares, row_bytes = ps_work(args, kw)
+    bound, by = ps_bound_ms(args, out, compares, row_bytes)
+    wa, wb = ps_widths(kw)
+    return {**times, "kernel_launches_profiled": seen, "host_us": host_us(run, reps), "plain_ms": plain_ms,
+            "compares": compares, "row_bytes": row_bytes, "pairs": out.numel() * wa * wb, "bound_ms": bound,
+            "bound_by": by}
+
+
+PS_FORMS = ("plain", "ordered", "skip3", "lead_w2", "ints", "sweep", "wrap", "offset", "rank3", "branch", "edges",
+            "edges_lead", "edges_chunked")
+# the mining path's largest pw shapes: (seeds, W, d_a, d_b)
+PS_PATH_SHAPES = ((4096, 16, 16, 4), (64, 1, 256, 256))
+
+
+def phase_pair_step(device, report) -> int:
+    """intersect_count's pair_step bit for bit against its plain version
+    (``ref.pair_step_ref``), one launch a call: every form of ``ps_case``,
+    then the mining path's largest pw shapes (``PS_PATH_SHAPES``), timed
+    there beside the bound and the plain version."""
+    err, n_cases, rows = 0, 0, []
+    for fi, form in enumerate(PS_FORMS):
+        args, kw = ps_case(form, 40 + fi, device)
+        err = max(err, ps_hold(args, kw, form)[0])
+        n_cases += 1
+    for seeds, w, d_a, d_b in PS_PATH_SHAPES:
+        args, kw = ps_path_case(seeds, w, d_a, d_b, device)
+        e, plain_ms = ps_hold(args, kw, f"the path shape {(seeds, w, d_a, d_b)}")
+        err, n_cases = max(err, e), n_cases + 1
+        row = {"seeds": seeds, "W": w, "d_a": d_a, "d_b": d_b, "max_abs_err": e, "shape": ps_form(args, kw),
+               **ps_times(args, kw, 20, plain_ms)}
+        rows.append(row)
+        log("kernel timing: intersect_count pair_step at a path shape " + json.dumps(row))
+    report["pair_step_shapes"] = rows
+    log(f"kernel: intersect_count pair_step == plain version in {n_cases} cases")
+    return err
 
 
 def hu_hold(a, b, replay, exact, bound, what: str) -> float:
@@ -2433,30 +2767,21 @@ def phase_oracle(report):
     return fig10
 
 
-def ic_form(args, ordered) -> dict:
-    """The shape and operand forms of an intersect_count launch."""
-    import torch
-
-    b, da = args[0].shape
-    bf, db = args[2].shape
-    form = lambda w: "int" if not isinstance(w, torch.Tensor) else ("per row" if w.shape[0] == b else "per fixed row")
-    return {"B": b, "Da": da, "Db": db, "B_fixed": bf, "W1_Wk": b // max(1, bf), "ordered": bool(ordered),
-            "a_t": args[1] is not None, "windows": [form(w) for w in args[4:8]]}
-
-
 def capture_biggest(biggest):
-    """A stand-in for ic_ops.intersect_count that keeps the arguments of
-    the largest launch (by B * Da * Db) in ``biggest`` and launches."""
+    """A stand-in for ic_ops.pair_step that keeps the arguments of the
+    largest launch (by lead elements x pairs a lead element) in
+    ``biggest`` and launches."""
     from repro_torch.kernels.intersect_count import ops as ic_ops
 
-    kernel_fn = ic_ops.intersect_count
+    kernel_fn = ic_ops.pair_step
 
     def capture(*a, **kw):
-        b, da = a[0].shape
-        work = b * da * a[2].shape[1]
+        out = kernel_fn(*a, **kw)
+        wa, wb = ps_widths(kw)
+        work = out.numel() * wa * wb
         if work > biggest.get("work", -1):
-            biggest.update(work=work, args=a, ordered=kw.get("ordered", False))
-        return kernel_fn(*a, **kw)
+            biggest.update(work=work, args=a, kw=kw)
+        return out
 
     return kernel_fn, capture
 
@@ -2506,7 +2831,7 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
     batches, walls, jit_after = [], [], []
     n_check = STREAM_CHECK_TICKS
     checked_counts = None
-    ic_ops.intersect_count = capture
+    ic_ops.pair_step = capture
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     torch.cuda.set_sync_debug_mode("error")
@@ -2529,7 +2854,7 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
         walls[-1] += time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        ic_ops.intersect_count = kernel_fn
+        ic_ops.pair_step = kernel_fn
     launches = read_launches()
     peak = int(torch.cuda.max_memory_allocated())
     reps = [b.report for b in batches]
@@ -2563,7 +2888,7 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
         raise AssertionError(f"committed ticks {[r.tick for r in reps]} are not 1..{n_ticks}")
     if svc.stats["host_syncs"] != n_ticks:
         raise AssertionError(f"the stream synced {svc.stats['host_syncs']} times over {n_ticks} ticks")
-    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0 or launches["window_search_step"] <= 0:
+    if min(launches[k] for k in MINING_ENTRIES) <= 0:
         raise AssertionError(f"the streaming ticks did not launch the mining kernels: {launches}")
     if stream["degraded"]:
         raise AssertionError(f"a plain service tick reports degradation: {stream['degraded']}")
@@ -2612,7 +2937,7 @@ def phase_streaming(session, g, report, zero_launches, read_launches):
                                                  ("steady_window_ticks", "steady_trace_misses",
                                                   "mints_after_warm", "recompute_s", "recompute_totals",
                                                   "sequential_s", "sequential_equal_ticks")}))
-    return launches["intersect_count"], biggest
+    return launches["intersect_count_step"], biggest
 
 
 def phase_resilience(session, g, report, zero_launches, read_launches):
@@ -2620,9 +2945,10 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
     ResilientDetectionService with a WAL and checkpoints under build/, a
     transient fault armed in tick 3's mine (retried once), then recovery
     into a fresh object: the same store state bit for bit and equal counts.
-    The ticks and the WAL replay of recover() each launch intersect_count
-    (counts zeroed before each, read after): no rung of the ladder, and no
-    replay, gives way to the plain version.  Returns the two launch counts."""
+    The ticks and the WAL replay of recover() each launch intersect_count's
+    pair_step (counts zeroed before each, read after): no rung of the
+    ladder, and no replay, gives way to the plain version.  Returns the two
+    pair_step launch counts."""
     import shutil
 
     import numpy as np
@@ -2646,19 +2972,20 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
     reps = [svc.submit(g.src[c], g.dst[c], g.t[c], g.amount[c]).report for c in chunks]
     run_s = time.perf_counter() - t0
     tick_ln = read_launches()
-    tick_launches = tick_ln["intersect_count"]
+    tick_launches = tick_ln["intersect_count_step"]
     replayed = svc.wal.ticks()
     zero_launches()
     t0 = time.perf_counter()
     rec = ResilientDetectionService.recover(specs, resilience=cfg, **kw)
     recover_s = time.perf_counter() - t0
     recover_ln = read_launches()
-    recover_launches = recover_ln["intersect_count"]
+    recover_launches = recover_ln["intersect_count_step"]
     res = {"ticks": len(chunks), "checkpoint_every": RESILIENCE_CHECKPOINT_EVERY, "run_s": run_s,
            "recover_s": recover_s, "retries_by_tick": [r.retries for r in reps],
            "degraded_by_tick": [list(r.degraded) for r in reps], "recovered_tick": rec.tick,
            "wal_replayed_ticks": replayed, "backends": [svc.backend, rec.backend],
-           "intersect_count_launches": {"ticks": tick_launches, "recover": recover_launches},
+           "intersect_count_launches": {"ticks": tick_ln["intersect_count"], "recover": recover_ln["intersect_count"]},
+           "intersect_count_step_launches": {"ticks": tick_launches, "recover": recover_launches},
            "window_search_launches": {"ticks": tick_ln["window_search"], "recover": recover_ln["window_search"]},
            "window_search_step_launches": {"ticks": tick_ln["window_search_step"],
                                            "recover": recover_ln["window_search_step"]},
@@ -2671,7 +2998,8 @@ def phase_resilience(session, g, report, zero_launches, read_launches):
             or min(res["window_search_launches"].values()) <= 0
             or min(res["window_search_step_launches"].values()) <= 0):
         raise AssertionError(f"the resilient ticks or the WAL replay {replayed} did not run on "
-                             f"intersect_count and window_search: {res['intersect_count_launches']}, "
+                             f"intersect_count's pair_step and window_search: "
+                             f"{res['intersect_count_step_launches']}, "
                              f"{res['window_search_launches']}, {res['window_search_step_launches']}, "
                              f"{res['backends']}")
     if rec.tick != svc.tick or not store_states_equal(rec.store.state_dict(), svc.store.state_dict()):
@@ -2701,6 +3029,7 @@ def phase_witness(session, ds, counts, report):
     from repro_torch.core.patterns import PATTERN_NAMES, build_pattern
     from repro_torch.data.synth_aml import planted_instances
     from repro_torch.device import allowed_sync
+    from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.kernels.window_search import ops as ws_ops
     from repro_torch.witness import witness_layout
 
@@ -2751,7 +3080,7 @@ def phase_witness(session, ds, counts, report):
     cpu_of = {n: min(WIT_CPU_SEEDS_CUT.get(n, WIT_CPU_SEEDS), n_of[n]) for n in pats}
     count_s, res, stats = {}, {}, []
     wit_wall, ws_launches = 0.0, 0
-    step_before = ws_ops.step_launches
+    step_before, pair_before = ws_ops.step_launches, ic_ops.step_launches
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2779,6 +3108,7 @@ def phase_witness(session, ds, counts, report):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     step_launches = ws_ops.step_launches - step_before  # the count-only and the witness mines
+    pair_launches = ic_ops.step_launches - pair_before
     peak = int(torch.cuda.max_memory_allocated())
     ts = time.perf_counter()
     cpu = MiningSession(g, window=WINDOW, device="cpu").register(*pats)
@@ -2800,12 +3130,15 @@ def phase_witness(session, ds, counts, report):
     wit["session"] = {"seeds": int(len(seeds)), "k": WIT_K, "witness_wall_s": wit_wall,
                       "count_only_wall_s": sum(count_s.values()), "per_pattern": per, "mines": stats,
                       "peak_mem_bytes": peak, "cpu_s": cpu_s, "cpu_mines": cpu_group_s, "cpu_equal": True,
-                      "window_search_launches": ws_launches, "window_search_step_launches": step_launches}
+                      "window_search_launches": ws_launches, "window_search_step_launches": step_launches,
+                      "intersect_count_step_launches": pair_launches}
     log("witness session: " + json.dumps(wit["session"]))
     if ws_launches <= 0:
         raise AssertionError("the session's witness mines launched window_search no time")
     if step_launches <= 0:
         raise AssertionError("the session's count-only and witness mines launched intersect_step no time")
+    if pair_launches <= 0:
+        raise AssertionError("the session's count-only and witness mines launched pair_step no time")
 
     # (c) plant and recover at full size
     planted = [inst["eids"] for inst in planted_instances(ds, "cycle")
@@ -2840,7 +3173,7 @@ def phase_triage(g, report, zero_launches, read_launches):
     TRIAGE_SUBMITS submits through TRIAGE_SUBMITTERS threads, with an
     audit log under build/, under sync-debug "error".  Then a sequential
     service at k = TRIAGE_EXACT_K whose last tick's evidence equals the
-    oracle on the store's snapshot.  Returns intersect_count's launches."""
+    oracle on the store's snapshot.  Returns intersect_count's pair_step launches."""
     import numpy as np
     import torch
     import repro_torch.stream.service as service_mod
@@ -2929,7 +3262,7 @@ def phase_triage(g, report, zero_launches, read_launches):
     }
     if tri["degraded"]:
         raise AssertionError(f"a triage tick reports degradation: {tri['degraded']}")
-    if launches["intersect_count"] <= 0 or launches["window_search"] <= 0 or launches["window_search_step"] <= 0:
+    if min(launches[k] for k in MINING_ENTRIES) <= 0:
         raise AssertionError(f"the triage ticks did not launch the mining kernels: {launches}")
     if svc.stats["host_syncs"] != svc.tick + wit_mines[0]:
         raise AssertionError(f"{svc.stats['host_syncs']} host syncs over {svc.tick} ticks and {wit_mines[0]} witness mines")
@@ -2986,7 +3319,7 @@ def phase_triage(g, report, zero_launches, read_launches):
     tri["oracle_pairs_checked"] = checked
     report["triage"] = tri
     log("triage: " + json.dumps(tri))
-    return launches["intersect_count"]
+    return launches["intersect_count_step"]
 
 
 def phase_sharded(session, g, counts, report, zero_launches, read_launches):
@@ -2996,7 +3329,7 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
     (the device-side sum).  Each must equal phase
     3's rows, sync once, launch ``intersect_count`` and have per-shard
     stats that sum to its totals.  Then ``repro_torch.launch.mine``'s
-    command line once.  Returns intersect_count's launches."""
+    command line once.  Returns intersect_count's pair_step launches."""
     import contextlib
     import io
 
@@ -3033,8 +3366,7 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
         if res.gather_mode != mode or res.stats["host_syncs"] != 1:
             raise AssertionError(f"the sharded mine ({name}) gathered by {res.gather_mode!r} with "
                                  f"{res.stats['host_syncs']} host syncs, not {mode!r} with 1")
-        if (row["launches"]["intersect_count"] <= 0 or row["launches"]["window_search"] <= 0
-                or row["launches"]["window_search_step"] <= 0):
+        if min(row["launches"][k] for k in MINING_ENTRIES) <= 0:
             raise AssertionError(f"the sharded mine ({name}) did not launch the mining kernels: {row['launches']}")
         for key in executor.STAT_KEYS:
             part = sum(st[key] for st in res.shard_stats)
@@ -3042,7 +3374,7 @@ def phase_sharded(session, g, counts, report, zero_launches, read_launches):
                 part += res.stats[key]  # charged to the mine's gather alone
             if part != res.stats[key]:
                 raise AssertionError(f"the shards' {key} sum to {part}, not the mine's {res.stats[key]}")
-        launches += row["launches"]["intersect_count"]
+        launches += row["launches"]["intersect_count_step"]
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -4605,7 +4937,7 @@ def phase_examples(device, report, zero_launches, read_launches) -> dict:
         ln = launches[label]
         mining = name in ("quickstart", "streaming_detection", "trace_capture")
         pipeline = name in ("quickstart", "train_aml_pipeline")
-        if mining and not (ln["intersect_count"] > 0 and ln["window_search"] > 0 and ln["window_search_step"] > 0):
+        if mining and min(ln[k] for k in MINING_ENTRIES) <= 0:
             raise AssertionError(f"{label} did not launch the mining kernels: {ln}")
         if pipeline and not ln["hist_update"] > ln["hist_update_rows"] > 0:
             raise AssertionError(f"{label} did not launch both hist_update entries: {ln}")
@@ -4699,15 +5031,17 @@ def main() -> int:
 
     def zero_launches():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
-        ws_ops.launches = ws_ops.step_launches = 0
+        ic_ops.step_launches = ws_ops.launches = ws_ops.step_launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read_launches():
         # "hist_update" counts both of its entries, "hist_update_rows" the rows entry alone;
         # "flash_attention" every forward launch, "flash_attention_lse" those that wrote the logsumexp,
         # "flash_attention_bwd" every backward launch, "flash_attention_bwd_long" those on the long backward;
-        # "window_search" both of its entries, "window_search_step" the intersect_step entry
-        return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
+        # "window_search" both of its entries, "window_search_step" the intersect_step entry;
+        # "intersect_count" both of its entries, "intersect_count_step" the pair_step entry
+        return {"intersect_count": ic_ops.launches, "intersect_count_step": ic_ops.step_launches,
+                "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches,
                 "window_degree": wd_ops.launches, "flash_attention": fa_ops.launches,
                 "flash_attention_lse": fa_ops.lse_launches, "flash_attention_bwd": fa_ops.bwd_launches,
@@ -4736,6 +5070,7 @@ def main() -> int:
         return out
 
     max_err = timed2("intersect_count", phase_kernel)
+    max_err = max(max_err, timed2("intersect_count_step", phase_pair_step))
     hu_err = timed2("hist_update", phase_hist_update)
     wd_row = timed2("window_degree", phase_window_degree)
     ws_err, _ = timed2("window_search", phase_window_search)
@@ -4811,7 +5146,7 @@ def main() -> int:
             ws_step_biggest[a[0]] = (n, a, kw)
         return out
 
-    ic_ops.intersect_count = capture
+    ic_ops.pair_step = capture
     hu_ops.hist_update, hu_ops.hist_update_rows = capture_hu, capture_hu_rows
     for e in ws_fns:
         setattr(ws_ops, e, capture_ws(e))
@@ -4825,7 +5160,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        ic_ops.intersect_count = kernel_fn
+        ic_ops.pair_step = kernel_fn
         hu_ops.hist_update, hu_ops.hist_update_rows = hu_fn, hu_rows_fn
         for e, fn in ws_fns.items():
             setattr(ws_ops, e, fn)
@@ -4869,11 +5204,9 @@ def main() -> int:
     }
     report["main_path"] = main
     log("main path: " + json.dumps(main))
-    if launches <= 0:
-        raise AssertionError("the main path launched intersect_count no time")
-    if main_launches["window_search"] <= 0 or main_launches["window_search_step"] <= 0:
-        raise AssertionError(f"the main path launched window_search (its intersect_step entry) no time: "
-                             f"{main_launches}")
+    if min(main_launches[k] for k in MINING_ENTRIES) <= 0:
+        raise AssertionError(f"the main path launched intersect_count (its pair_step entry) or window_search "
+                             f"(its intersect_step entry) no time: {main_launches}")
     for name, res in (("cold", cold), ("first subset", first), ("warm", warm)):
         if res.stats["host_syncs"] != 1 + n_compiled:
             raise AssertionError(f"{name} mine synced {res.stats['host_syncs']} times, not {1 + n_compiled}")
@@ -4961,28 +5294,28 @@ def main() -> int:
     mark(7)
 
     # ---- 8. report -----------------------------------------------------
-    a = biggest["args"]
-    ordered = biggest["ordered"]
-    b = a[0].shape[0]
-    got = ic_ops.intersect_count(*a, ordered=ordered)
-    want = ic_plain_rows(a, ordered)
-    err = int((got.long() - want.long()).abs().max()) if b else 0
-    if err:
-        raise AssertionError(f"intersect_count differs from its plain version on the main path's launch: {err}")
+    # intersect_count's headline: the mining path's largest pair_step launch
+    # (the path's only entry since the pw step became one launch), held bit
+    # for bit to its plain version and timed with L2 flushed
+    a, kw = biggest["args"], biggest["kw"]
+    err, plain_ms = ps_hold(a, kw, "the main path's largest launch")
     max_err = max(max_err, err)
-    times = ic_times(a, ordered, 20, cold=True)
-    log("kernel timing: intersect_count on the mining path " + json.dumps(times))
+    times = ps_times(a, kw, 20, plain_ms, cold=True)
+    log("kernel timing: intersect_count pair_step on the mining path " + json.dumps(times))
     kernels = [{
         "name": "intersect_count",
         "route": "cuda",
         "source": "src/repro_torch/csrc/intersect_count.cu",
         "replaces": "src/repro/kernels/intersect_count/kernel.py:83",
         "launches": launches,
+        "step_launches": main_launches["intersect_count_step"],
         "max_abs_err": max_err,
+        "headline": "pair_step",
         **{k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms", "l2_flushed",
-                                 "l2_warm_ms", "l2_warm_kernel_ms", "plan")},
+                                 "l2_warm_ms", "l2_warm_kernel_ms", "host_us", "compares", "row_bytes", "pairs")},
         "library_ms": None,
-        "shape": ic_form(a, ordered),
+        "library": "none: no single PyTorch call computes a pw step (expansions, masks, cube, sum)",
+        "shape": ps_form(a, kw),
     }]
     # window_search at the main path's largest launch of each searching
     # entry, in the operand forms the compiler passed
@@ -5141,24 +5474,18 @@ def main() -> int:
     t0 = time.perf_counter()
     stream_launches, sbig = phase_streaming(session, g, report, zero_launches, read_launches)
     report["streaming"]["phase_s"] = time.perf_counter() - t0
-    a = sbig["args"]
-    b = a[0].shape[0]
-    got = ic_ops.intersect_count(*a, ordered=sbig["ordered"])
-    want = ic_plain_rows(a, sbig["ordered"])
-    err = int((got.long() - want.long()).abs().max()) if b else 0
-    if err:
-        raise AssertionError(f"intersect_count differs from its plain version on the streaming launch: {err}")
-    times = ic_times(a, sbig["ordered"], 20, cold=True)
+    err, plain_ms = ps_hold(sbig["args"], sbig["kw"], "the streaming path's largest launch")
+    times = ps_times(sbig["args"], sbig["kw"], 20, plain_ms, cold=True)
     ws_entry["launches_streaming"] = report["streaming"]["launches"]["window_search"]
     ws_entry["step_launches_streaming"] = report["streaming"]["launches"]["window_search_step"]
     kernels[0].update({
         "launches_streaming": stream_launches,
-        "streaming_shape": ic_form(a, sbig["ordered"]),
+        "streaming_shape": ps_form(sbig["args"], sbig["kw"]),
         "streaming_max_abs_err": err,
         **{f"streaming_{k}": times[k] for k in ("ms", "kernel_ms", "l2_warm_ms", "l2_warm_kernel_ms", "host_us",
-                                                "plain_ms", "bound_ms", "bound_by", "plan")},
+                                                "plain_ms", "bound_ms", "bound_by")},
     })
-    log("kernel timing: intersect_count on the streaming path " + json.dumps(
+    log("kernel timing: intersect_count pair_step on the streaming path " + json.dumps(
         {k: v for k, v in kernels[0].items() if k.startswith(("launches_streaming", "streaming_"))}))
     mark(11)
 
@@ -5338,6 +5665,7 @@ def main() -> int:
         entry["launches_examples"] = {label: per_entry[entry["name"]](ln) for label, ln in ex.items()}
     fa_entry["launches_examples_lse"] = {label: ln["flash_attention_lse"] for label, ln in ex.items()}
     ws_entry["step_launches_examples"] = {label: ln["window_search_step"] for label, ln in ex.items()}
+    kernels[0]["step_launches_examples"] = {label: ln["intersect_count_step"] for label, ln in ex.items()}
     log(f"card: {card}")
     mark(22)
 

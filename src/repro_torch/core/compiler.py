@@ -16,24 +16,27 @@ The device half is rewritten in torch:
   ``(B, D1, ..., Dk[, DA][, DB])``.  The hub-tail sweep grid runs as a
   Python loop INSIDE the kernel callable (counts are additive across the
   grid), so a swept bucket is still one ``kernel_calls`` entry.
-* ``backend="kernel"`` (the default) routes the pairwise (``pw``) compare
-  cube and the pairwise ``count_edges`` through the hand-written CUDA
-  ``intersect_count`` kernel (:mod:`repro_torch.kernels.intersect_count`)
-  — the counterpart of the JAX package's ``backend="pallas"``.
-  ``backend="torch"`` broadcasts the cube inline in torch ops — the
-  counterpart of ``"xla"``.  The JAX package defaults to ``"xla"``, so its
-  main path never reaches its own Pallas kernel; the port defaults to the
-  kernel so that its main path does.  Counts are identical either way.
-  ``backend="kernel"`` also runs every windowed search (difference
-  frontiers, ``count_edges`` and ``count_window``) as one launch of the
-  hand-written ``window_search`` kernel
-  (:mod:`repro_torch.kernels.window_search`), where the JAX package's
-  jitted bucket programs run ``repro.core.ops``' ``fori_loop`` searches,
-  and each whole bs1 / bs2 intersect step (expansion, masks, search and
-  sum) as one launch of its ``intersect_step`` entry, with the intersect
-  dim's hub sweep offsets inside the launch: the callable's sweep loop
-  then runs the frontier dims' combos alone.  ``"torch"`` keeps the eager
-  ops of :mod:`repro_torch.core.ops`.
+* ``backend="kernel"`` (the default) runs each whole pairwise (``pw``)
+  step (both expansions, the window and ``skip_eq`` masks, the compare
+  cube and its sum) and each pairwise ``count_edges`` as one launch of the
+  hand-written CUDA ``intersect_count`` kernel's ``pair_step`` entry
+  (:mod:`repro_torch.kernels.intersect_count`), where the JAX package's
+  ``backend="pallas"`` runs its Pallas cube inside the jitted bucket
+  program; each whole bs1 / bs2 intersect step (expansion, masks, search
+  and sum) as one launch of the hand-written ``window_search`` kernel's
+  ``intersect_step`` entry; and every other windowed search (difference
+  frontiers, ``count_edges`` and ``count_window``) as one launch of
+  ``window_search`` (:mod:`repro_torch.kernels.window_search`), where the
+  JAX package's jitted bucket programs run ``repro.core.ops``'
+  ``fori_loop`` searches.  A step takes its intersect dims' hub sweep
+  offsets inside the launch where the emit is linear in its count: the
+  callable's sweep loop then runs the frontier dims' combos alone.
+  ``backend="torch"`` runs the same steps as the eager sequences of the
+  kernels' plain versions (``pair_step_ref``, ``intersect_step_ref``) and
+  the eager searches of :mod:`repro_torch.core.ops` — the counterpart of
+  ``"xla"``.  The JAX package defaults to ``"xla"``, so its main path
+  never reaches its own Pallas kernel; the port defaults to the kernels so
+  that its main path does.  Counts are identical either way.
 * PyTorch runs eagerly, so there is no trace: the ``_kernels`` cache holds
   the built callables and ``jit_cache_entries`` counts the same
   launch-shape keys the JAX package counts as traces.
@@ -56,7 +59,9 @@ import torch
 
 from repro_torch.core import executor, ops
 from repro_torch.kernels.intersect_count import ops as ic_ops
+from repro_torch.kernels.intersect_count import ref as ic_ref
 from repro_torch.kernels.window_search import ops as ws_ops
+from repro_torch.kernels.window_search import ref as ws_ref
 from repro_torch.obs import trace as obs_trace
 from repro_torch.core.spec import (
     NEG_INF,
@@ -118,7 +123,6 @@ def schedule_cache_cap_for(n_slots: int) -> int:
     return max(8, int(n_slots) + 1)
 
 
-_I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 
 
@@ -129,15 +133,6 @@ def _max(a, b):
     if not isinstance(b, torch.Tensor):
         return a.clamp_min(b)
     return torch.maximum(a, b)
-
-
-def _min(a, b):
-    """Elementwise int32 min where either side may be a Python int."""
-    if not isinstance(a, torch.Tensor):
-        return b.clamp_max(a)
-    if not isinstance(b, torch.Tensor):
-        return a.clamp_max(b)
-    return torch.minimum(a, b)
 
 
 def _linear_in(ir: "StageGraphIR", name: str, target: str) -> bool:
@@ -157,59 +152,6 @@ def _linear_in(ir: "StageGraphIR", name: str, target: str) -> bool:
         return False
     hits = [f for f in st.factors if reads(f)]
     return len(hits) == 1 and _linear_in(ir, hits[0], target)
-
-
-def _kernel_pair_count(
-    lead: Tuple[int, ...],
-    d_a: int,
-    d_b: int,
-    x_ids,
-    x_t,
-    y_ids,
-    y_t,
-    a_lo,
-    a_hi,
-    b_lo,
-    b_hi,
-    ordered: bool,
-):
-    """Route a pairwise compare cube through the intersect_count kernel.
-
-    The query shape ``lead = (B, W1..Wk)`` is flattened to kernel rows.
-    The x (frontier) tile is broadcast to ``(rows, Da)``; ``x_t`` may be
-    None (no a-side time: unordered, with the a window unbounded).  The y
-    (fixed) tile is ``(B, Db)``, one row per seed, and goes to the kernel as
-    it is: kernel row r reads fixed row ``r // (W1 * ... * Wk)``.  Window
-    bounds must be constant along the D axes (they anchor at seed or
-    frontier stage times, never at the expansion element); a Python int
-    goes in by value, a bound constant along W1..Wk as one value per seed
-    (no copy), and only a bound that varies along W1..Wk is broadcast to
-    ``(rows,)``.
-    """
-
-    def tile(a, w):
-        return a.expand(lead + (w,)).reshape(-1, w).contiguous()
-
-    def bound(a):
-        if not isinstance(a, torch.Tensor):
-            return int(a)
-        a = a.to(torch.int32)
-        if a.dim() and a.shape[0] == lead[0] and a.numel() == lead[0]:
-            return a.reshape(-1)  # one per seed: read at the fixed side's rate
-        return a.expand(lead + (1,)).reshape(-1).contiguous()
-
-    cnt = ic_ops.intersect_count(
-        tile(x_ids, d_a),
-        None if x_t is None else tile(x_t, d_a),
-        y_ids.contiguous(),
-        y_t.contiguous(),
-        bound(a_lo),
-        bound(a_hi),
-        bound(b_lo),
-        bound(b_hi),
-        ordered=ordered,
-    )
-    return cnt.reshape(lead)
 
 
 def _ladder_class(req: np.ndarray, ladder=BUCKET_LADDER) -> np.ndarray:
@@ -894,11 +836,7 @@ class CompiledPattern:
                 arr = arr[..., None]
             return arr
 
-        def mid_lift(arr, axis_lvl):
-            """Place a (B, d) expansion at query-shape axis `axis_lvl`."""
-            return arr.reshape(arr.shape[0], *([1] * (axis_lvl - 1)), arr.shape[1])
-
-        def body(dg: DeviceGraph, s, d, st_, fr, frt, offs, step_sweeps=1):
+        def body(dg: DeviceGraph, s, d, st_, fr, frt, offs, step_sweeps=(1, 1)):
             node_env = {"seed.src": (s, 0), "seed.dst": (d, 0)}
             time_env: Dict[str, Tuple] = {}
             mask_env: Dict[str, Tuple] = {}
@@ -993,127 +931,47 @@ class CompiledPattern:
                 it = ir.intersect
                 a, b = it.operands
                 d_a, d_b = dims[k], dims[k + 1]
-                off_a, off_b = offs[k], offs[k + 1]
-                fr_ids = lift(node_env[a.node.name][0], k)
-                indptr_a, nbr_a, t_a, _ = _graph_rows(dg, a.direction)
-                indptr_b, nbr_b, t_b, _ = _graph_rows(dg, b.direction)
-                fixed = node_env[b.node.name][0]  # (B,)
-                lx = k + 1  # frontier-side expansion axis
-
-                if backend == "kernel" and strat in (0, 1):
-                    # the whole step, expansion to sum, is one window_search
-                    # launch; the used intersect dim's sweep offsets run
-                    # inside it where the grid is split (step_sweeps)
+                csr_a = _graph_rows(dg, a.direction)[:3]
+                csr_b = _graph_rows(dg, b.direction)[:3]
+                # the operands at the lead shape (B, W1..Wk); each step
+                # places them against its expansion axes
+                step_args = (
+                    csr_a,
+                    csr_b,
+                    lift(node_env[a.node.name][0], k),
+                    lift(node_env[b.node.name][0], k),
+                    (bound_at(it.window.after, k), bound_at(it.window.until, k)),
+                    (bound_at(it.window2.after, k), bound_at(it.window2.until, k)),
+                    tuple(node_at(ref, k) for ref in it.skip_eq),
+                )
+                if strat in (0, 1):
+                    # bs1 expands the frontier rows and searches the fixed
+                    # row, bs2 the other way round: one window_search
+                    # launch, or the eager sequence
                     j = k + strat
-                    branch = srch.intersect_step(
+                    step = srch.intersect_step if backend == "kernel" else ws_ref.intersect_step_ref
+                    branch = step(
                         "bs1" if strat == 0 else "bs2",
-                        (indptr_a, nbr_a, t_a),
-                        (indptr_b, nbr_b, t_b),
-                        fr_ids,
-                        lift(fixed, k),
-                        (bound_at(it.window.after, k), bound_at(it.window.until, k)),
-                        (bound_at(it.window2.after, k), bound_at(it.window2.until, k)),
-                        tuple(node_at(ref, k) for ref in it.skip_eq),
+                        *step_args,
                         ordered=it.ordered,
                         d=dims[j],
-                        n_sweep=step_sweeps,
+                        n_sweep=step_sweeps[strat],
                         offset=offs[j],
                         n_iters=n_iters,
                     )
-                elif strat == 0:  # bs1: expand frontier rows, bsearch fixed
-                    m2, x_ids, x_t = ops.expand(
-                        indptr_a, (nbr_a, t_a), fr_ids, d_a, offset=off_a
+                else:  # pw: expand both sides, the broadcast compare cube
+                    step = ic_ops.pair_step if backend == "kernel" else ic_ref.pair_step_ref
+                    branch = step(
+                        "intersect",
+                        *step_args,
+                        ordered=it.ordered,
+                        d_a=d_a,
+                        d_b=d_b,
+                        offset_a=offs[k],
+                        offset_b=offs[k + 1],
+                        n_sweep_a=step_sweeps[0],
+                        n_sweep_b=step_sweeps[1],
                     )
-                    a1 = bound_at(it.window.after, lx)
-                    u1 = bound_at(it.window.until, lx)
-                    a2 = bound_at(it.window2.after, lx)
-                    u2 = bound_at(it.window2.until, lx)
-                    m = m2 & (x_t > a1) & (x_t <= u1)
-                    for ref in it.skip_eq:
-                        m = m & (x_ids != node_at(ref, lx))
-                    aa2 = _max(a2, x_t) if it.ordered else a2
-                    cnt = srch.count_id_in_window(
-                        nbr_b,
-                        t_b,
-                        indptr_b,
-                        lift(fixed, lx),
-                        torch.where(m, x_ids, -1),
-                        aa2,
-                        u2,
-                        n_iters,
-                    )
-                    branch = torch.where(m, cnt, 0).sum(-1, dtype=torch.int32)
-                elif strat == 1:  # bs2: expand fixed row, bsearch frontier
-                    m3, y_ids, y_t = ops.expand(
-                        indptr_b, (nbr_b, t_b), fixed, d_b, offset=off_b
-                    )  # (B, DB) -> placed at axis k+1
-                    y_ids2 = mid_lift(y_ids, lx)
-                    y_t2 = mid_lift(y_t, lx)
-                    a1 = bound_at(it.window.after, lx)
-                    u1 = bound_at(it.window.until, lx)
-                    a2 = bound_at(it.window2.after, lx)
-                    u2 = bound_at(it.window2.until, lx)
-                    m_y = mid_lift(m3, lx) & (y_t2 > a2) & (y_t2 <= u2)
-                    for ref in it.skip_eq:
-                        m_y = m_y & (y_ids2 != node_at(ref, lx))
-                    uu1 = _min(u1, y_t2 - 1) if it.ordered else u1
-                    cnt = srch.count_id_in_window(
-                        nbr_a,
-                        t_a,
-                        indptr_a,
-                        lift(fr_ids, lx),
-                        torch.where(m_y, y_ids2, -1),
-                        a1,
-                        uu1,
-                        n_iters,
-                    )
-                    branch = torch.where(m_y, cnt, 0).sum(-1, dtype=torch.int32)
-                else:  # pw: expand both sides, broadcast-compare merge tile
-                    m2, x_ids, x_t = ops.expand(
-                        indptr_a, (nbr_a, t_a), fr_ids, d_a, offset=off_a
-                    )
-                    a1 = bound_at(it.window.after, lx)
-                    u1 = bound_at(it.window.until, lx)
-                    m_x = m2 & (x_t > a1) & (x_t <= u1)
-                    for ref in it.skip_eq:
-                        m_x = m_x & (x_ids != node_at(ref, lx))
-                    m3, y_ids, y_t = ops.expand(
-                        indptr_b, (nbr_b, t_b), fixed, d_b, offset=off_b
-                    )  # (B, DB) -> axis k+2
-                    if backend == "kernel":
-                        # window 1 + skip_eq are folded into the x tile's
-                        # -1 sentinels; window 2 rides in as the kernel's
-                        # fixed-side window (constant along DB)
-                        lead = (s.shape[0],) + tuple(dims[:k])
-                        branch = _kernel_pair_count(
-                            lead,
-                            d_a,
-                            d_b,
-                            torch.where(m_x, x_ids, -1),
-                            x_t,
-                            torch.where(m3, y_ids, -1),
-                            y_t,
-                            _I32_MIN,
-                            _I32_MAX,
-                            bound_at(it.window2.after, lx),
-                            bound_at(it.window2.until, lx),
-                            it.ordered,
-                        )
-                    else:
-                        yb = mid_lift(y_ids, lx + 1)
-                        yt = mid_lift(y_t, lx + 1)
-                        a2 = bound_at(it.window2.after, lx + 1)
-                        u2 = bound_at(it.window2.until, lx + 1)
-                        pair = (
-                            m_x[..., None]
-                            & mid_lift(m3, lx + 1)
-                            & (x_ids[..., None] == yb)
-                            & (yt > a2)
-                            & (yt <= u2)
-                        )
-                        if it.ordered:
-                            pair = pair & (yt > x_t[..., None])
-                        branch = pair.sum(dim=(-1, -2), dtype=torch.int32)
                 count_env[it.name] = (branch, k)
 
             # ---- count stages -----------------------------------------
@@ -1148,43 +1006,22 @@ class CompiledPattern:
                     lvl = max(lvl_s, lvl_d, win_level(st))
                     if st is ir.ce_pw and strat == 2:
                         # pairwise: compare frontier ids against the
-                        # expanded in-row of the fixed destination
-                        d_b, off_b = dims[k + 1], offs[k + 1]
-                        lx = k + 1
-                        indptr_i, nbr_i, t_i, _ = _graph_rows(dg, "in")
-                        m3, y_ids, y_t = ops.expand(
-                            indptr_i, (nbr_i, t_i), dst_arr, d_b, offset=off_b
-                        )  # (B, DB) — in-neighbors of dst (= edge sources)
-                        aw = bound_at(st.window.after, lx)
-                        uw = bound_at(st.window.until, lx)
-                        if backend == "kernel":
-                            # degenerate Da=1 tile: the frontier id itself
-                            # (its -1 sentinel already marks invalid slots),
-                            # with no time: every slot is in the a window
-                            lead = (s.shape[0],) + tuple(dims[:k])
-                            cnt = _kernel_pair_count(
-                                lead,
-                                1,
-                                d_b,
-                                lift(base, lx),
-                                None,
-                                torch.where(m3, y_ids, -1),
-                                y_t,
-                                _I32_MIN,
-                                _I32_MAX,
-                                aw,
-                                uw,
-                                False,
-                            )
-                        else:
-                            y2, yt2 = mid_lift(y_ids, lx), mid_lift(y_t, lx)
-                            pair = (
-                                mid_lift(m3, lx)
-                                & (lift(base, lx) == y2)
-                                & (yt2 > aw)
-                                & (yt2 <= uw)
-                            )
-                            cnt = pair.sum(-1, dtype=torch.int32)
+                        # expanded in-row of the fixed destination (its
+                        # in-neighbors are the edge sources)
+                        step = ic_ops.pair_step if backend == "kernel" else ic_ref.pair_step_ref
+                        cnt = step(
+                            "edges",
+                            None,
+                            _graph_rows(dg, "in")[:3],
+                            lift(base, k),
+                            lift(dst_arr, k),
+                            None,
+                            (bound_at(st.window.after, k), bound_at(st.window.until, k)),
+                            ordered=False,
+                            d_b=dims[k + 1],
+                            offset_b=offs[k + 1],
+                            n_sweep_b=step_sweeps[1],
+                        )
                     else:
                         indptr, nbr, t, _ = _graph_rows(dg, "out")
                         cnt = srch.count_id_in_window(
@@ -1227,17 +1064,21 @@ class CompiledPattern:
         # ---- sweep fusion: the offset grid lives INSIDE the callable --
         # counts are additive across the sweep grid, so a loop over the
         # flattened combo index turns n_sweep calls into one.  Under the
-        # kernel backend a bs1 / bs2 step whose emit is linear in the
-        # intersect's count takes its own dim's offsets inside one
-        # intersect_step launch: the loop then runs the frontier dims'
-        # combos only (each re-expands the frontier), and the grid's sum is
-        # the same in int32 arithmetic
-        inner = 1
-        if backend == "kernel" and strat in (0, 1) and ir.intersect is not None:
-            j = k + strat
-            if sweeps[j] > 1 and sweeps[2 * k + 1 - j] == 1 and _linear_in(ir, ir.emit.name, ir.intersect.name):
-                inner = sweeps[j]
-        grid = tuple(1 if inner > 1 and j >= k else sc for j, sc in enumerate(sweeps))
+        # kernel backend an intersect step (bs1 / bs2, pw) or a pairwise
+        # count_edges whose count the emit is linear in takes its own dims'
+        # offsets inside one launch (step_sweeps: the a and the b dim's): the
+        # loop then runs the frontier dims' combos only (each re-expands the
+        # frontier), and the grid's sum is the same in int32 arithmetic
+        inner = (1, 1)
+        target = ir.intersect if ir.intersect is not None else (ir.ce_pw if strat == 2 else None)
+        if backend == "kernel" and target is not None and _linear_in(ir, ir.emit.name, target.name):
+            if strat in (0, 1):
+                j = k + strat
+                if sweeps[j] > 1 and sweeps[2 * k + 1 - j] == 1:
+                    inner = (sweeps[k], 1) if strat == 0 else (1, sweeps[k + 1])
+            elif strat == 2:  # the pairwise count_edges expands no frontier row
+                inner = (sweeps[k] if ir.intersect is not None else 1, sweeps[k + 1])
+        grid = tuple(sc if j < k else sc // inner[j - k] for j, sc in enumerate(sweeps))
         n_sweep = int(np.prod(grid))
         strides: List[int] = []
         acc = 1

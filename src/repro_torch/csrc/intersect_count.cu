@@ -54,12 +54,101 @@
 //   Otherwise the block's threads split the a x b pairs and scan the keys.
 //   One block-wide reduction per row.
 //
+// Second entry, `intersect_count_step_launch`: a whole pairwise ("pw")
+// step of the compiled plans in one launch.  It replaces no separate TPU
+// kernel: it is the reference's jitted pw bucket program
+// (src/repro/core/compiler.py: both `ops.expand` calls, the window-1 and
+// skip_eq masks, the Pallas cube through `_pallas_pair_count`, the sum,
+// and the hub sweep's offsets, a `fori_loop` in the same program) as one
+// launch, where the port's eager sequence
+// (kernels/intersect_count/ref.py::pair_step_ref) is some forty.  For each
+// lead element e of the broadcast lead shape (B, W1, ..., Wk) it expands
+// the frontier node's row of CSR a at offsets offset_a + i, i < width_a
+// (d_a times the a sweep steps), and the fixed node's row of CSR b at
+// offset_b + j, j < width_b, each entry kept where it lies inside its row
+// (the row-end mask of `expand`, the start + offset wrapping in int32, the
+// gather clamped) and inside its side's window (lo, hi]; an a entry also
+// where its id differs from every skip operand.  It counts the kept pairs
+// with equal ids (and, `ordered`, t_b > t_a) and writes the sum, taken in
+// uint32 so that it wraps as the plain version's int32 sums do.  The
+// "edges" form (cycle3's pairwise count_edges) has no a row: the a entry
+// is the frontier id itself, with no time and no window.  CSR ids are node
+// ids, never negative, so a -1 frontier id never matches.
+//
+// Bound on an H100: the bytes (the operands, the distinct 32-byte sectors
+// of both expanded rows, the output) or the pair compares, whichever is
+// larger; at the mining path's shapes (Wa, Wb <= 64, a lead element's
+// pairs in the hundreds) the bytes.  The fixed side depends only on the
+// seed, which the reference broadcasts to every lead element
+// (`tile(y_ids, d_b)`).  Here a block takes a tile of consecutive lead
+// elements, which covers one or a few runs of elements that share the
+// fixed node, and stages each run's expanded b slice in shared memory
+// once: the entries inside the row, and inside window 2 where that window
+// is constant along the run, compacted.  A group of G lanes (1..32, a
+// power of two from the pairs a lead element has) takes a lead element:
+// its lanes split the a entries (read where they lie, coalesced) and the
+// staged b entries, and sum with shuffles, no atomics.  A window 2 that
+// varies per lead element is applied at compare time.  Where the b slices
+// of a tile do not fit the block's shared memory, they are staged a chunk
+// of entries at a time.  Element arithmetic is 64-bit; each operand is
+// read through its strides (0 along broadcast axes), so a lifted or
+// broadcast view is read in place.
+//
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape it refuses) so
 // that a refused launch is reported.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#define IC_MAX_RANK 8
+#define IC_MAX_SKIP 8
+
+extern "C" {
+
+// one lead operand: a tensor read at ptr + sum(coord[d] * stride[d]), or
+// (ptr == NULL) the value `value` everywhere
+struct IcOperand {
+  const int32_t* ptr;
+  long long stride[IC_MAX_RANK];
+  int value;
+  int pad_;
+};
+
+// one CSR: (id, t)-sorted rows
+struct IcCsr {
+  const int32_t* ids;
+  const int32_t* t;
+  const int32_t* indptr;
+  long long n_flat;
+  long long n_indptr;
+};
+
+struct IcStepArgs {
+  IcCsr a;                    // the frontier side (unread by the edges form)
+  IcCsr b;                    // the fixed side
+  IcOperand node_a, node_b;   // the frontier node (edges form: the frontier id), the fixed node
+  IcOperand lo_a, hi_a;       // window 1, on the a entries' times
+  IcOperand lo_b, hi_b;       // window 2, on the b entries' times
+  IcOperand skip[IC_MAX_SKIP];
+  int32_t* out;               // contiguous, `size` lead elements
+  long long size[IC_MAX_RANK];
+  long long numel;            // lead elements
+  long long run;              // consecutive lead elements that share node_b
+  int rank;
+  int n_skip;
+  int ordered;
+  int edges;                  // 1: the a entry is node_a itself
+  int b_at_stage;             // 1: lo_b, hi_b constant along a run: applied when staging
+  int offset_a, width_a;      // a expansions offset_a + i, i < width_a
+  int offset_b, width_b;
+  int group;                  // lanes a lead element: 1, 2, ..., 32
+  int group_a;                // of them, lanes over the a entries (a power of two dividing group)
+  int chunk;                  // b entries of a slice staged at once
+  int max_slices;             // runs a tile of lead elements can span
+};
+
+}  // extern "C"
 
 namespace {
 
@@ -394,6 +483,196 @@ int launch_block(const Args& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the pw step entry --------------------------------------------------------
+
+constexpr int kStepThreads = 256;
+constexpr int kStepOps = 6 + IC_MAX_SKIP;  // node_a, node_b, lo_a, hi_a, lo_b, hi_b, skips
+constexpr int kSliceInts = 6;              // first, end, span, lo, hi, kept of a staged slice
+// the dynamic shared memory a step launch may take: of the 48 KB a block
+// has without opting in to more, room left for the kernel's static words
+constexpr int kStepSmem = 47 * 1024;
+
+__device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+__device__ __forceinline__ int32_t op_read(const IcOperand& o, long long off) {
+  return o.ptr ? __ldg(o.ptr + off) : o.value;
+}
+
+// the offsets of element e's coordinates in the first n operands
+__device__ __forceinline__ void op_offsets(const IcStepArgs& a, long long e, int n, long long* o) {
+  const IcOperand* ops[kStepOps] = {&a.node_a, &a.node_b, &a.lo_a, &a.hi_a, &a.lo_b, &a.hi_b};
+#pragma unroll
+  for (int k = 0; k < IC_MAX_SKIP; ++k) ops[6 + k] = &a.skip[k];
+#pragma unroll
+  for (int k = 0; k < kStepOps; ++k) o[k] = 0;
+  for (int d = a.rank - 1; d >= 0; --d) {
+    const long long c = e % a.size[d];
+    e /= a.size[d];
+#pragma unroll
+    for (int k = 0; k < kStepOps; ++k) {
+      if (k < n) o[k] += c * ops[k]->stride[d];
+    }
+  }
+}
+
+// the row [start, end) of `node`, indptr read as the JAX package clamps
+__device__ __forceinline__ void row_of(const IcCsr& c, int32_t node, int32_t& start, int32_t& end) {
+  const long long last = c.n_indptr - 1;
+  const long long safe = node > 0 ? node : 0;
+  start = __ldg(c.indptr + (safe < last ? safe : last));
+  end = __ldg(c.indptr + (safe + 1 < last ? safe + 1 : last));
+}
+
+// the expansion of a row from `offset`: entry j < width sits at flat
+// index first + j (int32, wrapping) and is inside the row where that index
+// is below `end`.  Entries j >= the returned span are never inside: where
+// first + width cannot wrap, exactly those at end - first and on; else
+// none are ruled out and each is checked.  A node < 0 expands nothing.
+__device__ __forceinline__ int span_of(int32_t node, int32_t start, int32_t end, int offset, int width,
+                                       int32_t& first) {
+  first = wrap_add(start, offset);
+  if (node < 0) return 0;
+  if ((long long)first + width <= 2147483647LL) {
+    const long long s = (long long)end - first;
+    return (int)(s < 0 ? 0 : (s < width ? s : width));
+  }
+  return width;
+}
+
+__global__ void __launch_bounds__(kStepThreads) intersect_count_step_kernel(const __grid_constant__ IcStepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int max_span;
+  const int n_slices = a.max_slices, chunk = a.chunk;
+  int2* staged = reinterpret_cast<int2*>(smem);  // (id, t) of each slice's kept entries
+  int* sl = reinterpret_cast<int*>(staged + (size_t)n_slices * chunk);
+  int *sl_first = sl, *sl_end = sl + n_slices, *sl_span = sl + 2 * n_slices, *sl_lo = sl + 3 * n_slices,
+      *sl_hi = sl + 4 * n_slices, *sl_kept = sl + 5 * n_slices;
+  const int group = a.group, rows = kStepThreads / group;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const long long r_end = min64(r0 + rows, a.numel);
+  const long long q0 = r0 / a.run;
+  const int n_sl = (int)((r_end - 1) / a.run - q0 + 1);
+  const int32_t cap_a = (int32_t)(a.a.n_flat - 1), cap_b = (int32_t)(a.b.n_flat - 1);
+
+  // the tile's slices: each run's fixed row, its expansion and window 2
+  if (threadIdx.x == 0) max_span = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_sl; s += kStepThreads) {
+    long long o[kStepOps];
+    op_offsets(a, (q0 + s) * a.run, 6, o);
+    const int32_t node = op_read(a.node_b, o[1]);
+    int32_t start, end, first;
+    row_of(a.b, node, start, end);
+    const int span = span_of(node, start, end, a.offset_b, a.width_b, first);
+    sl_first[s] = first;
+    sl_end[s] = end;
+    sl_span[s] = span;
+    sl_lo[s] = a.b_at_stage ? op_read(a.lo_b, o[4]) : 0;
+    sl_hi[s] = a.b_at_stage ? op_read(a.hi_b, o[5]) : 0;
+    if (span > 0) atomicMax(&max_span, span);
+  }
+  __syncthreads();
+  const int spans = max_span;  // the same in every thread: the chunk loop's bound
+
+  // this thread's lead element and its share of the pairs
+  const int g = threadIdx.x / group, lane = threadIdx.x % group;
+  const int ga = a.group_a, gb = group / ga, la = lane % ga, lb = lane / ga;
+  const long long r = r0 + g;
+  const bool live = r < r_end;
+  int slice = 0, span_a = 0;
+  int32_t node_a = -1, first_a = 0, end_a = 0, lo_a = 0, hi_a = 0, lo_b = 0, hi_b = 0;
+  int32_t skip[IC_MAX_SKIP];
+#pragma unroll
+  for (int k = 0; k < IC_MAX_SKIP; ++k) skip[k] = 0;
+  if (live) {
+    long long o[kStepOps];
+    op_offsets(a, r, 6 + a.n_skip, o);
+    slice = (int)(r / a.run - q0);
+    node_a = op_read(a.node_a, o[0]);
+    lo_a = op_read(a.lo_a, o[2]);
+    hi_a = op_read(a.hi_a, o[3]);
+    lo_b = a.b_at_stage ? (int32_t)0x80000000 : op_read(a.lo_b, o[4]);
+    hi_b = a.b_at_stage ? 0x7fffffff : op_read(a.hi_b, o[5]);
+#pragma unroll
+    for (int k = 0; k < IC_MAX_SKIP; ++k) skip[k] = k < a.n_skip ? op_read(a.skip[k], o[6 + k]) : 0;
+    if (a.edges) {
+      span_a = node_a >= 0 ? 1 : 0;
+    } else {
+      int32_t start;
+      row_of(a.a, node_a, start, end_a);
+      span_a = span_of(node_a, start, end_a, a.offset_a, a.width_a, first_a);
+    }
+  }
+  // an entry kept at staging passed lo_b < t, so t > INT32_MIN: the full
+  // window (INT32_MIN, INT32_MAX] then keeps every staged entry
+  uint32_t acc = 0;
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int c0 = 0; c0 < spans; c0 += chunk) {
+    __syncthreads();  // the last chunk's compares are done
+    for (int s = threadIdx.x; s < n_sl; s += kStepThreads) sl_kept[s] = 0;
+    __syncthreads();
+    // stage entries [c0, c0 + chunk) of every slice, the kept ones packed
+    // to the front (a warp reserves its kept entries of a slice at once)
+    const int total = n_sl * chunk;
+    for (int base = warp * 32; base < total; base += kStepThreads) {
+      const int f = base + wl;
+      const int s = f / chunk, j = c0 + (f - s * chunk);
+      bool keep = false;
+      int32_t id = 0, t = 0;
+      if (f < total && j < sl_span[s]) {
+        const int32_t idx = wrap_add(sl_first[s], j);
+        if (idx < sl_end[s]) {
+          const int32_t ci = min(max(idx, 0), cap_b);
+          t = __ldg(a.b.t + ci);
+          keep = !a.b_at_stage || (t > sl_lo[s] && t <= sl_hi[s]);
+          if (keep) id = __ldg(a.b.ids + ci);
+        }
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, keep ? s : -1);
+      if (keep) {
+        const int leader = __ffs(peers) - 1;
+        int at = 0;
+        if (wl == leader) at = atomicAdd(&sl_kept[s], __popc(peers));
+        at = __shfl_sync(peers, at, leader) + __popc(peers & ((1u << wl) - 1));
+        staged[(size_t)s * chunk + at] = make_int2(id, t);
+      }
+    }
+    __syncthreads();
+    if (live) {
+      const int n = sl_kept[slice];
+      const int2* ys = staged + (size_t)slice * chunk;
+      for (int i = la; i < span_a; i += ga) {
+        int32_t xid = node_a, lo = lo_b;
+        if (!a.edges) {
+          const int32_t idx = wrap_add(first_a, i);
+          if (!(idx < end_a)) continue;
+          const int32_t ci = min(max(idx, 0), cap_a);
+          const int32_t xt = __ldg(a.a.t + ci);
+          if (!(xt > lo_a && xt <= hi_a)) continue;
+          xid = __ldg(a.a.ids + ci);
+          bool kept = true;
+#pragma unroll
+          for (int k = 0; k < IC_MAX_SKIP; ++k) kept = kept && (k >= a.n_skip || xid != skip[k]);
+          if (!kept) continue;
+          if (a.ordered) lo = max(lo, xt);  // t_b > lo covers window 2 and the order
+        }
+        for (int j = lb; j < n; j += gb) {
+          const int2 y = ys[j];
+          acc += (y.x == xid && y.y > lo && y.y <= hi_b) ? 1u : 0u;
+        }
+      }
+    }
+  }
+  for (int off = group >> 1; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, group);
+  if (live && lane == 0) a.out[r] = (int32_t)acc;
+}
+
+size_t step_smem(const IcStepArgs& a) {
+  return (size_t)a.max_slices * a.chunk * sizeof(int2) + (size_t)a.max_slices * kSliceInts * sizeof(int);
+}
+
 }  // namespace
 
 // The path a launch at (B, Da, Db) takes: 0 "rows", 1 "block".
@@ -429,4 +708,44 @@ extern "C" int intersect_count_launch(
   p.ordered = ordered;
   const cudaStream_t s = (cudaStream_t)stream;
   return plan(n_rows, da, db) == 0 ? launch_rows(p, s) : launch_block(p, s);
+}
+
+// The step entry's limits and argument layout, for the wrapper to check.
+extern "C" int intersect_count_max_rank() { return IC_MAX_RANK; }
+
+extern "C" int intersect_count_max_skip() { return IC_MAX_SKIP; }
+
+extern "C" int intersect_count_step_args_bytes() { return (int)sizeof(IcStepArgs); }
+
+extern "C" int intersect_count_step_smem_max() { return kStepSmem; }
+
+// The dynamic shared memory a step launch of these arguments takes.
+extern "C" long long intersect_count_step_smem(const IcStepArgs* args) { return (long long)step_smem(*args); }
+
+// One pw step: see the note at the top.  The wrapper picks group,
+// group_a, chunk and max_slices (ops.step_plan); this entry checks them.
+extern "C" int intersect_count_step_launch(const IcStepArgs* args, void* stream) {
+  const IcStepArgs& a = *args;
+  if (a.numel <= 0) return 0;
+  const bool pow2 = a.group >= 1 && a.group <= 32 && (a.group & (a.group - 1)) == 0 && a.group_a >= 1 &&
+                    a.group_a <= a.group && (a.group_a & (a.group_a - 1)) == 0;
+  const IcCsr* csrs[2] = {&a.a, &a.b};
+  for (int k = a.edges ? 1 : 0; k < 2; ++k) {
+    const IcCsr* c = csrs[k];
+    if (!c->ids || !c->t || !c->indptr || c->n_flat <= 0 || c->n_indptr <= 0) return (int)cudaErrorInvalidValue;
+  }
+  if (!pow2 || a.rank < 0 || a.rank > IC_MAX_RANK || a.n_skip < 0 || a.n_skip > IC_MAX_SKIP || !a.out ||
+      a.run < 1 || a.chunk < 1 || a.max_slices < 1 || a.width_a < 0 || a.width_b < 0 || a.offset_a < 0 ||
+      a.offset_b < 0 || (a.edges && (a.n_skip || a.ordered)))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = kStepThreads / a.group;
+  // the slices a tile of `rows` consecutive lead elements can span
+  const long long spanned = (rows + a.run - 2) / a.run + 1;
+  if (a.max_slices < (spanned < rows ? spanned : rows)) return (int)cudaErrorInvalidValue;
+  const size_t smem = step_smem(a);
+  if (smem > (size_t)kStepSmem) return (int)cudaErrorInvalidValue;
+  const long long blocks = (a.numel + rows - 1) / rows;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  intersect_count_step_kernel<<<(unsigned)blocks, kStepThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -39,11 +39,27 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.operands import (
+    I32_MAX,
+    MAX_RANK,
+    MAX_SKIP,
+    Csr,
+    Operand,
+    Strides,
+    broadcast,
+    check_csr,
+    check_flat,
+    check_operand,
+    csr,
+    describe,
+    operand,
+    shape_of,
+    strides_over,
+)
 from repro_torch.kernels.window_search import ref
 
 __all__ = [
@@ -64,15 +80,8 @@ step_launches = 0
 # the sharded executor's dispatch threads launch concurrently: the
 # read-modify-write of a count is guarded
 _count_lock = threading.Lock()
-MAX_RANK = 8  # WS_MAX_RANK of the .cu: axes of a launch after describe()
-MAX_SKIP = 8  # WS_MAX_SKIP of the .cu: skip operands of an intersect step
-I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 _I32 = torch.int32
-_Strides = ctypes.c_longlong * MAX_RANK
-
-
-class _Operand(ctypes.Structure):
-    _fields_ = [("ptr", ctypes.c_void_p), ("stride", _Strides), ("value", ctypes.c_int), ("pad_", ctypes.c_int)]
+_WHO = "window_search"
 
 
 class _Args(ctypes.Structure):
@@ -82,14 +91,14 @@ class _Args(ctypes.Structure):
         ("n_flat", ctypes.c_longlong),
         ("indptr", ctypes.c_void_p),
         ("n_indptr", ctypes.c_longlong),
-        ("node", _Operand),
-        ("x", _Operand),
-        ("after", _Operand),
-        ("until", _Operand),
+        ("node", Operand),
+        ("x", Operand),
+        ("after", Operand),
+        ("until", Operand),
         ("out", ctypes.c_void_p),
         ("pos", ctypes.c_void_p),
-        ("pos_stride", _Strides),
-        ("size", _Strides),
+        ("pos_stride", Strides),
+        ("size", Strides),
         ("numel", ctypes.c_longlong),
         ("rank", ctypes.c_int),
         ("n_iters", ctypes.c_int),
@@ -98,29 +107,19 @@ class _Args(ctypes.Structure):
     ]
 
 
-class _Csr(ctypes.Structure):
-    _fields_ = [
-        ("ids", ctypes.c_void_p),
-        ("t", ctypes.c_void_p),
-        ("indptr", ctypes.c_void_p),
-        ("n_flat", ctypes.c_longlong),
-        ("n_indptr", ctypes.c_longlong),
-    ]
-
-
 class _StepArgs(ctypes.Structure):
     _fields_ = [
-        ("x", _Csr),
-        ("s", _Csr),
-        ("node_x", _Operand),
-        ("node_s", _Operand),
-        ("lo_x", _Operand),
-        ("hi_x", _Operand),
-        ("lo_s", _Operand),
-        ("hi_s", _Operand),
-        ("skip", _Operand * MAX_SKIP),
+        ("x", Csr),
+        ("s", Csr),
+        ("node_x", Operand),
+        ("node_s", Operand),
+        ("lo_x", Operand),
+        ("hi_x", Operand),
+        ("lo_s", Operand),
+        ("hi_s", Operand),
+        ("skip", Operand * MAX_SKIP),
         ("out", ctypes.c_void_p),
-        ("size", _Strides),
+        ("size", Strides),
         ("numel", ctypes.c_longlong),
         ("offset", ctypes.c_int),
         ("width", ctypes.c_int),
@@ -167,64 +166,6 @@ def _launch(fn, args, dev, what: str) -> None:
         raise RuntimeError(f"window_search {what} launch failed: CUDA error {err}")
 
 
-def describe(
-    shape: Sequence[int], strides: Sequence[Sequence[int]]
-) -> Tuple[Tuple[int, ...], Tuple[Tuple[int, ...], ...]]:
-    """The iteration space of a launch, a pure function of shapes.
-
-    ``shape`` is the broadcast output shape; ``strides`` holds each
-    operand's strides over it (0 on the axes it is broadcast along; all 0
-    for a Python int).  Returns ``(sizes, strides)`` with the size-1 axes
-    dropped and each pair of neighbouring axes merged where every operand
-    walks them as one (outer stride == inner stride * inner size).  Element
-    ``i`` of the output, in C order, is read at ``sum(c[d] * strides[k][d])``
-    for the coordinates ``c`` of ``i`` over ``sizes``."""
-    keep = [d for d, n in enumerate(shape) if n != 1]
-    sizes: list = []
-    out: list = [[] for _ in strides]
-    for d in keep:
-        n = int(shape[d])
-        if sizes and all(st[-1] == s[d] * n for st, s in zip(out, strides)):
-            sizes[-1] *= n
-            for st, s in zip(out, strides):
-                st[-1] = int(s[d])
-        else:
-            sizes.append(n)
-            for st, s in zip(out, strides):
-                st.append(int(s[d]))
-    return tuple(sizes), tuple(tuple(st) for st in out)
-
-
-def _check_flat(name: str, x, device) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"window_search: {name} must be a torch tensor")
-    if x.dtype is not _I32 or x.dim() != 1 or not x.is_contiguous():
-        raise TypeError(f"window_search: {name} must be a contiguous 1-D int32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"window_search: {name} is on {x.device}, not {device}")
-
-
-def _check_operand(name: str, x, device) -> None:
-    if type(x) is int:
-        if not I32_MIN <= x <= I32_MAX:
-            raise TypeError(f"window_search: {name} = {x} is outside int32")
-        return
-    if not isinstance(x, torch.Tensor) or x.dtype is not _I32:
-        raise TypeError(f"window_search: {name} must be an int in int32 or an int32 tensor, got {x!r:.80}")
-    if x.device != device:
-        raise ValueError(f"window_search: {name} is on {x.device}, not {device}")
-
-
-def _shape(x) -> Tuple[int, ...]:
-    return tuple(x.shape) if isinstance(x, torch.Tensor) else ()
-
-
-def _operand(x, strides) -> _Operand:
-    if type(x) is int:
-        return _Operand(None, _Strides(), x, 0)
-    return _Operand(x.data_ptr(), _Strides(*strides), 0, 0)
-
-
 def _search(ids, t, indptr, node, x, after, until, n_iters, want_pos: bool):
     """Check, then launch the kernel (CUDA) or run the plain version (CPU)."""
     global launches
@@ -233,14 +174,14 @@ def _search(ids, t, indptr, node, x, after, until, n_iters, want_pos: bool):
         raise TypeError("window_search: t must be a torch tensor")
     dev = t.device
     if two:
-        _check_flat("ids", ids, dev)
-    _check_flat("t", t, dev)
-    _check_flat("indptr", indptr, dev)
+        check_flat("ids", ids, dev, _WHO)
+    check_flat("t", t, dev, _WHO)
+    check_flat("indptr", indptr, dev, _WHO)
     operands = {"node": node, "after": after, "until": until}
     if two:
         operands["x"] = x
     for name, v in operands.items():
-        _check_operand(name, v, dev)
+        check_operand(name, v, dev, _WHO)
     if type(n_iters) is not int or n_iters < 0:
         raise TypeError(f"window_search: n_iters must be an int >= 0, got {n_iters!r}")
     if t.shape[0] == 0 or indptr.shape[0] == 0 or (two and ids.shape[0] != t.shape[0]):
@@ -253,22 +194,22 @@ def _search(ids, t, indptr, node, x, after, until, n_iters, want_pos: bool):
         return fn(t, indptr, node, after, until, n_iters)
     if dev.type != "cuda":
         raise ValueError(f"window_search runs on cuda or cpu, not {dev}")
-    shape = torch.broadcast_shapes(*map(_shape, operands.values()))
-    pos_shape = torch.broadcast_shapes(*map(_shape, (node, x if two else 0, after)))
+    shape = broadcast([shape_of(v) for v in operands.values()])
+    pos_shape = broadcast([shape_of(v) for v in (node, x if two else 0, after)])
     out = torch.empty(shape, dtype=_I32, device=dev)
     pos = torch.empty(pos_shape, dtype=_I32, device=dev) if want_pos else None
     if out.numel() == 0:
         return (out, pos) if want_pos else out
     order = [node, x if two else 0, after, until]
-    strides = [v.expand(shape).stride() if isinstance(v, torch.Tensor) else (0,) * len(shape) for v in order]
-    strides.append(pos.expand(shape).stride() if want_pos else (0,) * len(shape))
+    strides = [strides_over(v, shape) for v in order]
+    strides.append(strides_over(pos, shape))
     sizes, merged = describe(shape, strides)
     if len(sizes) > MAX_RANK:
         raise ValueError(f"window_search: a query of {len(sizes)} axes past merging; the kernel takes {MAX_RANK}")
-    ops_ = [_operand(v, st) for v, st in zip(order, merged)]
+    ops_ = [operand(v, st) for v, st in zip(order, merged)]
     args = _Args(
         ids.data_ptr() if two else None, t.data_ptr(), t.shape[0], indptr.data_ptr(), indptr.shape[0],
-        *ops_, out.data_ptr(), pos.data_ptr() if want_pos else None, _Strides(*merged[-1]), _Strides(*sizes),
+        *ops_, out.data_ptr(), pos.data_ptr() if want_pos else None, Strides(*merged[-1]), Strides(*sizes),
         out.numel(), len(sizes), n_iters, 1 if two else 0, 0,
     )
     _launch(_launcher(), args, dev, "search")
@@ -278,21 +219,6 @@ def _search(ids, t, indptr, node, x, after, until, n_iters, want_pos: bool):
 
 
 STRATEGIES = ("bs1", "bs2")
-
-
-def _check_csr(name: str, csr, device) -> None:
-    if not isinstance(csr, tuple) or len(csr) != 3:
-        raise TypeError(f"window_search: {name} must be an (indptr, ids, t) tuple")
-    indptr, ids, t = csr
-    for part, x in (("indptr", indptr), ("ids", ids), ("t", t)):
-        _check_flat(f"{name}'s {part}", x, device)
-    if ids.shape[0] == 0 or indptr.shape[0] == 0 or ids.shape[0] != t.shape[0]:
-        raise ValueError(f"window_search: {name} has empty flat arrays, or ids and t of different lengths")
-
-
-def _csr(csr) -> _Csr:
-    indptr, ids, t = csr
-    return _Csr(ids.data_ptr(), t.data_ptr(), indptr.data_ptr(), ids.shape[0], indptr.shape[0])
 
 
 def intersect_step(
@@ -334,8 +260,8 @@ def intersect_step(
     if not isinstance(csr_a, tuple) or not csr_a or not isinstance(csr_a[0], torch.Tensor):
         raise TypeError("window_search: csr_a must be an (indptr, ids, t) tuple of tensors")
     dev = csr_a[0].device
-    _check_csr("csr_a", csr_a, dev)
-    _check_csr("csr_b", csr_b, dev)
+    check_csr("csr_a", csr_a, dev, _WHO)
+    check_csr("csr_b", csr_b, dev, _WHO)
     skip = tuple(skip)
     if len(skip) > MAX_SKIP:
         raise ValueError(f"window_search: {len(skip)} skip nodes; the kernel takes {MAX_SKIP}")
@@ -343,7 +269,7 @@ def intersect_step(
     operands = {"frontier": frontier, "fixed": fixed, "window1 after": a1, "window1 until": u1,
                 "window2 after": a2, "window2 until": u2, **{f"skip {i}": r for i, r in enumerate(skip)}}
     for name, v in operands.items():
-        _check_operand(name, v, dev)
+        check_operand(name, v, dev, _WHO)
     for name, v in (("d", d), ("n_sweep", n_sweep), ("n_iters", n_iters), ("offset", offset)):
         if type(v) is not int or v < (1 if name in ("d", "n_sweep") else 0):
             raise TypeError(f"window_search: {name} must be an int >= {1 if name in ('d', 'n_sweep') else 0}, "
@@ -355,7 +281,7 @@ def intersect_step(
                                       ordered=ordered, d=d, n_sweep=n_sweep, offset=offset, n_iters=n_iters)
     if dev.type != "cuda":
         raise ValueError(f"window_search runs on cuda or cpu, not {dev}")
-    shape = torch.broadcast_shapes(*map(_shape, operands.values()))
+    shape = broadcast([shape_of(v) for v in operands.values()])
     out = torch.empty(shape, dtype=_I32, device=dev)
     if out.numel() == 0:
         return out
@@ -363,16 +289,16 @@ def intersect_step(
     # the expanded side (x) and the searched side (s)
     order = [frontier if bs1 else fixed, fixed if bs1 else frontier, *(window1 if bs1 else window2),
              *(window2 if bs1 else window1), *skip]
-    strides = [v.expand(shape).stride() if isinstance(v, torch.Tensor) else (0,) * len(shape) for v in order]
+    strides = [strides_over(v, shape) for v in order]
     sizes, merged = describe(shape, strides)
     if len(sizes) > MAX_RANK:
         raise ValueError(f"window_search: a lead shape of {len(sizes)} axes past merging; the kernel takes {MAX_RANK}")
-    ops_ = [_operand(v, st) for v, st in zip(order, merged)]
-    skips = ops_[6:] + [_Operand(None, _Strides(), 0, 0)] * (MAX_SKIP - len(skip))
+    ops_ = [operand(v, st) for v, st in zip(order, merged)]
+    skips = ops_[6:] + [Operand(None, Strides(), 0, 0)] * (MAX_SKIP - len(skip))
     width = d * n_sweep
     args = _StepArgs(
-        _csr(csr_a if bs1 else csr_b), _csr(csr_b if bs1 else csr_a), *ops_[:6], (_Operand * MAX_SKIP)(*skips),
-        out.data_ptr(), _Strides(*sizes), out.numel(), offset, width, len(sizes), n_iters, len(skip),
+        csr(csr_a if bs1 else csr_b), csr(csr_b if bs1 else csr_a), *ops_[:6], (Operand * MAX_SKIP)(*skips),
+        out.data_ptr(), Strides(*sizes), out.numel(), offset, width, len(sizes), n_iters, len(skip),
         1 if ordered else 0, 0 if bs1 else 1, step_group(width),
     )
     _launch(_launcher(step=True), args, dev, "intersect_step")

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the hand-written kernels (intersect_count,
-hist_update's two entries, window_degree, window_search's four entries,
+"""The port on a CUDA card: the hand-written kernels (intersect_count's
+two entries, hist_update's two entries, window_degree, window_search's four entries,
 flash_attention) against their
 plain PyTorch versions (hist_update also bit for bit against its plain
 fixed-point replay, at every cluster size), a portfolio mine on the card
@@ -25,6 +25,7 @@ import torch
 from repro_torch.api import MiningSession
 from repro_torch.core.patterns import feature_pattern_set
 from repro_torch.graph.csr import build_temporal_graph
+from repro_torch.kernels import intersect_count as IC
 from repro_torch.kernels.intersect_count import intersect_count, intersect_count_ref
 from repro_torch.kernels.intersect_count import ops as ic_ops
 from repro_torch.kernels.hist_update import (
@@ -268,6 +269,54 @@ def test_window_search_on_the_mining_paths(cuda):
     assert ws_ops.launches > before  # the extraction has no backend knob
     for n in names:
         np.testing.assert_array_equal(wit.witnesses[n].eids, wit_cpu.witnesses[n].eids, err_msg=n)
+
+
+# intersect_count's pair_step entry: chip_smoke.py's phase-2 forms, and
+# the mining path's largest pw shapes
+@pytest.mark.parametrize("form", cs.PS_FORMS)
+def test_pair_step_matches_plain(cuda, form):
+    """Bit for bit against the eager pw sequence on the same operands, one
+    launch under set_sync_debug_mode("error"), and equal to the plain
+    version run on the CPU."""
+    args, kw = cs.ps_case(form, 40 + cs.PS_FORMS.index(form), cuda)
+    cs.ps_hold(args, kw, form)
+    on_cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else tuple(map(on_cpu, v)) if isinstance(v, tuple) else v  # noqa: E731
+    before = ic_ops.step_launches
+    got = IC.pair_step(*args, **kw)
+    assert ic_ops.step_launches == before + 1
+    assert torch.equal(got.cpu(), IC.pair_step(*on_cpu(args), **kw))
+
+
+@pytest.mark.parametrize("shape", cs.PS_PATH_SHAPES)
+def test_pair_step_at_the_path_shapes(cuda, shape):
+    args, kw = cs.ps_path_case(*shape, cuda)
+    cs.ps_hold(args, kw, f"the path shape {shape}")
+
+
+@pytest.mark.parametrize("ladder", [None, (2, 4)], ids=["unswept", "swept"])
+def test_pair_step_on_the_mining_path(cuda, ladder):
+    """Forced pw mines on the card launch pair_step under the kernel
+    backend (cycle3's pairwise count_edges, the intersect of the others)
+    and none under the torch backend, both equal to the CPU port."""
+    from repro_torch.core.compiler import CompiledPattern
+    from repro_torch.core.patterns import build_pattern
+
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 18, 140).astype(np.int32)
+    dst = rng.integers(0, 18, 140).astype(np.int32)
+    dst[src == dst] = (dst[src == dst] + 1) % 18
+    g = build_temporal_graph(src, dst, rng.integers(0, 256, 140), n_nodes=18)
+    kw = dict(force_strategy="pw", **({"ladder": ladder} if ladder else {}))
+    for name in ("cycle3", "cycle4", "scatter_gather", "cycle5"):
+        want = CompiledPattern(build_pattern(name, 96), g, device="cpu", **kw).mine()
+        before = ic_ops.step_launches
+        got = CompiledPattern(build_pattern(name, 96), g, **kw).mine()
+        assert ic_ops.step_launches > before, name
+        np.testing.assert_array_equal(got, want)
+        before = ic_ops.launches
+        got = CompiledPattern(build_pattern(name, 96), g, backend="torch", **kw).mine()
+        assert ic_ops.launches == before, name
+        np.testing.assert_array_equal(got, want)
 
 
 # the smoke shapes of tests/test_kernels.py, the edge cases, both sides of

@@ -26,6 +26,8 @@ from repro_torch.api import MiningSession
 from repro_torch.convert import graph_from_reference, spec_from_reference
 from repro_torch.core.spec import NEG_INF, POS_INF
 from repro_torch.kernels import window_search as WS
+from repro_torch.kernels import operands as lead_ops
+from repro_torch.kernels.intersect_count import ops as ic_ops
 from repro_torch.kernels.window_search import ops as ws_ops
 from tests.conftest import random_temporal_graph
 
@@ -358,6 +360,10 @@ def test_describe_reads_every_element(case, views):
         ops = [o.expand(shape) if isinstance(o, torch.Tensor) else o for o in ops]
     strides = [o.expand(shape).stride() if isinstance(o, torch.Tensor) else (0,) * len(shape) for o in ops]
     sizes, merged = ws_ops.describe(shape, strides)
+    # the wrappers' own shape and stride helpers (no torch.broadcast_shapes
+    # on the launch path) describe the launch the same way
+    assert lead_ops.broadcast([tuple(o.shape) if isinstance(o, torch.Tensor) else () for o in ops]) == tuple(shape)
+    assert ws_ops.describe(shape, [lead_ops.strides_over(o, shape) for o in ops]) == (sizes, merged)
     assert int(np.prod(sizes)) == int(np.prod(shape)) and len(sizes) <= len(shape)
     assert all(n > 1 for n in sizes)
     tensors = [o for o in ops if isinstance(o, torch.Tensor)]
@@ -366,6 +372,16 @@ def test_describe_reads_every_element(case, views):
     for o, st in zip(ops, merged):
         want = next(it).reshape(-1).numpy() if isinstance(o, torch.Tensor) else np.full(int(np.prod(shape)), o)
         np.testing.assert_array_equal(_read_through(o, shape, sizes, st), want)
+
+
+def test_broadcast_refuses_what_torch_refuses():
+    assert lead_ops.broadcast([(4, 1, 5), (3, 1), ()]) == (4, 3, 5)
+    assert lead_ops.broadcast([(0, 3), (1, 3)]) == (0, 3)
+    for shapes in ([(4, 3), (2, 3)], [(0,), (3,)]):
+        with pytest.raises(ValueError, match="broadcast"):
+            lead_ops.broadcast(shapes)
+        with pytest.raises(RuntimeError):
+            torch.broadcast_shapes(*shapes)
 
 
 def test_describe_merges_contiguous_axes():
@@ -433,17 +449,19 @@ def dense():
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Counts the wrapper's calls by entry (they route by device, so on the
-    CPU the counts say which calls the kernel backend sent to it)."""
-    n = {e: 0 for e in ENTRIES + ("intersect_step",)}
+    """Counts the wrappers' calls by entry: window_search's, and
+    intersect_count's ``pair_step`` (they route by device, so on the CPU
+    the counts say which calls the kernel backend sent to them)."""
+    n = {e: 0 for e in ENTRIES + ("intersect_step", "pair_step")}
     for e in n:
-        fn = getattr(ws_ops, e)
+        mod = ic_ops if e == "pair_step" else ws_ops
+        fn = getattr(mod, e)
 
         def counted(*a, _e=e, _fn=fn, **kw):
             n[_e] += 1
             return _fn(*a, **kw)
 
-        monkeypatch.setattr(ws_ops, e, counted)
+        monkeypatch.setattr(mod, e, counted)
     return n
 
 
@@ -453,7 +471,9 @@ MINE_CASES = [
     ("cycle3", "bs2", "count_id_in_window"),
     ("cycle4", "bs2", "intersect_step"),  # the whole intersect step, one call
     ("scatter_gather", "bs1", "intersect_step"),
-    ("cycle3", "pw", "count_id_in_window"),  # the cube is intersect_count's; count_edges is not on pw
+    ("cycle3", "pw", "pair_step"),  # the pairwise count_edges: intersect_count's pw step entry
+    ("cycle4", "pw", "pair_step"),  # the whole pw intersect step, one call
+    ("scatter_gather", "pw", "pair_step"),
     ("new_counterparty", None, "count_id_in_window"),  # the difference frontier
     ("cycle2", None, "count_id_in_window"),  # count_edges
     ("fan_in", None, "count_window"),
@@ -473,8 +493,6 @@ def test_compiled_mine_matches_jax_on_both_backends(dense, calls, name, strategy
     got = tcp.mine(seeds)
     np.testing.assert_array_equal(got, want)
     assert tcp.stats == jcp.stats
-    if strategy == "pw" and name == "cycle3":
-        return  # the pw cube runs no windowed search
     reached = calls[entry]
     assert (reached > 0) if backend == "kernel" else (reached == 0), (backend, calls)
 

@@ -10,7 +10,9 @@ Used by ``tools/profile_mine.py`` and ``tools/profile_stream.py``:
     report = trace.report(prof)
 
 While hooked, every call of the compiler's ``_kernel_pair_count`` (the one
-place the mining path reaches the kernel) records its query shape
+place the mining path of a checkout from before the pw step became one
+``pair_step`` launch reaches the kernel; a later checkout has no such
+function, and the trace then records nothing) records its query shape
 ``lead = (B_seed, W1, ..., Wk)``, its tile widths and ``ordered``, and
 launches a marker kernel (``torch.cuda._sleep(0)``, a ``spin_kernel`` of
 no length) before it runs.  On the one stream the device runs kernels in
@@ -50,6 +52,7 @@ class PairCountTrace:
     def __init__(self):
         # (rows, Da, Db, rep, ordered, window forms, peak bytes added beyond the output)
         self.calls = []
+        self.hooked_compiler = False
 
     @contextlib.contextmanager
     def hooked(self):
@@ -57,7 +60,11 @@ class PairCountTrace:
 
         import repro_torch.core.compiler as TC
 
-        orig = TC._kernel_pair_count
+        orig = getattr(TC, "_kernel_pair_count", None)
+        if orig is None:  # the pw step is one pair_step launch: nothing to trace here
+            yield self
+            return
+        self.hooked_compiler = True
 
         def traced(lead, d_a, d_b, *rest):
             rows = math.prod(lead)
@@ -82,6 +89,8 @@ class PairCountTrace:
         bytes per shape, and the peak memory the largest launch's copies add."""
         import torch
 
+        if not self.hooked_compiler:
+            return {"calls": 0, "hooked": False}
         kernels = sorted(
             (ev for ev in prof.events() if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA),
             key=lambda ev: ev.time_range.start,

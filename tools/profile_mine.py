@@ -8,9 +8,16 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
 
 1. the cold mine's host spans (``repro_torch.obs.trace``): schedule build,
    staging, launch dispatch, and the gathers that wait for the device;
+   each pattern's wall (``MiningResult.seconds``) beside its own schedule
+   build; the mining kernels are built before it, so no ``nvcc`` time
+   lands in it;
 2. a warm mine with a device sync after every kernel call, attributed to
    (pattern, strategy, bucket dims, sweep grid): the device-inclusive wall
-   of each strategy, how much of it the ``intersect_count`` kernel took,
+   of each strategy, how much of it the ``intersect_count`` kernel took
+   (its ``pair_step`` entry where the checkout has it: then each pw
+   bucket's wall is split into the step's synced time and the rest, the
+   frontier chain's eager expansion and the emit, and the entry's launches
+   and CUDA-event time are kept by shape, ``intersect_count_step_by_shape``),
    each swept bs1/bs2 bucket's grid split into its frontier dims' combos
    (a Python loop of the callable) and its intersect dims' combos (inside
    one ``intersect_step`` launch where the checkout has that entry), and
@@ -25,7 +32,9 @@ Mines synthetic HI-Small with the 9-pattern ``"full"`` portfolio through
    ``tools/pair_count_trace.py``, the histogram of the kernel's launch
    shapes ``(B, Da, Db, W1...Wk, ordered)`` with launches and device time
    per shape, and the device time, kernels and peak bytes of the operand
-   copies the compiler's ``_kernel_pair_count`` launches around it.
+   copies the compiler's ``_kernel_pair_count`` launches around it (a
+   checkout from before ``pair_step``; with it, part 3 reads the step
+   kernel's device time and launches instead).
 
 Beside ``intersect_count``, parts 2 and 3 read the windowed searches
 (``count_window`` and ``count_id_in_window``: the ``window_search``
@@ -87,10 +96,15 @@ def main() -> int:
     from repro_torch.api import MiningSession
     from repro_torch.core.patterns import feature_pattern_set
     from repro_torch.data.synth_aml import generate_aml_dataset
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.intersect_count import ops as ic_ops
     from repro_torch.obs import trace as obs_trace
 
     report = {"scale": args.scale, "src": args.src, "card": torch.cuda.get_device_name(0)}
+    t0 = time.perf_counter()
+    for name in ("intersect_count", "window_search", "window_degree"):
+        kbuild.load(name)
+    report["build_s"] = time.perf_counter() - t0
     g = generate_aml_dataset("HI-Small", seed=0, scale=args.scale).graph
     session = MiningSession(g, window=4096).register(*feature_pattern_set("full"))
 
@@ -99,13 +113,17 @@ def main() -> int:
     tracer.reset()
     tracer.enable()
     t0 = time.perf_counter()
-    session.mine()
+    res = session.mine()
     cold_s = time.perf_counter() - t0
     tracer.disable()
     spans = collections.defaultdict(float)
+    builds = collections.defaultdict(float)  # pattern -> its schedule build
     for ev in tracer.spans():
         spans[ev["name"]] += ev["dur_ns"] / 1e9
-    report["cold"] = {"wall_s": cold_s, "span_s": dict(spans)}
+        if ev["name"] == "schedule_build":
+            builds[ev["attrs"].get("pattern")] += ev["dur_ns"] / 1e9
+    report["cold"] = {"wall_s": cold_s, "span_s": dict(spans), "seconds": dict(res.seconds),
+                      "schedule_build_s": dict(builds)}
     print(json.dumps({"cold": report["cold"]}), flush=True)
 
     biggest = {}  # search name -> the args of its largest call in part 2
@@ -165,6 +183,28 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
             torch.cuda.synchronize()
             walls[key] += time.perf_counter() - s
             calls[key] += 1
+            return out
+
+        return run
+
+    step_walls = collections.defaultdict(float)  # bucket key -> synced seconds inside pair_step
+    pair_shapes = collections.defaultdict(list)  # (form, lead, d_a, d_b, sweeps) -> [(start, stop)]
+
+    def timed_pair(orig):
+        def run(form, *a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = orig(form, *a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            sweeps = (kw.get("n_sweep_a", 1), kw.get("n_sweep_b", 1))
+            pair_shapes[(form, tuple(out.shape), kw.get("d_a", 1), kw["d_b"], sweeps)].append(ev)
+            step_walls[label[0]] += time.perf_counter() - s
+            work = out.numel() * kw.get("d_a", 1) * kw["d_b"] * sweeps[0] * sweeps[1]
+            if work > biggest.get("pair_step", (0, None))[0]:
+                biggest["pair_step"] = (work, orig, (form, *a), kw)
             return out
 
         return run
@@ -244,8 +284,11 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
     orig_step = getattr(step_mod, "intersect_step", None)
     if orig_step is not None:
         searches.append((step_mod, "intersect_step", orig_step))
+    orig_pair = getattr(ic_ops, "pair_step", None)
     TC.CompiledPattern._kernel = timed_kernel
     ic_ops.intersect_count = timed_ic
+    if orig_pair is not None:
+        ic_ops.pair_step = timed_pair(orig_pair)
     for mod, name, fn in searches:
         setattr(mod, name, timed_step(fn) if name == "intersect_step"
                 else timed_search(name, fn, 3 if name == "count_window" else 4))
@@ -258,6 +301,8 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
     finally:
         TC.CompiledPattern._kernel = orig_kernel
         ic_ops.intersect_count = orig_ic
+        if orig_pair is not None:
+            ic_ops.pair_step = orig_pair
         for mod, name, fn in searches:
             setattr(mod, name, fn)
         if fused is not None:
@@ -288,6 +333,20 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
     ]
     for r in step_by_shape:
         r["ms_per_launch"] = r["device_s"] * 1e3 / r["launches"]
+    pair_by_shape = [
+        {"form": f, "lead": list(lead), "d_a": da, "d_b": db, "sweeps": list(sw), "launches": len(evs),
+         "device_s": sum(x.elapsed_time(y) for x, y in evs) / 1e3}
+        for (f, lead, da, db, sw), evs in pair_shapes.items()
+    ]
+    for r in pair_by_shape:
+        r["ms_per_launch"] = r["device_s"] * 1e3 / r["launches"]
+    # the pw buckets' walls: the step (pair_step's synced time, or, before
+    # it, intersect_count's alone) and the rest (the frontier chain, emit)
+    pw = []
+    for k, v in walls.items():
+        if k.split(":")[1].split("/")[0] == "pw":
+            step = step_walls.get(k, 0.0) if orig_pair is not None else ic_walls.get(k, 0.0)
+            pw.append({"bucket": k, "s": v, "calls": calls[k], "step_s": step, "chain_s": v - step})
     swept = []  # the swept bs1/bs2 buckets, with their grids split
     for k, v in walls.items():
         strat = k.split(":")[1].split("/")[0]
@@ -319,6 +378,18 @@ def warm_synced(session, report, TC, ic_ops, biggest) -> None:
             "buckets": sorted(swept, key=lambda r: -r["s"])[:TOP],
         },
         "intersect_count_by_shape": sorted(by_shape, key=lambda r: -r["device_s"])[:TOP],
+        "intersect_count_step_launches": sum(r["launches"] for r in pair_by_shape),
+        "intersect_count_step_device_s": sum(r["device_s"] for r in pair_by_shape),
+        "intersect_count_step_by_shape": sorted(pair_by_shape, key=lambda r: -r["device_s"])[:TOP],
+        "pw_buckets": {
+            # step_s: pair_step's synced time (a checkout before it: intersect_count's alone)
+            "step": "pair_step" if orig_pair is not None else "intersect_count",
+            "s": sum(r["s"] for r in pw),
+            "calls": sum(r["calls"] for r in pw),
+            "step_s": sum(r["step_s"] for r in pw),
+            "chain_s": sum(r["chain_s"] for r in pw),
+            "buckets": sorted(pw, key=lambda r: -r["s"])[:TOP],
+        },
         "intersect_count_device_s": sum(r["device_s"] for r in by_shape),
         "by_pattern_strategy_s": dict(sorted(by_strat.items(), key=lambda kv: -kv[1])),
         "intersect_count_s": sum(ic_walls.values()),
@@ -362,7 +433,8 @@ def search_launches(kernels, biggest) -> dict:
     for j, (name, (numel, fn, args, _)) in enumerate(sorted(biggest.items())):
         a, b = marks[-2 * len(biggest) + 2 * j], marks[-2 * len(biggest) + 2 * j + 1]
         inner = kernels[a + 1:b]
-        ops_ = args[3:] if name == "intersect_step" else args[-5 if name == "count_id_in_window" else -4:-1]
+        ops_ = args[3:] if name in ("intersect_step", "pair_step") else \
+            args[-5 if name == "count_id_in_window" else -4:-1]
         out[name] = {"elements": numel, "module": fn.__module__, "cuda_launches": len(inner),
                      "device_ms": sum(s for _, _, s in inner) * 1e3,
                      "operands": "/".join(operand_form(v) for v in ops_ if not isinstance(v, tuple))}
@@ -398,7 +470,8 @@ def warm_profiled(session, report, PairCountTrace, biggest) -> None:
         kern[name][0] += sec
         kern[name][1] += 1
     busy = sum(v[0] for v in kern.values())
-    ic = [v for k, v in kern.items() if "intersect_count" in k]
+    ic = [v for k, v in kern.items() if "intersect_count" in k and "intersect_count_step" not in k]
+    pair = [v for k, v in kern.items() if "intersect_count_step" in k]
     ws = [v for k, v in kern.items() if "window_search" in k and "step" not in k]
     step = [v for k, v in kern.items() if "window_search_step" in k]
     report["warm_profiled"] = {
@@ -407,6 +480,8 @@ def warm_profiled(session, report, PairCountTrace, biggest) -> None:
         "device_busy_share": busy / prof_wall if prof_wall else None,
         "intersect_count_kernel_s": sum(v[0] for v in ic),
         "intersect_count_kernel_launches": sum(v[1] for v in ic),
+        "intersect_count_step_kernel_s": sum(v[0] for v in pair),
+        "intersect_count_step_kernel_launches": sum(v[1] for v in pair),
         "window_search_kernel_s": sum(v[0] for v in ws),
         "window_search_kernel_launches": sum(v[1] for v in ws),
         "intersect_step_kernel_s": sum(v[0] for v in step),

@@ -11,11 +11,15 @@ the full size or with their cuts lifted.
     python3 tools/smoke_phases.py --phases wide               # the seven other architectures at full width
     python3 tools/smoke_phases.py --phases examples           # the JAX package's five examples as entry points
     python3 tools/smoke_phases.py --phases search             # window_search's phase-2 cases, both entries
+    python3 tools/smoke_phases.py --phases pairs              # intersect_count's pair_step phase-2 cases
 
 Builds the kernels, prints the card line, and runs, in order:
 
 - ``search``: phase 2's ``window_search`` cases (both entries, every form
   and the hub rows) against their plain version, timed at the hub;
+- ``pairs``: phase 2's ``pair_step`` cases (``intersect_count``'s pw step
+  entry, every form and the mining path's largest pw shapes) against
+  their plain version, timed at the path shapes;
 - ``flash``: phase 2's ``flash_attention`` cases (``FA_CASES``, with
   qwen2-1.5b's prefill launch) against their plain version, timed;
 - ``bwd``: phase 2's backward cases (the short path's ``FA_BWD_CASES``
@@ -107,11 +111,12 @@ def main() -> int:
 
     def zero():
         ic_ops.launches = hu_ops.launches = hu_ops.rows_launches = wd_ops.launches = fa_ops.launches = 0
-        ws_ops.launches = ws_ops.step_launches = 0
+        ic_ops.step_launches = ws_ops.launches = ws_ops.step_launches = 0
         fa_ops.lse_launches = fa_ops.bwd_launches = fa_ops.long_bwd_launches = 0
 
     def read():
-        return {"intersect_count": ic_ops.launches, "hist_update": hu_ops.launches,
+        return {"intersect_count": ic_ops.launches, "intersect_count_step": ic_ops.step_launches,
+                "hist_update": hu_ops.launches,
                 "hist_update_rows": hu_ops.rows_launches, "window_degree": wd_ops.launches,
                 "flash_attention": fa_ops.launches, "flash_attention_lse": fa_ops.lse_launches,
                 "flash_attention_bwd": fa_ops.bwd_launches, "flash_attention_bwd_long": fa_ops.long_bwd_launches,
@@ -126,6 +131,8 @@ def main() -> int:
 
     if "search" in phases:
         timed("search", lambda: cs.phase_window_search(torch.device("cuda"), report))
+    if "pairs" in phases:
+        timed("pairs", lambda: cs.phase_pair_step(torch.device("cuda"), report))
     if "flash" in phases:
         timed("flash", lambda: cs.phase_flash_attention(torch.device("cuda"), report))
     if "bwd" in phases:
